@@ -56,10 +56,12 @@ J30_REFERENCE = dict(status="OPTIMAL", objective=34, n_nodes=2038,
                      n_fails=1078, n_sols=5, n_sweeps=960,
                      n_supersteps=65)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, and the non-tensor-core
-# rate, taken as the peak for the kernel's int32 ALU operations
+# H100 SXM HBM rate (NVIDIA data sheet).  The int32 peak is not in the
+# data sheet: it is the card's SM count x 64 INT32 lanes per SM (NVIDIA
+# Hopper architecture whitepaper) x its maximum SM clock, one operation
+# per lane per clock (phase 1 reads both from the card).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64
 FIXPOINT_SOURCE = "src/repro_torch/kernels/csrc/fixpoint.cu"
 FIXPOINT_REPLACES = "src/repro/kernels/fixpoint_kernel.py:285"
 
@@ -68,24 +70,12 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def random_substores(rng, cm, n):
-    """n stores made by random tells on the root box (the recipe of the
-    repository's test helper ``random_substores``)."""
-    import numpy as np
-    lb0, ub0 = cm.lb0.cpu().numpy(), cm.ub0.cpu().numpy()
-    V = cm.n_vars
-    lbs, ubs = np.tile(lb0, (n, 1)), np.tile(ub0, (n, 1))
-    for i in range(n):
-        for _ in range(int(rng.integers(0, 8))):
-            v = int(rng.integers(1, V))
-            if lb0[v] >= ub0[v]:
-                continue
-            cut = int(rng.integers(lb0[v], ub0[v] + 1))
-            if rng.random() < 0.5:
-                lbs[i, v] = max(lbs[i, v], cut)
-            else:
-                ubs[i, v] = min(ubs[i, v], cut)
-    return lbs, ubs
+def nvidia_smi(query):
+    """First line of ``nvidia-smi --query-gpu=<query>`` (csv, no header)."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
 
 
 def rcpsp_model(n_tasks, device="cuda"):
@@ -100,23 +90,26 @@ def rcpsp_model(n_tasks, device="cuda"):
 # --------------------------------------------------------------------------
 
 def phase_card_and_build():
+    """Returns the card line and the card's int32 peak (operations/s)."""
     import torch
     from repro_torch.kernels import build
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = nvidia_smi("name,power.limit")
     print(f"[1] card: {card}")
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    built = build.build(["fixpoint"])["fixpoint"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    peak_int32 = sms * INT32_LANES_PER_SM * mhz * 1e6
+    print(f"[1] {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x {mhz:.0f} "
+          f"MHz (max SM clock) = {peak_int32 / 1e12:.2f} T int32 op/s")
+    built = build.build("fixpoint")
     print(f"[1] built {os.path.relpath(built.path, ROOT)} in "
           f"{built.seconds:.1f} s")
     for line in built.log.splitlines():
         if any(k in line for k in ("registers", "spill", "stack frame",
                                    "Compiling entry")):
             print(f"[1]   ptxas: {line.strip()}")
-    return card
+    return card, peak_int32
 
 
 # --------------------------------------------------------------------------
@@ -159,6 +152,7 @@ def phase_kernel_vs_plain():
     import torch
     from repro_torch.core import eps
     from repro_torch.solver import SolveConfig
+    from repro_torch.testing import random_substores
     out = {}
     max_err = 0
     for tag, n_tasks, target in (("J30", 30, 1024), ("J60", 60, MAIN_EPS)):
@@ -293,11 +287,15 @@ def cuda_ms(fn, reps, warmup):
     return t0.elapsed_time(t1) / reps
 
 
-def fixpoint_bound_ms(cm, L, sweeps):
+def fixpoint_bound_ms(cm, L, sweeps, peak_int32):
     """Least time for the same work: each table and store read once,
     each output written once, over the HBM rate; the sweeps this run
-    needed times the elementwise integer work of one sweep (linear
-    bank, dense time-table, gather join), over the peak ALU rate."""
+    needed times the int32 work one sweep needs, over the int32 peak.
+    A sweep needs 8·P1·K for the linear bank; 4·C1·T + 2·C1·H for the
+    time-table (each task adds its compulsory part's two ends to a
+    difference array, a prefix sum and a capacity compare per time
+    point build the profile, and each task's first and last start take
+    at least one operation each); 2·V·(D+Dcu) for the gather join."""
     P1, K = cm.vidx.shape
     C1, T = cm.cu_svar.shape
     V, D, Dcu, H = cm.n_vars, cm.d_occ, cm.cu_docc, cm.horizon
@@ -306,15 +304,16 @@ def fixpoint_bound_ms(cm, L, sweeps):
               cm.cu_occ_pos, cm.box_lo, cm.box_hi)
     nbytes = (sum(t.numel() * t.element_size() for t in tables)
               + 4 * L * V * 4 + 2 * L * 4)
-    per_sweep = 8 * P1 * K + 4 * C1 * T * H + 2 * V * (D + Dcu)
+    per_sweep = (8 * P1 * K + 4 * C1 * T + 2 * C1 * H
+                 + 2 * V * (D + Dcu))
     ops = int(sweeps.sum()) * per_sweep
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak_int32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, ops
 
 
-def phase_times(card, models, launches, max_err):
+def phase_times(card, peak_int32, models, launches, max_err):
     import torch
     from repro_torch.core import fixpoint as F
     from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
@@ -328,11 +327,13 @@ def phase_times(card, models, launches, max_err):
                        warmup=1)
     fixpoint_cuda.launches = n0            # timing launches are not counted
     sweeps = F.fixpoint_batch(cm, lb, ub)[2]
-    bound_ms, bound_by, nbytes, ops = fixpoint_bound_ms(cm, L, sweeps)
+    bound_ms, bound_by, nbytes, ops = fixpoint_bound_ms(cm, L, sweeps,
+                                                        peak_int32)
     print(f"[4] fixpoint at [{L}, {cm.n_vars}] (J60 random stores, uncapped, "
           f"{int(sweeps.sum())} lane-sweeps): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{nbytes} B, {ops} int ops) on {card}")
+          f"{nbytes} B, {ops} int32 ops at {peak_int32 / 1e12:.2f} T/s; "
+          f"kernel {ms / bound_ms:.0f}x the bound) on {card}")
     print(f"kernels: fixpoint_cuda launches={launches}")
     return [dict(name="fixpoint_cuda", route="cuda", source=FIXPOINT_SOURCE,
                  replaces=FIXPOINT_REPLACES, launches=launches,
@@ -353,10 +354,10 @@ def main():
               "needs a CUDA GPU", file=sys.stderr)
         return 2
     t0 = time.time()
-    card = phase_card_and_build()
+    card, peak_int32 = phase_card_and_build()
     models, max_err = phase_kernel_vs_plain()
     launches = phase_main_path()
-    kernels = phase_times(card, models, launches, max_err)
+    kernels = phase_times(card, peak_int32, models, launches, max_err)
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

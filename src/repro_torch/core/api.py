@@ -107,7 +107,6 @@ class SolveConfig:
     max_supersteps: Optional[int] = None
     # propagation backend (core/backend.py)
     backend: str = "cuda"
-    backend_opts: Tuple[Tuple[str, Any], ...] = ()
     # search strategy (core/search.py)
     var_strategy: str = S.INPUT_ORDER
     val_strategy: str = S.VAL_MIN
@@ -125,12 +124,6 @@ class SolveConfig:
         def bad(msg):
             raise ValueError(f"SolveConfig: {msg}")
 
-        if isinstance(self.backend_opts, dict):
-            object.__setattr__(self, "backend_opts",
-                               tuple(sorted(self.backend_opts.items())))
-        else:
-            object.__setattr__(self, "backend_opts",
-                               tuple(tuple(kv) for kv in self.backend_opts))
         for name in ("n_lanes", "chunk", "max_depth"):
             v = getattr(self, name)
             if not isinstance(v, int) or v < 1:
@@ -144,10 +137,6 @@ class SolveConfig:
         if self.backend not in available_backends():
             bad(f"unknown backend {self.backend!r}; "
                 f"available: {', '.join(available_backends())}")
-        for kv in self.backend_opts:
-            if len(kv) != 2 or not isinstance(kv[0], str):
-                bad(f"backend_opts must be (name, value) pairs, got "
-                    f"{self.backend_opts!r}")
         if self.var_strategy not in _VAR_STRATEGIES:
             bad(f"var_strategy {self.var_strategy!r} not in "
                 f"{_VAR_STRATEGIES}")
@@ -182,8 +171,7 @@ class SolveConfig:
             var_strategy=self.var_strategy, val_strategy=self.val_strategy,
             max_depth=self.max_depth,
             max_fixpoint_iters=self.max_fixpoint_iters,
-            stop_on_first=self.stop_on_first, backend=self.backend,
-            backend_opts=self.backend_opts)
+            stop_on_first=self.stop_on_first, backend=self.backend)
 
     def resolved_eps_target(self) -> int:
         return (self.eps_target if self.eps_target is not None

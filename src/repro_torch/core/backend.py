@@ -62,11 +62,11 @@ class CudaBackend:
         return fixpoint_cuda(cm, lb, ub, max_sweeps=max_iters)
 
 
-_REGISTRY: Dict[str, Callable[..., PropagationBackend]] = {}
+_REGISTRY: Dict[str, Callable[[], PropagationBackend]] = {}
 
 
 def register_backend(name: str,
-                     factory: Callable[..., PropagationBackend]) -> None:
+                     factory: Callable[[], PropagationBackend]) -> None:
     """Register a backend factory under `name` (last registration wins)."""
     _REGISTRY[name] = factory
 
@@ -75,15 +75,15 @@ def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def get_backend(name: str, **opts) -> PropagationBackend:
-    """Instantiate a registered backend; `opts` go to its factory."""
+def get_backend(name: str) -> PropagationBackend:
+    """Instantiate a registered backend."""
     try:
         factory = _REGISTRY[name]
     except KeyError:
         raise ValueError(
             f"unknown propagation backend {name!r}; "
             f"available: {', '.join(available_backends())}") from None
-    return factory(**opts)
+    return factory()
 
 
 register_backend("gather", GatherBackend)

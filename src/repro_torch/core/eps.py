@@ -42,7 +42,7 @@ def decompose(cm: CompiledModel, target: int,
     """
     opts = opts or S.SearchOptions()
     S._no_middle_out(opts.val_strategy)
-    backend = get_backend(opts.backend, **dict(opts.backend_opts))
+    backend = get_backend(opts.backend)
     lb0 = cm.lb0.cpu().numpy()[None]
     ub0 = cm.ub0.cpu().numpy()[None]
     lb, ub = _propagate(backend, cm, lb0, ub0)

@@ -23,7 +23,7 @@ Compact-Table slice of the port.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,8 +63,6 @@ class SearchOptions:
     # propagation backend for the superstep's lane-batched fixpoint:
     # "cuda" | "gather" (see core/backend.py)
     backend: str = "cuda"
-    # backend construction options; a tuple of (key, value) pairs
-    backend_opts: Tuple = ()
 
 
 class LaneState(NamedTuple):
@@ -372,7 +370,7 @@ def lanes_step(cm: CompiledModel, subs_lb, subs_ub, opts: SearchOptions,
     Returns (state', pool_head')."""
     st, pool_head = dispatch_pool(st, pool_head, subs_lb.shape[0])
     pre = lane_load_tile(subs_lb, subs_ub, st, gbest, obj_var=cm.obj_var)
-    backend = get_backend(opts.backend, **dict(opts.backend_opts))
+    backend = get_backend(opts.backend)
     lb, ub, sweeps, converged = backend.fixpoint_batch(
         cm, pre.lb, pre.ub, max_iters=opts.max_fixpoint_iters)
     st = lane_commit_tile(st, pre, lb, ub, sweeps, converged,

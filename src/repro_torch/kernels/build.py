@@ -6,7 +6,7 @@ at the repository root, named by a hash of the source and the flags, so
 the first call in a fresh checkout builds and every later call (and
 every later process) reuses the file.  Nothing here runs at import time:
 the build starts on first use, which is the first launch on a CUDA
-tensor.  Several sources build in parallel (one ``nvcc`` each).
+tensor.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -60,37 +59,28 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, Built]:
-    """Build every named source that is not on disk yet, all ``nvcc``
-    processes at once; returns one `Built` per name."""
-    out: Dict[str, Built] = {}
-    running = {}
-    for name in names:
-        lib = _target(name)
-        log = lib.with_suffix(".log")
-        if lib.exists() and log.exists():
-            out[name] = Built(name, lib, log.read_text(), 0.0)
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, lib, log, time.perf_counter())
-    for name, (proc, tmp, lib, log, t0) in running.items():
-        report, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-                f"{report}")
-        log.write_text(report)
-        os.replace(tmp, lib)          # atomic: a reader sees all or nothing
-        out[name] = Built(name, lib, report, seconds)
-    return out
+def build(name: str) -> Built:
+    """Build ``csrc/<name>.cu`` unless its library is on disk already."""
+    lib = _target(name)
+    log = lib.with_suffix(".log")
+    if lib.exists() and log.exists():
+        return Built(name, lib, log.read_text(), 0.0)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    log.write_text(proc.stdout)
+    os.replace(tmp, lib)              # atomic: a reader sees all or nothing
+    return Built(name, lib, proc.stdout, seconds)
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    return ctypes.CDLL(str(build([name])[name].path))
+    return ctypes.CDLL(str(build(name).path))

@@ -23,13 +23,14 @@
 // cumulative task table is staged in shared memory.
 //
 // Bound: at the RCPSP J60 shape the work per sweep is integer ALU and
-// shared-memory traffic (the profile build is C1·H·T compares), not
-// device-memory bytes: the stores and tables are read once per launch,
-// so operations bound it.  A CTA runs its lane's sweeps one after the
+// shared-memory traffic, not device-memory bytes: the stores and tables
+// are read once per launch, so int32 operations bound it.  This kernel
+// builds the profile with C1·H·T compares where a difference array and a
+// prefix sum need C1·(T+H); a CTA runs its lane's sweeps one after the
 // other, each a chain of dependent shared-memory and L2 loads with at
-// most a few hundred threads busy, so the kernel runs well above that
-// bound (PERF.md has the times); nothing in this design addresses that
-// yet.  The kernel allocates nothing and launches on the caller's stream.
+// most a few hundred threads busy.  So it runs well above that bound
+// (PERF.md has the times); nothing in this design addresses that yet.
+// The kernel allocates nothing and launches on the caller's stream.
 //
 // Arithmetic: int32 only (the wrapper rejects int64 models).  Floor and
 // ceil division follow `_fdiv`/`_cdiv` (C++ `/` truncates toward zero).
@@ -41,6 +42,7 @@
 
 namespace {
 
+constexpr int THREADS = 256;              // threads per CTA (one lane)
 constexpr int32_t BIG = 0x7fffffff / 4;   // iinfo(int32).max // 4
 constexpr int32_t NEU_UB = BIG;
 constexpr int32_t NEU_LB = -BIG;
@@ -88,7 +90,7 @@ __device__ __forceinline__ bool bad_at(const int32_t* prof_c, int tau,
   return prof_c[tau] - own + q > cap;
 }
 
-__global__ void fixpoint_kernel(Params p) {
+__global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
   extern __shared__ int32_t smem[];
   const int V = p.V, P1 = p.P1, K = p.K, K1 = p.K + 1, C1 = p.C1,
             T = p.T, H = p.H;
@@ -111,7 +113,7 @@ __global__ void fixpoint_kernel(Params p) {
   int32_t* ovl = t_cap + C1;             // [C1]
 
   const int lane = blockIdx.x;
-  const int tid = threadIdx.x, nth = blockDim.x;
+  const int tid = threadIdx.x, nth = THREADS;
   const size_t row = (size_t)lane * V;
 
   int my_failed = 0;
@@ -323,7 +325,7 @@ int fixpoint_launch(const int32_t* vidx, const int32_t* coef,
                     int32_t* lb_out, int32_t* ub_out, int32_t* sweeps,
                     int32_t* conv, int L, int V, int P1, int K, int D,
                     int C1, int T, int Dcu, int H, int n_cumulative,
-                    int max_sweeps, int threads, void* stream) {
+                    int max_sweeps, void* stream) {
   Params p{vidx, coef, rhs, bidx, occ_prop, occ_slot, cu_svar, cu_dur,
            cu_dem, cu_cap, cu_occ_inst, cu_occ_pos, box_lo, box_hi,
            lb_in, ub_in, lb_out, ub_out, sweeps, conv,
@@ -333,7 +335,7 @@ int fixpoint_launch(const int32_t* vidx, const int32_t* coef,
       fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fixpoint_kernel<<<L, threads, smem, (cudaStream_t)stream>>>(p);
+  fixpoint_kernel<<<L, THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

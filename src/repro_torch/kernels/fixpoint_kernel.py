@@ -27,7 +27,6 @@ from repro_torch.core import fixpoint as F
 
 # shared memory one H100 block may use (232,448 bytes = 227 KB)
 SMEM_LIMIT_BYTES = 227 * 1024
-THREADS = 256
 UNCAPPED = 2 ** 31 - 1
 
 
@@ -71,7 +70,7 @@ def _lib():
     lib = load("fixpoint")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fixpoint_launch.argtypes = [ptr] * 20 + [i32] * 12 + [ptr]
+        lib.fixpoint_launch.argtypes = [ptr] * 20 + [i32] * 11 + [ptr]
         lib.fixpoint_launch.restype = i32
         lib.fixpoint_error_string.argtypes = [i32]
         lib.fixpoint_error_string.restype = ctypes.c_char_p
@@ -132,7 +131,7 @@ def fixpoint_cuda(cm, lb, ub, *, max_sweeps=None):
         cm.box_hi.data_ptr(), lb.data_ptr(), ub.data_ptr(),
         lb_out.data_ptr(), ub_out.data_ptr(), sweeps.data_ptr(),
         conv.data_ptr(), L, V, P1, K, cm.occ_prop.shape[1], C1, T,
-        cm.cu_occ_inst.shape[1], cm.horizon, cm.n_cumulative, cap, THREADS,
+        cm.cu_occ_inst.shape[1], cm.horizon, cm.n_cumulative, cap,
         torch.cuda.current_stream(lb.device).cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -23,6 +23,7 @@ from repro_torch.core import fixpoint as TF
 from repro_torch.core.backend import get_backend
 from repro_torch.core.model import Model
 from repro_torch.kernels import fixpoint_kernel as TK
+from repro_torch.testing import random_substores as port_random_substores
 from test_torch_compile import bench, j30, port_from_jax, small
 from util import random_model, random_substores
 
@@ -90,6 +91,18 @@ def test_rcpsp_matches_pallas_interpret(max_sweeps):
     got = _port_run(port_from_jax(jcm), lbs, ubs, max_sweeps)
     _assert_equal_runs(ref, got)
     assert len(set(got[2].tolist())) > 1      # counts differ per lane
+
+
+def test_port_random_substores_equals_the_test_helper():
+    """`repro_torch.testing.random_substores` (what the card runs use)
+    gives the same stores from the same seed as `util.random_substores`."""
+    jcm = _jax_rcpsp(j30(0))
+    tcm = port_from_jax(jcm)
+    ref = random_substores(np.random.default_rng(4), jcm, 32)
+    got = port_random_substores(np.random.default_rng(4), tcm, 32)
+    for r, g in zip(ref, got):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(g, r)
 
 
 def test_single_store_fixpoint_is_one_lane_of_the_batch():

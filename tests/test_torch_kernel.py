@@ -21,6 +21,7 @@ from repro_torch.core.model import Model
 from repro_torch.core.models import rcpsp
 from repro_torch.kernels import build
 from repro_torch.kernels import fixpoint_kernel as K
+from repro_torch.testing import random_substores
 
 torch.set_num_threads(1)      # tiny tensors: thread hand-offs cost more
 
@@ -34,20 +35,9 @@ def _rcpsp(kw, seed=0, device="cpu"):
 
 
 def _random_stores(cm, n, seed):
-    """n stores made by random tells on the root box."""
-    rng = np.random.default_rng(seed)
-    lb0, ub0 = cm.lb0.cpu().numpy(), cm.ub0.cpu().numpy()
-    lbs, ubs = np.tile(lb0, (n, 1)), np.tile(ub0, (n, 1))
-    for i in range(n):
-        for _ in range(int(rng.integers(0, 8))):
-            v = int(rng.integers(1, cm.n_vars))
-            if lb0[v] >= ub0[v]:
-                continue
-            cut = int(rng.integers(lb0[v], ub0[v] + 1))
-            if rng.random() < 0.5:
-                lbs[i, v] = max(lbs[i, v], cut)
-            else:
-                ubs[i, v] = min(ubs[i, v], cut)
+    """n stores made by random tells on the root box, on the model's
+    device."""
+    lbs, ubs = random_substores(np.random.default_rng(seed), cm, n)
     dev = cm.device
     return torch.from_numpy(lbs).to(dev), torch.from_numpy(ubs).to(dev)
 
