@@ -7,8 +7,9 @@ Phases, in order; any error or mismatch ends the run with a non-zero
 exit code and no result line:
 
 1. card and build: the card line of ``nvidia-smi``, torch and CUDA
-   versions; ``nvcc`` builds ``kernels/csrc/fixpoint.cu`` for sm_90a and
-   its ``-Xptxas -v`` report (registers, shared memory) is printed;
+   versions; ``nvcc`` builds ``kernels/csrc/fixpoint.cu`` and
+   ``kernels/csrc/search.cu`` for sm_90a, both at once, and their
+   ``-Xptxas -v`` reports (registers, shared memory) are printed;
 2. kernel against plain version: ``fixpoint_cuda`` against the plain
    PyTorch ``fixpoint_batch``, on the card, on RCPSP J30- and J60-class
    models, for 1024 random stores (random tells on the root box, from a
@@ -24,7 +25,26 @@ exit code and no result line:
    identical results, equal to the JAX package's;
 4. times: the kernel and its plain version per launch (CUDA events) at
    the main path's shape ``[1024, 62]``, on phase 2's J60 random stores,
-   beside the least time the card could take for that work.
+   beside the least time the card could take for that work;
+5. resident kernel against plain version: ``search_cuda`` against
+   ``search_plain`` on the card, on J30 (256 lanes) and J60 (1024 lanes)
+   class models with phase 2's EPS pools, from fresh lanes, from the
+   state after 5 plain supersteps (decision paths) and from the states 8
+   supersteps before and after the first solution (incumbents, bound
+   tells, ``stop_on_first`` tripping mid-launch and a stopped state),
+   under the ``prove``, ``fast`` and ``first_solution`` presets, at K =
+   1, 4 and 16 supersteps per launch: every LaneState field, the bound,
+   the superstep count, the pool cursor and the stop flag must be
+   equal;
+6. resident main path: the J60-class instance solved end to end through
+   ``Solver(SolveConfig.preset("prove", backend="cuda_resident",
+   supersteps_per_launch=16, n_lanes=1024, eps_target=4096))``, with the
+   launch counters set to 0 just before and read just after; status,
+   objective and every counter must equal phase 3's ``cuda`` solve, and
+   the solution is ground-checked;
+7. times: ``search_cuda`` and ``search_plain`` per launch (CUDA events)
+   at the main path's shape (1024 lanes, K=16, from phase 5's J60 state
+   after 5 supersteps), beside the least time the card could take.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -64,6 +84,17 @@ PEAK_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
 FIXPOINT_SOURCE = "src/repro_torch/kernels/csrc/fixpoint.cu"
 FIXPOINT_REPLACES = "src/repro/kernels/fixpoint_kernel.py:285"
+SEARCH_SOURCE = "src/repro_torch/kernels/csrc/search.cu"
+SEARCH_REPLACES = "src/repro/kernels/fixpoint_kernel.py:520"
+# phases 5-7: the resident search kernel
+SEARCH_PRESETS = ("prove", "fast", "first_solution")
+SEARCH_K = (1, 4, 16)
+WARM_STEPS = 5             # plain supersteps before the second start
+FIRST_SOL_MAX = 512        # cap on the search for the first solution
+J30_SEARCH_LANES = 256
+MAIN_K = 16                # supersteps per launch on the main path
+COUNTERS = ("status", "objective", "n_nodes", "n_fails", "n_sols",
+            "n_sweeps", "n_supersteps")
 
 
 def fail(msg):
@@ -102,13 +133,13 @@ def phase_card_and_build():
     peak_int32 = sms * INT32_LANES_PER_SM * mhz * 1e6
     print(f"[1] {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x {mhz:.0f} "
           f"MHz (max SM clock) = {peak_int32 / 1e12:.2f} T int32 op/s")
-    built = build.build("fixpoint")
-    print(f"[1] built {os.path.relpath(built.path, ROOT)} in "
-          f"{built.seconds:.1f} s")
-    for line in built.log.splitlines():
-        if any(k in line for k in ("registers", "spill", "stack frame",
-                                   "Compiling entry")):
-            print(f"[1]   ptxas: {line.strip()}")
+    for built in build.build_all(["fixpoint", "search"]):
+        print(f"[1] built {os.path.relpath(built.path, ROOT)} in "
+              f"{built.seconds:.1f} s")
+        for line in built.log.splitlines():
+            if any(k in line for k in ("registers", "spill", "stack frame",
+                                       "Compiling entry")):
+                print(f"[1]   ptxas: {line.strip()}")
     return card, peak_int32
 
 
@@ -189,7 +220,7 @@ def phase_kernel_vs_plain():
                   f"{whole}/{len(batches)} batches equal in every store; "
                   f"sweeps mean {sw.float().mean().item():.2f} "
                   f"max {int(sw.max())}")
-        out[tag] = (cm, lbs, ubs)
+        out[tag] = (cm, lbs, ubs, plb, pub)
     return out, max_err
 
 
@@ -229,7 +260,9 @@ def phase_main_path():
           f"nodes={res.n_nodes} ({res.nodes_per_sec:.0f}/s) "
           f"fails={res.n_fails} sols={res.n_sols} sweeps={res.n_sweeps} "
           f"supersteps={steps} wall={res.wall_s:.2f} s "
-          f"eps={res.eps_s:.2f} s ({per_step:.2f} ms/superstep after EPS) "
+          f"eps={res.eps_s:.2f} s, search "
+          f"{(res.wall_s - res.eps_s) * 1e3:.1f} ms ({per_step:.3f} "
+          f"ms/superstep after EPS) "
           f"kernel launches={launches} (EPS {launches - steps}, "
           f"supersteps {steps}); ground check OK")
     if res.status != "OPTIMAL" or res.objective != J60_OPTIMUM:
@@ -265,7 +298,7 @@ def phase_main_path():
             fail(f"J30: {k} = {a}, the JAX package gives {ref}")
     print("[3] J30: cuda == gather == JAX reference on "
           + ", ".join(J30_REFERENCE))
-    return launches
+    return launches, res
 
 
 # --------------------------------------------------------------------------
@@ -287,26 +320,34 @@ def cuda_ms(fn, reps, warmup):
     return t0.elapsed_time(t1) / reps
 
 
-def fixpoint_bound_ms(cm, L, sweeps, peak_int32):
-    """Least time for the same work: each table and store read once,
-    each output written once, over the HBM rate; the sweeps this run
-    needed times the int32 work one sweep needs, over the int32 peak.
-    A sweep needs 8·P1·K for the linear bank; 4·C1·T + 2·C1·H for the
-    time-table (each task adds its compulsory part's two ends to a
-    difference array, a prefix sum and a capacity compare per time
-    point build the profile, and each task's first and last start take
-    at least one operation each); 2·V·(D+Dcu) for the gather join."""
-    P1, K = cm.vidx.shape
-    C1, T = cm.cu_svar.shape
-    V, D, Dcu, H = cm.n_vars, cm.d_occ, cm.cu_docc, cm.horizon
+def table_bytes(cm):
+    """Bytes of the propagator tables the kernels read."""
     tables = (cm.vidx, cm.coef, cm.rhs, cm.bidx, cm.occ_prop, cm.occ_slot,
               cm.cu_svar, cm.cu_dur, cm.cu_dem, cm.cu_cap, cm.cu_occ_inst,
               cm.cu_occ_pos, cm.box_lo, cm.box_hi)
-    nbytes = (sum(t.numel() * t.element_size() for t in tables)
-              + 4 * L * V * 4 + 2 * L * 4)
-    per_sweep = (8 * P1 * K + 4 * C1 * T + 2 * C1 * H
-                 + 2 * V * (D + Dcu))
-    ops = int(sweeps.sum()) * per_sweep
+    return sum(t.numel() * t.element_size() for t in tables)
+
+
+def ops_per_sweep(cm):
+    """The int32 work one fixpoint sweep of one lane needs: 8·P1·K for
+    the linear bank; 4·C1·T + 2·C1·H for the time-table (each task adds
+    its compulsory part's two ends to a difference array, a prefix sum
+    and a capacity compare per time point build the profile, and each
+    task's first and last start take at least one operation each);
+    2·V·(D+Dcu) for the gather join."""
+    P1, K = cm.vidx.shape
+    C1, T = cm.cu_svar.shape
+    V, D, Dcu, H = cm.n_vars, cm.d_occ, cm.cu_docc, cm.horizon
+    return 8 * P1 * K + 4 * C1 * T + 2 * C1 * H + 2 * V * (D + Dcu)
+
+
+def fixpoint_bound_ms(cm, L, sweeps, peak_int32):
+    """Least time for the same work: each table and store read once,
+    each output written once, over the HBM rate; the sweeps this run
+    needed times `ops_per_sweep`, over the int32 peak."""
+    V = cm.n_vars
+    nbytes = table_bytes(cm) + 4 * L * V * 4 + 2 * L * 4
+    ops = int(sweeps.sum()) * ops_per_sweep(cm)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_int32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -317,7 +358,7 @@ def phase_times(card, peak_int32, models, launches, max_err):
     import torch
     from repro_torch.core import fixpoint as F
     from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
-    cm, lbs, ubs = models["J60"]
+    cm, lbs, ubs, _, _ = models["J60"]
     lb = torch.from_numpy(lbs[:MAIN_LANES]).cuda()
     ub = torch.from_numpy(ubs[:MAIN_LANES]).cuda()
     L = lb.shape[0]
@@ -341,6 +382,185 @@ def phase_times(card, peak_int32, models, launches, max_err):
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
 
 
+# --------------------------------------------------------------------------
+# phase 5: resident search kernel against plain version
+# --------------------------------------------------------------------------
+
+def search_kwargs(preset):
+    from repro_torch.solver import SolveConfig
+    opts = SolveConfig.preset(preset, backend="cuda_resident").search_options()
+    return opts, dict(max_fixpoint_iters=opts.max_fixpoint_iters,
+                      var_strategy=opts.var_strategy,
+                      val_strategy=opts.val_strategy,
+                      stop_on_first=opts.stop_on_first)
+
+
+def max_abs_diff(ref, got):
+    """Largest |difference| over every LaneState field and the four
+    scalars of two resident-launch results."""
+    err = 0
+    for a, b in zip(ref[0], got[0]):
+        if a is not None and a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    for a, b in zip(ref[1:], got[1:]):
+        err = max(err, abs(int(a) - int(b)))
+    return err
+
+
+def phase_search_vs_plain(models):
+    import torch
+    from repro_torch.kernels.fixpoint_kernel import (search_cuda,
+                                                     search_grid,
+                                                     search_plain)
+    from repro_torch.testing import search_diff, search_inputs
+    n0 = search_cuda.launches
+    max_err = 0
+    timing_state = None
+    for tag, lanes in (("J30", J30_SEARCH_LANES), ("J60", MAIN_LANES)):
+        cm, _, _, plb, pub = models[tag]
+        # the superstep that finds the first solution, from fresh lanes
+        opts, kw = search_kwargs("first_solution")
+        inputs = search_inputs(cm, lanes, None, opts, pool=(plb, pub))
+        out = search_plain(cm, *inputs[:3], inputs[3], 0, inputs[4],
+                           supersteps=FIRST_SOL_MAX, **kw)
+        if not bool(out[4]):
+            fail(f"{tag}: no solution in {FIRST_SOL_MAX} supersteps")
+        first = int(out[2])
+        starts = sorted({0, WARM_STEPS, max(first - 8, 0), first + 8})
+        print(f"[5] {tag}: {lanes} lanes on {search_grid(cm, lanes)} CTAs "
+              f"(cooperative grid), EPS pool {plb.shape[0]}; first solution "
+              f"at superstep {first}; starts after "
+              f"{', '.join(map(str, starts))} plain supersteps")
+        for preset in SEARCH_PRESETS:
+            opts, kw = search_kwargs(preset)
+            slb, sub, st, gbest, head = search_inputs(cm, lanes, None, opts,
+                                                      pool=(plb, pub))
+            cur, done_steps = (st, gbest, 0, head), 0
+            for n in starts:
+                if n > done_steps:
+                    cur = search_plain(cm, slb, sub, *cur,
+                                       supersteps=n - done_steps, **kw)[:4]
+                    done_steps = n
+                if n == WARM_STEPS and tag == "J60" and preset == "prove":
+                    timing_state = (cm, slb, sub, cur, kw)
+                for k in SEARCH_K:
+                    ref = search_plain(cm, slb, sub, *cur, supersteps=k,
+                                       **kw)
+                    got = search_cuda(cm, slb, sub, *cur, supersteps=k,
+                                      **kw)
+                    torch.cuda.synchronize()
+                    bad = search_diff(ref, got)
+                    if bad:
+                        fail(f"{tag} {preset} from superstep {int(cur[2])}, "
+                             f"K={k}: search_cuda differs from search_plain "
+                             f"in {', '.join(bad)}")
+                    max_err = max(max_err, max_abs_diff(ref, got))
+                st0, st16 = cur[0], ref[0]
+                print(f"[5] {tag} {preset} from superstep {int(cur[2])} "
+                      f"({int(st0.has_sol.sum())} lanes with a solution): "
+                      f"K={','.join(map(str, SEARCH_K))} equal on every "
+                      f"field; after K={SEARCH_K[-1]}: it={int(ref[2])} "
+                      f"nodes={int(st16.n_nodes.sum())} "
+                      f"sols={int(st16.n_sols.sum())} gbest={int(ref[1])} "
+                      f"head={int(ref[3])} stopped={bool(ref[4])}")
+    search_cuda.launches = n0          # comparison launches are not counted
+    return timing_state, max_err
+
+
+# --------------------------------------------------------------------------
+# phase 6: the resident main path
+# --------------------------------------------------------------------------
+
+def phase_resident_path(ref):
+    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda, search_cuda
+    from repro_torch.solver import SolveConfig
+    cfg = SolveConfig.preset(
+        "prove", backend="cuda_resident", supersteps_per_launch=MAIN_K,
+        n_lanes=MAIN_LANES, eps_target=MAIN_EPS, timeout_s=MAIN_TIMEOUT_S)
+    fixpoint_cuda.launches = 0
+    search_cuda.launches = 0
+    res = solve(60, cfg)
+    launches = search_cuda.launches
+    eps_launches = fixpoint_cuda.launches
+    steps = res.n_supersteps
+    per_step = (res.wall_s - res.eps_s) / max(steps, 1) * 1e3
+    print(f"[6] J60 resident path (cuda_resident, K={MAIN_K}, {MAIN_LANES} "
+          f"lanes, eps_target {MAIN_EPS}): {res.status} "
+          f"objective={res.objective} nodes={res.n_nodes} "
+          f"({res.nodes_per_sec:.0f}/s) fails={res.n_fails} "
+          f"sols={res.n_sols} sweeps={res.n_sweeps} supersteps={steps} "
+          f"wall={res.wall_s:.2f} s eps={res.eps_s:.2f} s, search "
+          f"{(res.wall_s - res.eps_s) * 1e3:.1f} ms "
+          f"({per_step:.3f} ms/superstep after EPS) search_cuda "
+          f"launches={launches}, fixpoint_cuda launches={eps_launches} "
+          f"(EPS); ground check OK")
+    for k in COUNTERS:
+        if getattr(res, k) != getattr(ref, k):
+            fail(f"J60: cuda_resident {k} = {getattr(res, k)}, the cuda "
+                 f"backend gives {getattr(ref, k)}")
+    print("[6] J60: cuda_resident == cuda on " + ", ".join(COUNTERS))
+    if launches == 0 or launches < -(-steps // MAIN_K):
+        fail(f"J60: {launches} search_cuda launches for {steps} supersteps")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 7: resident kernel times
+# --------------------------------------------------------------------------
+
+def search_bound_ms(cm, start, out, peak_int32):
+    """Least time for one launch's work: the LaneState read once and
+    written once (bools one byte each) and the tables read once, over
+    the HBM rate; the sweeps this launch needed times `ops_per_sweep`,
+    plus, per lane and live superstep, the commit's solved/failed checks
+    (2·V) and branch selection (3·B), over the int32 peak.  Dispatch,
+    the tells and backtracking are counted as nothing, so this is a
+    lower bound."""
+    st_in, st_out = start[0], out[0]
+    L, V = st_in.lb.shape
+    B = int(cm.branch_vars.shape[0])
+    steps = int(out[2]) - int(start[2])
+    sweeps = int(st_out.n_sweeps.long().sum() - st_in.n_sweeps.long().sum())
+    state = sum(a.numel() * a.element_size() for a in st_in
+                if a is not None)
+    nbytes = 2 * state + table_bytes(cm)
+    ops = sweeps * ops_per_sweep(cm) + steps * L * (2 * V + 3 * B)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / peak_int32 * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops, steps, sweeps)
+
+
+def phase_search_times(card, peak_int32, timing_state, launches, max_err):
+    from repro_torch.kernels.fixpoint_kernel import search_cuda, search_plain
+    cm, slb, sub, start, kw = timing_state
+    n0 = search_cuda.launches
+    out = search_cuda(cm, slb, sub, *start, supersteps=MAIN_K, **kw)
+    ms = cuda_ms(lambda: search_cuda(cm, slb, sub, *start,
+                                     supersteps=MAIN_K, **kw),
+                 reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: search_plain(cm, slb, sub, *start,
+                                            supersteps=MAIN_K, **kw),
+                       reps=2, warmup=1)
+    search_cuda.launches = n0             # timing launches are not counted
+    bound_ms, bound_by, nbytes, ops, steps, sweeps = search_bound_ms(
+        cm, start, out, peak_int32)
+    L = start[0].lb.shape[0]
+    print(f"[7] search at {L} lanes, K={MAIN_K} (J60, prove, from the state "
+          f"after {WARM_STEPS}; {steps} live supersteps, {sweeps} "
+          f"lane-sweeps): kernel {ms:.4f} ms per launch "
+          f"({ms / max(steps, 1):.4f} ms per superstep), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{nbytes} B, {ops} int32 ops at {peak_int32 / 1e12:.2f} T/s; "
+          f"kernel {ms / bound_ms:.0f}x the bound); library: none "
+          f"(no PyTorch call computes a superstep) on {card}")
+    print(f"kernels: search_cuda launches={launches}")
+    return dict(name="search_cuda", route="cuda", source=SEARCH_SOURCE,
+                replaces=SEARCH_REPLACES, launches=launches,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
 def main():
     try:
         import repro_torch  # noqa: F401
@@ -356,8 +576,12 @@ def main():
     t0 = time.time()
     card, peak_int32 = phase_card_and_build()
     models, max_err = phase_kernel_vs_plain()
-    launches = phase_main_path()
+    launches, cuda_res = phase_main_path()
     kernels = phase_times(card, peak_int32, models, launches, max_err)
+    timing_state, search_err = phase_search_vs_plain(models)
+    search_launches = phase_resident_path(cuda_res)
+    kernels.append(phase_search_times(card, peak_int32, timing_state,
+                                      search_launches, search_err))
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,12 +6,19 @@ reference's named presets (``prove``, ``first_solution``, ``fast``) and
 one field the reference does not have: ``device`` (``cuda`` unless the
 caller asks for ``cpu``; a missing GPU raises).  `Solver.solve_iter`
 decomposes the root (`eps.decompose`), pads the pool to its `_bucket`
-with explicitly failed stores, and drives `search.lanes_step` from a
-host loop: one superstep at a time, in chunks of ``chunk`` supersteps,
-stopping on the exact superstep where the reference's ``while_loop``
-stops.  Each superstep ends with one host read of the global done flag
-(one device synchronisation per superstep).  PyTorch runs eagerly, so
-there is no compiled-runner cache.
+with explicitly failed stores, and drives the search from a host loop
+in quanta (`_run_chunk`), stopping on the exact superstep where the
+reference's ``while_loop`` stops:
+
+* ``gather`` and ``cuda``: up to ``chunk`` `search.lanes_step`
+  supersteps, each ending with one host read of the global done flag
+  (one device synchronisation per superstep);
+* ``cuda_resident``: one launch of the resident search kernel covering
+  ``supersteps_per_launch`` supersteps (default 16), after which the
+  host reads the superstep count and the stop flag once.
+
+Timeouts and ``max_supersteps`` are checked once per quantum.  PyTorch
+runs eagerly, so there is no compiled-runner cache.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from repro_torch.core import eps
 from repro_torch.core import search as S
-from repro_torch.core.backend import available_backends
+from repro_torch.core.backend import available_backends, get_backend
 from repro_torch.core.compile import CompiledModel
 from repro_torch.core.device import resolve_device
 
@@ -107,6 +114,8 @@ class SolveConfig:
     max_supersteps: Optional[int] = None
     # propagation backend (core/backend.py)
     backend: str = "cuda"
+    # cuda_resident only: supersteps per kernel launch (None → 16)
+    supersteps_per_launch: Optional[int] = None
     # search strategy (core/search.py)
     var_strategy: str = S.INPUT_ORDER
     val_strategy: str = S.VAL_MIN
@@ -128,10 +137,15 @@ class SolveConfig:
             v = getattr(self, name)
             if not isinstance(v, int) or v < 1:
                 bad(f"{name} must be a positive int, got {v!r}")
-        for name in ("eps_target", "max_supersteps", "max_fixpoint_iters"):
+        for name in ("eps_target", "max_supersteps", "max_fixpoint_iters",
+                     "supersteps_per_launch"):
             v = getattr(self, name)
             if v is not None and (not isinstance(v, int) or v < 1):
                 bad(f"{name} must be None or a positive int, got {v!r}")
+        if (self.supersteps_per_launch is not None
+                and self.backend != "cuda_resident"):
+            bad("supersteps_per_launch is only meaningful with "
+                "backend='cuda_resident'")
         if self.timeout_s is not None and not self.timeout_s > 0:
             bad(f"timeout_s must be None or > 0, got {self.timeout_s!r}")
         if self.backend not in available_backends():
@@ -172,6 +186,10 @@ class SolveConfig:
             max_depth=self.max_depth,
             max_fixpoint_iters=self.max_fixpoint_iters,
             stop_on_first=self.stop_on_first, backend=self.backend)
+
+    def resolved_supersteps(self) -> int:
+        return (16 if self.supersteps_per_launch is None
+                else self.supersteps_per_launch)
 
     def resolved_eps_target(self) -> int:
         return (self.eps_target if self.eps_target is not None
@@ -221,16 +239,34 @@ def _init_carry(cm: CompiledModel, n_lanes: int,
 
 
 def _run_chunk(opts: S.SearchOptions, stop_on_first: bool, chunk: int,
-               cm: CompiledModel, subs_lb, subs_ub, carry: Carry) -> Carry:
-    """Up to `chunk` supersteps, stopping after the superstep that sets
-    the global done flag (the reference's ``while_loop`` condition)."""
+               cm: CompiledModel, subs_lb, subs_ub, carry: Carry, *,
+               supersteps: int = 16) -> Carry:
+    """One scheduler quantum.
+
+    * ``cuda_resident``: ONE launch of the resident search kernel
+      covering `supersteps` supersteps (`chunk` is not consulted); the
+      kernel derives the global done flag each superstep and runs
+      identity steps once it is set, and the host reads the superstep
+      count and the stop flag once per launch;
+    * otherwise up to `chunk` `lanes_step` supersteps, stopping after
+      the superstep that sets the global done flag (the reference's
+      ``while_loop`` condition).
+    """
     st, gbest, gdone, it, pool_head = carry
+    if opts.backend == "cuda_resident":
+        st, gbest, it_t, pool_head, stopped = get_backend(
+            opts.backend).superstep_launch(
+                cm, subs_lb, subs_ub, st, gbest, it, pool_head, opts=opts,
+                supersteps=supersteps)
+        it, stop = torch.stack((it_t.to(torch.int32),
+                                stopped.to(torch.int32))).tolist()
+        return Carry(st, gbest, bool(stop), it, pool_head)
     for _ in range(chunk):
         if gdone:
             break
         st, pool_head = S.lanes_step(cm, subs_lb, subs_ub, opts, st, gbest,
                                      pool_head)
-        gbest = torch.minimum(gbest, st.best_obj.min())
+        gbest = torch.minimum(gbest, S.lanes_best(st))
         done = st.done.all()
         if stop_on_first:
             done = done | st.has_sol.any()
@@ -339,7 +375,8 @@ class Solver:
         best_seen = torch.iinfo(cm.tdtype).max // 4
         while True:
             carry = _run_chunk(opts, cfg.stop_on_first, cfg.chunk, cm,
-                               subs_lb, subs_ub, carry)
+                               subs_lb, subs_ub, carry,
+                               supersteps=cfg.resolved_supersteps())
             st = carry.st
             wall = time.time() - t0
             superstep = carry.it

@@ -2,18 +2,22 @@
 
 Search and EPS only need ``fixpoint_batch(cm, lb, ub)``: a whole
 ``[n_lanes, V]`` store tensor to its per-lane fixed points in one call.
-Two backends register here:
+Three backends register here:
 
-  ``gather``  the plain PyTorch sweep (`fixpoint.fixpoint_batch`);
-  ``cuda``    the hand-written Hopper kernel
-              (`kernels/fixpoint_kernel.fixpoint_cuda`), counterpart of
-              the reference's ``pallas`` backend.  On CPU tensors its
-              wrapper runs the plain version; on CUDA tensors it
-              launches the kernel or raises — there is no fallback.
+  ``gather``         the plain PyTorch sweep (`fixpoint.fixpoint_batch`);
+  ``cuda``           the hand-written Hopper kernel
+                     (`kernels/fixpoint_kernel.fixpoint_cuda`),
+                     counterpart of the reference's ``pallas`` backend;
+  ``cuda_resident``  ``cuda``'s fixpoint, plus `superstep_launch`: K
+                     whole supersteps per launch of the resident search
+                     kernel (`kernels/fixpoint_kernel.search_cuda`),
+                     counterpart of ``pallas_resident``.
 
-Both return ``(lb', ub', sweeps[L], converged[L])`` with *per-lane*
-sweep counts, identical between the two (and to the reference's gather
-and pallas backends).
+On CPU tensors the kernel wrappers run their plain versions; on CUDA
+tensors they launch the kernel or raise — there is no fallback.  Every
+``fixpoint_batch`` returns ``(lb', ub', sweeps[L], converged[L])`` with
+*per-lane* sweep counts, identical between the backends (and to the
+reference's gather and pallas backends).
 """
 
 from __future__ import annotations
@@ -62,6 +66,30 @@ class CudaBackend:
         return fixpoint_cuda(cm, lb, ub, max_sweeps=max_iters)
 
 
+class CudaResidentBackend(CudaBackend):
+    """The resident search kernel: the host chunk scheduler
+    (`core/api._run_chunk`) calls `superstep_launch` once per K
+    supersteps instead of driving `search.lanes_step` per superstep.
+    As a plain `PropagationBackend` (EPS `decompose`) it is ``cuda``.
+    Only the one-queue mode of the reference (``lane_tile=0``) is
+    ported, so the dispatch trajectory equals the unfused loop's."""
+
+    name = "cuda_resident"
+
+    def superstep_launch(self, cm, subs_lb, subs_ub, st, gbest, it,
+                         pool_head, *, opts, supersteps: int):
+        """One launch of K = `supersteps` supersteps; returns
+        ``(st', gbest', it', pool_head', stopped)``."""
+        from repro_torch.kernels.fixpoint_kernel import search_cuda
+        return search_cuda(
+            cm, subs_lb, subs_ub, st, gbest, it, pool_head,
+            supersteps=supersteps,
+            max_fixpoint_iters=opts.max_fixpoint_iters,
+            var_strategy=opts.var_strategy,
+            val_strategy=opts.val_strategy,
+            stop_on_first=opts.stop_on_first)
+
+
 _REGISTRY: Dict[str, Callable[[], PropagationBackend]] = {}
 
 
@@ -88,3 +116,4 @@ def get_backend(name: str) -> PropagationBackend:
 
 register_backend("gather", GatherBackend)
 register_backend("cuda", CudaBackend)
+register_backend("cuda_resident", CudaResidentBackend)

@@ -61,7 +61,7 @@ class SearchOptions:
     max_fixpoint_iters: Optional[int] = None
     stop_on_first: bool = False      # satisfaction: stop at first solution
     # propagation backend for the superstep's lane-batched fixpoint:
-    # "cuda" | "gather" (see core/backend.py)
+    # "cuda" | "cuda_resident" | "gather" (see core/backend.py)
     backend: str = "cuda"
 
 
@@ -378,6 +378,12 @@ def lanes_step(cm: CompiledModel, subs_lb, subs_ub, opts: SearchOptions,
                           var_strategy=opts.var_strategy,
                           val_strategy=opts.val_strategy)
     return st, pool_head
+
+
+def lanes_best(st: LaneState):
+    """Cross-lane incumbent (the shared global-memory bound of the
+    paper), a 0-d tensor."""
+    return st.best_obj.min()
 
 
 def lane_totals(st: LaneState) -> dict:

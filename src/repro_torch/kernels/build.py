@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles into its
 own shared library for ``sm_90a`` (Hopper).  Libraries go to ``build/``
-at the repository root, named by a hash of the source and the flags, so
-the first call in a fresh checkout builds and every later call (and
-every later process) reuses the file.  Nothing here runs at import time:
+at the repository root, named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so the first call in a fresh
+checkout builds and every later call (and every later process) reuses
+the file; an edited header rebuilds every library.  Nothing here runs at import time:
 the build starts on first use, which is the first launch on a CUDA
 tensor.
 """
@@ -12,6 +13,7 @@ tensor.
 from __future__ import annotations
 
 import ctypes
+import concurrent.futures
 import dataclasses
 import functools
 import hashlib
@@ -54,9 +56,11 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Built:
@@ -78,6 +82,13 @@ def build(name: str) -> Built:
     log.write_text(proc.stdout)
     os.replace(tmp, lib)              # atomic: a reader sees all or nothing
     return Built(name, lib, proc.stdout, seconds)
+
+
+def build_all(names) -> list:
+    """Build several sources at once, one ``nvcc`` each, all started
+    together; returns their `Built` records in order."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.lru_cache(maxsize=None)

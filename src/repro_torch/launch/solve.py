@@ -4,8 +4,11 @@
       --lanes 1024 --eps-target 4096
   PYTHONPATH=src python -m repro_torch.launch.solve --n 8 --device cpu
 
-``--backend cuda`` (default) propagates with the Hopper fixpoint kernel;
-``--backend gather`` with the plain PyTorch sweep.  ``--device cpu``
+``--backend cuda`` (default) propagates with the Hopper fixpoint kernel,
+one launch per superstep; ``--backend cuda_resident`` runs K whole
+supersteps per launch of the resident search kernel (K from
+``--supersteps-per-launch``, default 16); ``--backend gather`` propagates
+with the plain PyTorch sweep.  ``--device cpu``
 runs everything on the CPU (where the ``cuda`` backend's wrapper takes
 the plain version).  Without a GPU and without ``--device cpu`` the
 command fails instead of moving to the CPU.  ``--file`` reads a PSPLIB
@@ -37,6 +40,9 @@ def main(argv=None):
     ap.add_argument("--timeout", type=float, default=120)
     ap.add_argument("--preset", choices=sorted(_PRESETS), default="prove")
     ap.add_argument("--backend", default="cuda", choices=available_backends())
+    ap.add_argument("--supersteps-per-launch", type=int, default=None,
+                    help="supersteps per resident kernel launch "
+                         "(--backend cuda_resident only; default 16)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--file", default=None)
     ap.add_argument("--profile", action="store_true",
@@ -45,7 +51,8 @@ def main(argv=None):
 
     from repro_torch import solver
     from repro_torch.core.models import rcpsp
-    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
+    from repro_torch.kernels.fixpoint_kernel import (fixpoint_cuda,
+                                                     search_cuda)
 
     if args.file:
         inst = (rcpsp.parse_psplib_sm(args.file) if args.file.endswith(".sm")
@@ -58,9 +65,11 @@ def main(argv=None):
     cfg = solver.SolveConfig.preset(
         _PRESETS[args.preset], n_lanes=args.lanes,
         eps_target=args.eps_target, timeout_s=args.timeout,
-        backend=args.backend, device=args.device)
+        backend=args.backend, device=args.device,
+        supersteps_per_launch=args.supersteps_per_launch)
 
     launches0 = fixpoint_cuda.launches
+    search0 = search_cuda.launches
     subs = None
     t_eps = 0.0             # EPS time outside the solve (under --profile)
     if args.profile:
@@ -96,6 +105,7 @@ def main(argv=None):
           f"nodes={res.n_nodes} ({res.n_nodes / max(wall, 1e-9):.0f}/s) "
           f"supersteps={res.n_supersteps} eps={eps_s:.2f}s "
           f"kernel_launches={fixpoint_cuda.launches - launches0} "
+          f"search_launches={search_cuda.launches - search0} "
           f"wall={wall:.2f}s complete={res.complete} "
           f"ground_check={check}")
 

@@ -1,14 +1,16 @@
-"""The Hopper fixpoint kernel's wrapper, budget and build, and — on a
-machine with a CUDA GPU — the kernel against its plain version.
+"""The Hopper kernels' wrappers, budgets and build, and — on a machine
+with a CUDA GPU — each kernel against its plain version: `fixpoint_cuda`
+against `fixpoint_batch`, `search_cuda` against `search_plain`.
 
 This file imports neither JAX nor the JAX package, so it also runs on the
 GPU machine, where the kernel tests run instead of skipping:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernel.py
 
-The stores are an integer lattice: the kernel must equal the plain
-`fixpoint_batch` exactly (stores, per-lane sweep counts, convergence
-flags), capped or not.
+The stores are an integer lattice: each kernel must equal its plain
+version exactly (stores, per-lane sweep counts and convergence flags;
+for the search, every LaneState field, the bound, the superstep count,
+the pool cursor and the stop flag), capped or not.
 """
 
 import numpy as np
@@ -16,12 +18,13 @@ import pytest
 import torch
 
 from repro_torch.core import fixpoint as F
+from repro_torch.core import search as S
 from repro_torch.core.backend import get_backend
 from repro_torch.core.model import Model
 from repro_torch.core.models import rcpsp
 from repro_torch.kernels import build
 from repro_torch.kernels import fixpoint_kernel as K
-from repro_torch.testing import random_substores
+from repro_torch.testing import random_substores, search_diff, search_inputs
 
 torch.set_num_threads(1)      # tiny tensors: thread hand-offs cost more
 
@@ -68,6 +71,73 @@ def test_shared_memory_budget():
         K.fit_smem(cm, limit_bytes=b["total"] - 1)
 
 
+def test_search_shared_memory_budget():
+    cm = _rcpsp(dict(n_tasks=60, n_resources=4))
+    plain = K.smem_budget(cm)
+    b = K.fit_smem(cm, resident=True)
+    assert plain["search"] == 0
+    # csrc/search.cu: fixpoint words + THREADS + 32 + 16 scalars
+    assert b["total"] == plain["total"] + 4 * (256 + 32 + 16)
+    assert b["total"] < K.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="search_cuda: .* shared memory"):
+        K.fit_smem(cm, limit_bytes=b["total"] - 1, resident=True)
+    K.fit_smem(cm, limit_bytes=plain["total"])            # fixpoint fits
+
+
+def _search_setup(kw, n_lanes, eps_target, device="cpu", seed=0, **opt_kw):
+    cm = _rcpsp(kw, seed=seed, device=device)
+    opts = S.SearchOptions(var_strategy="min_lb", max_depth=64, **opt_kw)
+    return cm, search_inputs(cm, n_lanes, eps_target, opts)
+
+
+def test_search_wrapper_checks():
+    """What `search_cuda` refuses before it launches (checked on CPU
+    tensors; on the card the same checks guard the launch)."""
+    cm, (slb, sub, st, gbest, head) = _search_setup(SMALL, 4, 8)
+    K._check_search(cm, slb, sub, st, "min_lb", "split")      # accepted
+    with pytest.raises(NotImplementedError, match="lane_tile=0"):
+        K.search_cuda(cm, slb, sub, st, gbest, 0, head, lane_tile=4)
+    wide = _int64_model().compile(device="cpu")
+    wst = S.init_lanes(wide, 2, S.SearchOptions(max_depth=4))
+    with pytest.raises(NotImplementedError, match="int32-only"):
+        K._check_search(wide, wide.lb0[None], wide.ub0[None], wst,
+                        "min_lb", "min")
+    meta = torch.device("meta")          # a device other than the state's
+    with pytest.raises(ValueError, match="pool on meta"):
+        K._check_search(cm, slb.to(meta), sub.to(meta), st, "min_lb",
+                        "min")
+    with pytest.raises(ValueError, match="LaneState.depth on meta"):
+        K._check_search(cm, slb, sub, st._replace(depth=st.depth.to(meta)),
+                        "min_lb", "min")
+    with pytest.raises(ValueError, match="LaneState.done must be"):
+        K._check_search(cm, slb, sub, st._replace(done=st.done.int()),
+                        "min_lb", "min")
+    with pytest.raises(ValueError, match="pool must be int32"):
+        K._check_search(cm, slb.long(), sub.long(), st, "min_lb", "min")
+    with pytest.raises(ValueError, match="var_strategy"):
+        K._check_search(cm, slb, sub, st, "first_fail", "min")
+    with pytest.raises(NotImplementedError, match="middle_out"):
+        K._check_search(cm, slb, sub, st, "min_lb", "middle_out")
+    with pytest.raises(ValueError, match="no lanes"):
+        K._check_search(cm, slb, sub, S.LaneState(
+            *(None if a is None else a[:0] for a in st)), "min_lb", "min")
+
+
+@pytest.mark.parametrize("supersteps", [1, 16])
+def test_search_cpu_tensors_take_the_plain_version(supersteps):
+    cm, (slb, sub, st, gbest, head) = _search_setup(BENCH, 8, 16, seed=3)
+    before = K.search_cuda.launches
+    got = K.search_cuda(cm, slb, sub, st, gbest, 0, head,
+                        supersteps=supersteps, var_strategy="min_lb")
+    ref = K.search_plain(cm, slb, sub, st, gbest, 0, head,
+                         supersteps=supersteps, var_strategy="min_lb")
+    assert search_diff(ref, got) == []
+    assert K.search_cuda.launches == before
+    assert int(got[2]) == supersteps and int(got[3]) > 0
+    assert int(S.lane_totals(got[0])["n_nodes"]) > 0
+    assert get_backend("cuda_resident").name == "cuda_resident"
+
+
 def test_wrapper_checks():
     """What the wrapper refuses before it launches (checked here on CPU
     tensors; on the card the same checks guard the launch)."""
@@ -106,10 +176,22 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_build_names_and_missing_nvcc(monkeypatch, tmp_path):
-    lib = build._target("fixpoint")
-    assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
-    assert lib.name.startswith("libfixpoint_")
+    for name in ("fixpoint", "search"):
+        lib = build._target(name)
+        assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
+        assert lib.name.startswith(f"lib{name}_")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # the name covers the shared header: editing it rebuilds both
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = [build._target(n) for n in ("fixpoint", "search")]
+    header = csrc / "fixpoint_lane.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [build._target(n) for n in ("fixpoint", "search")]
+    assert all(a != b for a, b in zip(before, after))
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -155,3 +237,45 @@ def test_kernel_raises_on_unsupported_input_on_gpu(cuda):
     lb, ub, sw, conv = K.fixpoint_cuda(cm, cm.lb0[None][:0],
                                        cm.ub0[None][:0])
     assert lb.shape[0] == 0 and sw.shape == (0,)
+
+
+def _search_cases(device):
+    """(what, cm, inputs, kwargs) at J30 class: from fresh lanes and from
+    the state after 5 plain supersteps, under prove, the capped fixpoint
+    and stop_on_first."""
+    cm, (slb, sub, st, gbest, head) = _search_setup(
+        dict(n_tasks=30), 128, 512, device=device)
+    for what, kw in (("prove", {}), ("capped", dict(max_fixpoint_iters=4)),
+                     ("first", dict(stop_on_first=True))):
+        kw = dict(var_strategy="min_lb", **kw)
+        yield f"{what} fresh", cm, (slb, sub, st, gbest, 0, head), kw
+        st5, g5, it5, h5, _ = K.search_plain(cm, slb, sub, st, gbest, 0,
+                                             head, supersteps=5, **kw)
+        yield f"{what} after 5", cm, (slb, sub, st5, g5, it5, h5), kw
+
+
+@pytest.mark.parametrize("supersteps", [1, 16])
+def test_search_kernel_matches_plain_on_gpu(cuda, supersteps):
+    for what, cm, args, kw in _search_cases(cuda):
+        ref = K.search_plain(cm, *args, supersteps=supersteps, **kw)
+        before = K.search_cuda.launches
+        got = K.search_cuda(cm, *args, supersteps=supersteps, **kw)
+        torch.cuda.synchronize()
+        assert K.search_cuda.launches == before + 1
+        assert search_diff(ref, got) == [], what
+
+
+def test_search_kernel_raises_on_unsupported_input_on_gpu(cuda):
+    cm, (slb, sub, st, gbest, head) = _search_setup(SMALL, 4, 8,
+                                                    device=cuda)
+    with pytest.raises(ValueError):
+        K.search_cuda(cm, slb.cpu(), sub.cpu(), st, gbest, 0, head)
+    with pytest.raises(NotImplementedError):
+        K.search_cuda(cm, slb, sub, st, gbest, 0, head, lane_tile=2)
+    wide = _int64_model().compile(device=cuda)
+    wst = S.init_lanes(wide, 2, S.SearchOptions(max_depth=4))
+    with pytest.raises(NotImplementedError):
+        K.search_cuda(wide, wide.lb0[None], wide.ub0[None], wst,
+                      torch.zeros((), dtype=torch.int64, device=cuda), 0,
+                      head)
+    assert K.search_grid(cm, 4) == 4
