@@ -18,10 +18,10 @@ exit code and no result line:
    flags must be equal;
 3. main path: a J60-class instance solved end to end through
    ``Solver(SolveConfig.preset("prove", backend="cuda", n_lanes=1024,
-   eps_target=4096))``, with the kernel's launch counter set to 0 just
-   before and read just after; the solution is ground-checked and the
-   optimum held against the JAX package's; a J30-class instance solved
-   with ``backend="cuda"`` and ``backend="gather"`` on the card must give
+   eps_target=4096))``, with the launch counters set to 0 just before
+   and read just after; the solution is ground-checked and the optimum
+   held against the JAX package's; a J30-class instance solved with
+   ``backend="cuda"`` and ``backend="gather"`` on the card must give
    identical results, equal to the JAX package's;
 4. times: the kernel and its plain version per launch (CUDA events) at
    the main path's shape ``[1024, 62]``, on phase 2's J60 random stores,
@@ -44,7 +44,34 @@ exit code and no result line:
    the solution is ground-checked;
 7. times: ``search_cuda`` and ``search_plain`` per launch (CUDA events)
    at the main path's shape (1024 lanes, K=16, from phase 5's J60 state
-   after 5 supersteps), beside the least time the card could take.
+   after 5 supersteps), beside the least time the card could take;
+8. the dense AllDifferent bank, kernel against plain version: phase 2's
+   comparison on N-queens 32, graph coloring 64
+   (``large_instance("coloring")``) and N-queens 8, 1024 random stores
+   each (the first 256 made overfull, which must fail by pigeonhole)
+   and the EPS pools of the first two;
+9. the same bank in the resident kernel: phase 5's comparison on
+   N-queens 32 and coloring 64 (1024 lanes, their EPS pools of 4096)
+   under ``prove``, ``fast`` and ``min_dom``/``split``, from fresh lanes
+   and after 5 supersteps;
+10. the main path on the zoo: N-queens 32 and coloring 64 solved through
+   ``Solver.solve`` (1024 lanes, eps_target 4096, each instance with its
+   strategy pair ``ZOO_STRATEGY``), with ``cuda`` and ``cuda_resident``
+   (K=16) under a cap of 2048 supersteps (status, objective and every
+   counter equal), then with ``cuda_resident`` under 100,000 supersteps,
+   which must prove the optimum (N-queens q0 = 0, coloring cmax = 4);
+   the launch counters are set to 0 just before each solve and read just
+   after, and every solution is ground-checked;
+11. the zoo's smoke tier (rcpsp, nqueens, coloring, knapsack, jobshop,
+   ``small_instance(seed=0)``) through ``gather``, ``cuda`` and
+   ``cuda_resident``: equal results and counters, equal to the JAX
+   package's, ground-checked;
+12. times of both kernels at the N-queens-32 shapes (``[1024, 33]``
+   stores of phase 8; 1024 lanes, K=16, ``min_dom``/``split``, after 5
+   supersteps), beside their plain versions and bounds; then every
+   launch of phase 10's long N-queens-32 ``cuda_resident`` solve,
+   replayed from the same options and pool and timed one by one (its
+   supersteps and nodes must equal the solve's).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -52,17 +79,19 @@ repository around it, the script fails before it prints any result.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from collections import namedtuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 SEED = 0
-N_RANDOM = 1024            # random stores per model in phase 2
-CAPS = (1, 4, None)        # max_sweeps of phase 2 (None: uncapped)
+N_RANDOM = 1024            # random stores per model in phases 2 and 8
+CAPS = (1, 4, None)        # max_sweeps of phases 2 and 8 (None: uncapped)
 MAIN_LANES = 1024
 MAIN_EPS = 4096
 MAIN_TIMEOUT_S = 600.0
@@ -86,15 +115,59 @@ FIXPOINT_SOURCE = "src/repro_torch/kernels/csrc/fixpoint.cu"
 FIXPOINT_REPLACES = "src/repro/kernels/fixpoint_kernel.py:285"
 SEARCH_SOURCE = "src/repro_torch/kernels/csrc/search.cu"
 SEARCH_REPLACES = "src/repro/kernels/fixpoint_kernel.py:520"
-# phases 5-7: the resident search kernel
-SEARCH_PRESETS = ("prove", "fast", "first_solution")
+# phases 5-7 and 9: the resident search kernel
 SEARCH_K = (1, 4, 16)
 WARM_STEPS = 5             # plain supersteps before the second start
 FIRST_SOL_MAX = 512        # cap on the search for the first solution
-J30_SEARCH_LANES = 256
 MAIN_K = 16                # supersteps per launch on the main path
 COUNTERS = ("status", "objective", "n_nodes", "n_fails", "n_sols",
             "n_sweeps", "n_supersteps")
+# the variants phases 5 and 9 run: (name, preset, (var, val) strategy
+# pair or None for the preset's own)
+RCPSP_VARIANTS = tuple((p, p, None)
+                       for p in ("prove", "fast", "first_solution"))
+ZOO_VARIANTS = (("prove", "prove", None), ("fast", "fast", None),
+                ("min_dom/split", "prove", ("min_dom", "split")))
+# the bound's AllDifferent work per (upper endpoint, member) of a sorted
+# Hall pass: a compare and an add for the count, a subtract and a compare
+# for the width test, a compare and a max or min on each push side
+ALLDIFF_OPS = 8
+# the endpoint-pair algorithm of the kernel, per (endpoint pair, member):
+# two compares, an AND and an add
+PAIR_OPS = 4
+N_PIGEONHOLE = 256         # of phase 8's 1024 random stores, made overfull
+ZOO_CAP = 2048             # superstep cap of the cuda vs cuda_resident solves
+ZOO_LONG_CAP = 100_000     # superstep cap of the long cuda_resident solves
+# the strategy pair of each zoo main-path instance: first-fail (min_dom)
+# on both; bisection for N-queens, smallest colour first for coloring
+# (PERF.md section 4 has the trial on the card that chose them)
+ZOO_STRATEGY = {"nqueens32": ("min_dom", "split"),
+                "coloring64": ("min_dom", "min")}
+# the optima the long solves prove on the card: N-queens' objective is
+# q0 >= 0, and 0 is reached; coloring 64 needs five colours (cmax 4)
+ZOO_OPTIMUM = {"nqueens32": 0, "coloring64": 4}
+ZOO_SMOKE = ("rcpsp", "nqueens", "coloring", "knapsack", "jobshop")
+ZOO_SMOKE_LANES = 16
+ZOO_BACKENDS = ("gather", "cuda", "cuda_resident")
+# small_instance(name, seed=0), preset "prove", 16 lanes, default
+# eps_target: the JAX package's SolveResult (backend="gather", CPU)
+ZOO_SMOKE_REFERENCE = {
+    "rcpsp": dict(status="OPTIMAL", objective=13, n_nodes=200, n_fails=120,
+                  n_sols=12, n_sweeps=90, n_supersteps=14),
+    "nqueens": dict(status="OPTIMAL", objective=0, n_nodes=16, n_fails=6,
+                    n_sols=10, n_sweeps=20, n_supersteps=2),
+    "coloring": dict(status="OPTIMAL", objective=1, n_nodes=124, n_fails=92,
+                     n_sols=2, n_sweeps=32, n_supersteps=9),
+    "knapsack": dict(status="OPTIMAL", objective=-25, n_nodes=64,
+                     n_fails=48, n_sols=16, n_sweeps=16, n_supersteps=5),
+    "jobshop": dict(status="OPTIMAL", objective=6, n_nodes=64, n_fails=48,
+                    n_sols=16, n_sweeps=16, n_supersteps=5),
+}
+
+# One model of the run: the zoo module, instance and handles (for the
+# ground check), the compiled model on the card, its random stores and
+# its EPS pool (None where no phase needs them).
+Case = namedtuple("Case", "mod inst handles cm lbs ubs pool")
 
 
 def fail(msg):
@@ -109,11 +182,67 @@ def nvidia_smi(query):
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def rcpsp_model(n_tasks, device="cuda"):
+def load(name, inst):
+    """The Case of one zoo instance, compiled onto the card."""
+    from repro_torch.core.models import ZOO
+    mod = ZOO[name]
+    m, handles = mod.build_model(inst)
+    return Case(mod, inst, handles, m.compile(device="cuda"), None, None,
+                None)
+
+
+def describe(cm):
+    s = f"V={cm.n_vars} P={cm.n_props} K={cm.k_terms} D={cm.d_occ}"
+    if cm.n_cumulative:
+        s += (f" C={cm.n_cumulative} T={cm.cu_width} Dcu={cm.cu_docc} "
+              f"horizon={cm.horizon} cu_layout={cm.cu_layout}")
+    if cm.n_alldiff:
+        s += (f" A={cm.n_alldiff} N={cm.ad_width} Dad={cm.ad_docc} "
+              f"ad_layout={cm.ad_layout}")
+    return f"{s} {cm.dtype}"
+
+
+def prepare(phase, tag, case, eps_target=None):
+    """`case` with N_RANDOM random stores (with an AllDifferent bank, the
+    first N_PIGEONHOLE of them overfull) and, given `eps_target`, the EPS
+    pool decomposed to it."""
+    import numpy as np
+    from repro_torch.core import eps
+    from repro_torch.solver import SolveConfig
+    from repro_torch.testing import pigeonhole_stores, random_substores
+    cm = case.cm
+    rng = np.random.default_rng(SEED)
+    lbs, ubs = random_substores(rng, cm, N_RANDOM)
+    if cm.n_alldiff:
+        lbs[:N_PIGEONHOLE], ubs[:N_PIGEONHOLE] = pigeonhole_stores(
+            rng, cm, lbs, ubs, N_PIGEONHOLE)
+    pool, msg = None, ""
+    if eps_target:
+        opts = SolveConfig.preset("prove", backend="cuda").search_options()
+        t0 = time.perf_counter()
+        pool = eps.decompose(cm, eps_target, opts)
+        msg = (f"; EPS pool {pool[0].shape[0]} subproblems in "
+               f"{time.perf_counter() - t0:.2f} s")
+    print(f"[{phase}] {tag}: {describe(cm)}{msg}")
+    return case._replace(lbs=lbs, ubs=ubs, pool=pool)
+
+
+def rcpsp_cases():
     from repro_torch.core.models import rcpsp
-    inst = rcpsp.generate(n_tasks, n_resources=4, seed=SEED)
-    m, handles = rcpsp.build_model(inst)
-    return inst, handles, m.compile(device=device)
+    return {tag: prepare(2, tag, load("rcpsp", rcpsp.generate(
+        n, n_resources=4, seed=SEED)), target)
+        for tag, n, target in (("J30", 30, 1024), ("J60", 60, MAIN_EPS))}
+
+
+def zoo_cases():
+    from repro_torch.core.models import large_instance, nqueens
+    return {
+        "nqueens32": prepare(8, "nqueens32", load(
+            "nqueens", nqueens.generate(32, seed=SEED)), MAIN_EPS),
+        "coloring64": prepare(8, "coloring64", load(
+            "coloring", large_instance("coloring", seed=SEED)), MAIN_EPS),
+        "nqueens8": prepare(8, "nqueens8", load(
+            "nqueens", nqueens.generate(8, seed=SEED)))}
 
 
 # --------------------------------------------------------------------------
@@ -144,12 +273,12 @@ def phase_card_and_build():
 
 
 # --------------------------------------------------------------------------
-# phase 2: kernel against its plain version
+# phases 2 and 8: the fixpoint kernel against its plain version
 # --------------------------------------------------------------------------
 
 def compare(cm, lb, ub, cap, what):
     """Kernel vs plain version on one batch; returns (max_abs_err over
-    non-failed stores, whole-output equality)."""
+    non-failed stores, whole-output equality, sweeps, failed mask)."""
     import torch
     from repro_torch.core import fixpoint as F
     from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
@@ -175,101 +304,142 @@ def compare(cm, lb, ub, cap, what):
     if not torch.equal(rconv, gconv):
         fail(f"{what}: convergence flags differ")
     whole = torch.equal(rlb, glb) and torch.equal(rub, gub)
-    return err, whole, rsw
+    return err, whole, rsw, rfail
 
 
-def phase_kernel_vs_plain():
-    import numpy as np
+def phase_kernel_vs_plain(phase, cases):
+    """`fixpoint_cuda` against `fixpoint_batch` on each case's random
+    stores and EPS pool at every cap of CAPS; the overfull stores of an
+    AllDifferent model must fail uncapped.  Returns the max |err|."""
     import torch
-    from repro_torch.core import eps
-    from repro_torch.solver import SolveConfig
-    from repro_torch.testing import random_substores
-    out = {}
     max_err = 0
-    for tag, n_tasks, target in (("J30", 30, 1024), ("J60", 60, MAIN_EPS)):
-        _, _, cm = rcpsp_model(n_tasks)
-        lbs, ubs = random_substores(np.random.default_rng(SEED), cm,
-                                    N_RANDOM)
-        opts = SolveConfig.preset("prove", backend="cuda").search_options()
-        t0 = time.perf_counter()
-        plb, pub = eps.decompose(cm, target, opts)
-        eps_s = time.perf_counter() - t0
-        print(f"[2] {tag}: V={cm.n_vars} P={cm.n_props} K={cm.k_terms} "
-              f"D={cm.d_occ} C={cm.n_cumulative} T={cm.cu_width} "
-              f"Dcu={cm.cu_docc} horizon={cm.horizon} {cm.dtype} "
-              f"cu_layout={cm.cu_layout}; EPS pool {plb.shape[0]} "
-              f"subproblems in {eps_s:.2f} s")
-        batches = [("random", lbs, ubs)] + [
-            (f"pool[{i}:{i + N_RANDOM}]", plb[i:i + N_RANDOM],
-             pub[i:i + N_RANDOM]) for i in range(0, plb.shape[0], N_RANDOM)]
+    for tag, c in cases.items():
+        batches = [("random", c.lbs, c.ubs)]
+        if c.pool is not None:
+            plb, pub = c.pool
+            batches += [(f"pool[{i}:{i + N_RANDOM}]", plb[i:i + N_RANDOM],
+                         pub[i:i + N_RANDOM])
+                        for i in range(0, plb.shape[0], N_RANDOM)]
+        n_over = N_PIGEONHOLE if c.cm.n_alldiff else 0
         for cap in CAPS:
-            lanes = whole = 0
+            lanes = whole = over_failed = 0
             sweeps = []
             for name, bl, bu in batches:
                 lb = torch.from_numpy(bl).cuda()
                 ub = torch.from_numpy(bu).cuda()
-                err, same, sw = compare(cm, lb, ub, cap,
-                                        f"{tag} {name} max_sweeps={cap}")
+                err, same, sw, failed = compare(
+                    c.cm, lb, ub, cap, f"{tag} {name} max_sweeps={cap}")
+                if name == "random":
+                    over_failed = int(failed[:n_over].sum())
                 max_err = max(max_err, err)
                 lanes += lb.shape[0]
                 whole += int(same)
                 sweeps.append(sw)
             sw = torch.cat(sweeps)
-            print(f"[2] {tag} max_sweeps={cap}: {lanes} lanes equal "
+            over = (f"; {over_failed}/{n_over} overfull stores failed"
+                    if n_over else "")
+            print(f"[{phase}] {tag} max_sweeps={cap}: {lanes} lanes equal "
                   f"(failed masks, stores, sweeps, converged); "
                   f"{whole}/{len(batches)} batches equal in every store; "
                   f"sweeps mean {sw.float().mean().item():.2f} "
-                  f"max {int(sw.max())}")
-        out[tag] = (cm, lbs, ubs, plb, pub)
-    return out, max_err
+                  f"max {int(sw.max())}{over}")
+            if cap is None and over_failed != n_over:
+                fail(f"{tag}: {n_over - over_failed} overfull stores did "
+                     "not fail")
+    return max_err
+
+
+def checked_cases(phase, make):
+    """The cases `make()` returns, held by `phase_kernel_vs_plain`."""
+    cases = make()
+    return cases, phase_kernel_vs_plain(phase, cases)
 
 
 # --------------------------------------------------------------------------
-# phase 3: the main path
+# phases 3, 6, 10 and 11: solves through the main path
 # --------------------------------------------------------------------------
 
-def solve(n_tasks, cfg):
-    from repro_torch.core.models import rcpsp
-    from repro_torch.solver import Solver
-    inst, handles, cm = rcpsp_model(n_tasks)
-    res = Solver(cfg).solve(cm)
-    if res.solution is None:
-        fail(f"J{n_tasks} ({cfg.backend}): no solution, status {res.status}")
-    starts = [int(res.solution[v.idx]) for v in handles["s"]]
-    feasible, makespan = rcpsp.check_solution(inst, starts)
-    if not feasible or makespan != res.objective:
-        fail(f"J{n_tasks} ({cfg.backend}): solution fails the ground check "
-             f"(feasible={feasible}, makespan {makespan}, objective "
-             f"{res.objective})")
-    return res
-
-
-def phase_main_path():
-    import torch
-    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
+def main_config(backend, strategy=None, **kw):
+    """The main path's configuration: `prove`, 1024 lanes, eps_target
+    4096, K=16 for `cuda_resident`, optionally a (var, val) pair."""
     from repro_torch.solver import SolveConfig
-    cfg = SolveConfig.preset("prove", backend="cuda", n_lanes=MAIN_LANES,
-                             eps_target=MAIN_EPS, timeout_s=MAIN_TIMEOUT_S)
+    if strategy:
+        kw.update(var_strategy=strategy[0], val_strategy=strategy[1])
+    if backend == "cuda_resident":
+        kw.update(supersteps_per_launch=MAIN_K)
+    return SolveConfig.preset("prove", backend=backend, n_lanes=MAIN_LANES,
+                              eps_target=MAIN_EPS, timeout_s=MAIN_TIMEOUT_S,
+                              **kw)
+
+
+def solve_case(phase, tag, c, cfg, optimum=None):
+    """One solve through `Solver.solve` with the launch counters set to 0
+    just before and read just after.  The solution is ground-checked, the
+    backend's kernel must have run (`cuda`: a launch per superstep at
+    least; `cuda_resident`: one per K supersteps), and with `optimum`
+    the result must be OPTIMAL at it.  Returns (result, (fixpoint_cuda
+    launches, search_cuda launches))."""
+    from repro_torch.core.models import ground_check
+    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda, search_cuda
+    from repro_torch.solver import Solver
     fixpoint_cuda.launches = 0
-    res = solve(60, cfg)
-    launches = fixpoint_cuda.launches
+    search_cuda.launches = 0
+    res = Solver(cfg).solve(c.cm)
+    launches = (fixpoint_cuda.launches, search_cuda.launches)
+    checked = ground_check(c.mod, c.inst, c.handles, res)
+    if checked is False:
+        fail(f"{tag} ({cfg.backend}): the solution fails the ground check")
     steps = res.n_supersteps
-    per_step = (res.wall_s - res.eps_s) / max(steps, 1) * 1e3
-    print(f"[3] J60 main path (cuda, {MAIN_LANES} lanes, eps_target "
-          f"{MAIN_EPS}): {res.status} objective={res.objective} "
+    search_s = res.wall_s - res.eps_s
+    print(f"[{phase}] {tag} ({cfg.backend}, {cfg.var_strategy}/"
+          f"{cfg.val_strategy}, {cfg.n_lanes} lanes, eps_target "
+          f"{cfg.resolved_eps_target()}, max_supersteps "
+          f"{cfg.max_supersteps}): {res.status} objective={res.objective} "
           f"nodes={res.n_nodes} ({res.nodes_per_sec:.0f}/s) "
           f"fails={res.n_fails} sols={res.n_sols} sweeps={res.n_sweeps} "
           f"supersteps={steps} wall={res.wall_s:.2f} s "
-          f"eps={res.eps_s:.2f} s, search "
-          f"{(res.wall_s - res.eps_s) * 1e3:.1f} ms ({per_step:.3f} "
-          f"ms/superstep after EPS) "
-          f"kernel launches={launches} (EPS {launches - steps}, "
-          f"supersteps {steps}); ground check OK")
-    if res.status != "OPTIMAL" or res.objective != J60_OPTIMUM:
-        fail(f"J60: expected OPTIMAL {J60_OPTIMUM}, got {res.status} "
-             f"{res.objective}")
-    if launches < steps or launches == 0:
-        fail(f"J60: {launches} kernel launches for {steps} supersteps")
+          f"eps={res.eps_s:.2f} s ({res.eps_s / res.wall_s:.1%} of the "
+          f"wall), search {search_s * 1e3:.1f} ms "
+          f"({search_s / max(steps, 1) * 1e3:.4f} ms/superstep after EPS) "
+          f"fixpoint_cuda launches={launches[0]} search_cuda "
+          f"launches={launches[1]}; ground check "
+          f"{'OK' if checked else 'n/a (no solution)'}")
+    fix, srch = launches
+    if cfg.backend == "cuda" and (fix == 0 or fix < steps):
+        fail(f"{tag}: {fix} fixpoint_cuda launches for {steps} supersteps")
+    if cfg.backend == "cuda_resident" and (
+            srch == 0 or srch < -(-steps // cfg.resolved_supersteps())):
+        fail(f"{tag}: {srch} search_cuda launches for {steps} supersteps")
+    if optimum is not None and (res.status != "OPTIMAL"
+                                or res.objective != optimum):
+        fail(f"{tag} ({cfg.backend}): expected OPTIMAL {optimum} within "
+             f"{cfg.max_supersteps} supersteps, got {res.status} "
+             f"{res.objective} after {steps}")
+    return res, launches
+
+
+def same_counters(phase, what, results, reference=None):
+    """Fails unless every result of `results` (backend -> SolveResult)
+    has the same COUNTERS, equal to `reference` where given."""
+    names = list(results)
+    for k in COUNTERS:
+        vals = [getattr(results[b], k) for b in names]
+        if len(set(vals)) != 1:
+            fail(f"{what}: {k} differs: "
+                 + ", ".join(f"{b} {v}" for b, v in zip(names, vals)))
+        if reference is not None and vals[0] != reference[k]:
+            fail(f"{what}: {k} = {vals[0]}, the JAX package gives "
+                 f"{reference[k]}")
+    print(f"[{phase}] {what}: {' == '.join(names)}"
+          f"{' == JAX reference' if reference else ''} on "
+          + ", ".join(COUNTERS))
+
+
+def phase_main_path(cases):
+    import torch
+    from repro_torch.solver import SolveConfig
+    res, (launches, _) = solve_case(3, "J60", cases["J60"],
+                                    main_config("cuda"), J60_OPTIMUM)
 
     # the cost of the per-superstep host read of the global done flag
     flag = torch.zeros(MAIN_LANES, dtype=torch.bool).cuda()
@@ -281,28 +451,53 @@ def phase_main_path():
     print(f"[3] host read of the done flag: {sync_us:.1f} us per superstep "
           f"(idle stream)")
 
-    got = {}
-    for backend in ("cuda", "gather"):
-        c = SolveConfig.preset("prove", backend=backend, n_lanes=J30_LANES)
-        r = solve(30, c)
-        got[backend] = r
-        print(f"[3] J30 ({backend}, {J30_LANES} lanes): {r.status} "
-              f"objective={r.objective} nodes={r.n_nodes} fails={r.n_fails} "
-              f"sols={r.n_sols} sweeps={r.n_sweeps} "
-              f"supersteps={r.n_supersteps} wall={r.wall_s:.2f} s")
-    for k, ref in J30_REFERENCE.items():
-        a, b = getattr(got["cuda"], k), getattr(got["gather"], k)
-        if a != b:
-            fail(f"J30: cuda and gather differ in {k}: {a} vs {b}")
-        if a != ref:
-            fail(f"J30: {k} = {a}, the JAX package gives {ref}")
-    print("[3] J30: cuda == gather == JAX reference on "
-          + ", ".join(J30_REFERENCE))
+    got = {b: solve_case(3, "J30", cases["J30"], SolveConfig.preset(
+        "prove", backend=b, n_lanes=J30_LANES))[0] for b in ("cuda", "gather")}
+    same_counters(3, "J30", got, J30_REFERENCE)
     return launches, res
 
 
+def phase_resident_path(cases, ref):
+    res, (_, launches) = solve_case(6, "J60", cases["J60"],
+                                    main_config("cuda_resident"))
+    same_counters(6, "J60", {"cuda": ref, "cuda_resident": res})
+    return launches
+
+
+def phase_zoo_main_path(cases):
+    """N-queens 32 and coloring 64: `cuda` and `cuda_resident` under
+    ZOO_CAP supersteps (equal results and counters), then
+    `cuda_resident` under ZOO_LONG_CAP to the optimum.  Returns the
+    launches by (tag, run) and the long runs' (config, result) by tag."""
+    launches, long = {}, {}
+    for tag, strategy in ZOO_STRATEGY.items():
+        got = {}
+        for backend in ("cuda", "cuda_resident"):
+            got[backend], launches[(tag, backend)] = solve_case(
+                10, tag, cases[tag],
+                main_config(backend, strategy, max_supersteps=ZOO_CAP))
+        same_counters(10, tag, got)
+        cfg = main_config("cuda_resident", strategy,
+                          max_supersteps=ZOO_LONG_CAP)
+        res, launches[(tag, "long")] = solve_case(10, tag, cases[tag], cfg,
+                                                  ZOO_OPTIMUM[tag])
+        long[tag] = (cfg, res)
+    return launches, long
+
+
+def phase_zoo_smoke():
+    from repro_torch.core.models import small_instance
+    from repro_torch.solver import SolveConfig
+    for name in ZOO_SMOKE:
+        c = load(name, small_instance(name, seed=SEED))
+        got = {b: solve_case(11, name, c, SolveConfig.preset(
+            "prove", backend=b, n_lanes=ZOO_SMOKE_LANES))[0]
+            for b in ZOO_BACKENDS}
+        same_counters(11, f"{name} smoke", got, ZOO_SMOKE_REFERENCE[name])
+
+
 # --------------------------------------------------------------------------
-# phase 4: times
+# phases 4, 7 and 12: times and bounds
 # --------------------------------------------------------------------------
 
 def cuda_ms(fn, reps, warmup):
@@ -322,59 +517,217 @@ def cuda_ms(fn, reps, warmup):
 
 def table_bytes(cm):
     """Bytes of the propagator tables the kernels read."""
-    tables = (cm.vidx, cm.coef, cm.rhs, cm.bidx, cm.occ_prop, cm.occ_slot,
-              cm.cu_svar, cm.cu_dur, cm.cu_dem, cm.cu_cap, cm.cu_occ_inst,
-              cm.cu_occ_pos, cm.box_lo, cm.box_hi)
-    return sum(t.numel() * t.element_size() for t in tables)
+    from repro_torch.kernels.fixpoint_kernel import kernel_tables
+    return sum(t.numel() * t.element_size() for t in kernel_tables(cm))
+
+
+def row_sizes(cm):
+    """Members of each real AllDifferent row."""
+    return cm.ad_mask[:cm.n_alldiff].sum(1).tolist() if cm.n_alldiff else []
 
 
 def ops_per_sweep(cm):
     """The int32 work one fixpoint sweep of one lane needs: 8·P1·K for
-    the linear bank; 4·C1·T + 2·C1·H for the time-table (each task adds
-    its compulsory part's two ends to a difference array, a prefix sum
-    and a capacity compare per time point build the profile, and each
-    task's first and last start take at least one operation each);
-    2·V·(D+Dcu) for the gather join."""
+    the linear bank and 2·V·D for its join; with a Cumulative bank,
+    4·C1·T + 2·C1·H for the time-table (each task adds its compulsory
+    part's two ends to a difference array, a prefix sum and a capacity
+    compare per time point build the profile, and each task's first and
+    last start take at least one operation each) and 2·V·Dcu for its
+    join; with an AllDifferent bank, on each row of n members the lesser
+    of two algorithms' work: a sorted Hall pass, 2·n·⌈log2 n⌉ compares to
+    sort the members by lower and by upper bound and ALLDIFF_OPS per
+    (upper endpoint, member) for the counts, the width tests and the
+    pushes, or the endpoint-pair pass, PAIR_OPS·n³ (cheaper for n = 2);
+    and 2·V·Dad for its join."""
     P1, K = cm.vidx.shape
-    C1, T = cm.cu_svar.shape
-    V, D, Dcu, H = cm.n_vars, cm.d_occ, cm.cu_docc, cm.horizon
-    return 8 * P1 * K + 4 * C1 * T + 2 * C1 * H + 2 * V * (D + Dcu)
-
-
-def fixpoint_bound_ms(cm, L, sweeps, peak_int32):
-    """Least time for the same work: each table and store read once,
-    each output written once, over the HBM rate; the sweeps this run
-    needed times `ops_per_sweep`, over the int32 peak."""
     V = cm.n_vars
-    nbytes = table_bytes(cm) + 4 * L * V * 4 + 2 * L * 4
-    ops = int(sweeps.sum()) * ops_per_sweep(cm)
+    ops = 8 * P1 * K + 2 * V * cm.d_occ
+    if cm.n_cumulative:
+        C1, T = cm.cu_svar.shape
+        ops += 4 * C1 * T + 2 * C1 * cm.horizon + 2 * V * cm.cu_docc
+    if cm.n_alldiff:
+        ops += sum(min(2 * n * math.ceil(math.log2(n)) + ALLDIFF_OPS * n * n,
+                       PAIR_OPS * n ** 3)
+                   for n in row_sizes(cm) if n > 1) + 2 * V * cm.ad_docc
+    return ops
+
+
+def pair_ops_per_sweep(cm):
+    """The AllDifferent work of the kernel's own endpoint-pair algorithm
+    per lane-sweep, every pair counted: PAIR_OPS·n³ per row."""
+    return sum(PAIR_OPS * n ** 3 for n in row_sizes(cm))
+
+
+def live_pair_share(cm, lb, ub):
+    """Share of the endpoint pairs (i, j) of real members with
+    yl_i <= yu_j in the stores `lb`/`ub`: the pairs the kernel does not
+    skip in a sweep of them."""
+    A = cm.n_alldiff
+    msk = cm.ad_mask[:A] != 0
+    idx, off = cm.ad_vars[:A].long(), cm.ad_offs[:A]
+    yl, yu = lb[:, idx] + off, ub[:, idx] + off                # [L, A, N]
+    live = ((yl[:, :, :, None] <= yu[:, :, None, :])
+            & msk[:, :, None] & msk[:, None, :])
+    return int(live.sum()) / (lb.shape[0] * sum(n * n
+                                                 for n in row_sizes(cm)))
+
+
+def bound(nbytes, ops, peak_int32):
+    """(bound ms, what bounds it): the larger of bytes over the HBM rate
+    and int32 operations over the int32 peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_int32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, ops
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_times(card, peak_int32, models, launches, max_err):
+def pair_note(cm, lane_sweeps, peak_int32):
+    """The endpoint-pair algorithm's own work beside the bound."""
+    if not cm.n_alldiff:
+        return ""
+    ops = lane_sweeps * pair_ops_per_sweep(cm)
+    return (f"; the endpoint-pair algorithm's own AllDifferent work, every "
+            f"pair: {ops} int32 ops ({ops / peak_int32 * 1e3:.5f} ms)")
+
+
+def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what):
+    """`fixpoint_cuda` and `fixpoint_batch` per launch (CUDA events) on
+    ``[MAIN_LANES, V]`` stores, uncapped, beside the bound: each table
+    and store read once and each output written once, over the HBM rate;
+    the sweeps this run needed times `ops_per_sweep`, over the int32
+    peak.  Returns (kernel ms, plain ms, bound ms, bound_by)."""
     import torch
     from repro_torch.core import fixpoint as F
     from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
-    cm, lbs, ubs, _, _ = models["J60"]
     lb = torch.from_numpy(lbs[:MAIN_LANES]).cuda()
     ub = torch.from_numpy(ubs[:MAIN_LANES]).cuda()
-    L = lb.shape[0]
+    L, V = lb.shape
     n0 = fixpoint_cuda.launches
     ms = cuda_ms(lambda: fixpoint_cuda(cm, lb, ub), reps=50, warmup=5)
     plain_ms = cuda_ms(lambda: F.fixpoint_batch(cm, lb, ub), reps=5,
                        warmup=1)
     fixpoint_cuda.launches = n0            # timing launches are not counted
-    sweeps = F.fixpoint_batch(cm, lb, ub)[2]
-    bound_ms, bound_by, nbytes, ops = fixpoint_bound_ms(cm, L, sweeps,
-                                                        peak_int32)
-    print(f"[4] fixpoint at [{L}, {cm.n_vars}] (J60 random stores, uncapped, "
-          f"{int(sweeps.sum())} lane-sweeps): kernel {ms:.4f} ms, plain "
+    sweeps = int(F.fixpoint_batch(cm, lb, ub)[2].sum())
+    nbytes = table_bytes(cm) + 4 * L * V * 4 + 2 * L * 4
+    ops = sweeps * ops_per_sweep(cm)
+    bound_ms, bound_by = bound(nbytes, ops, peak_int32)
+    live = (f"; {live_pair_share(cm, lb, ub):.1%} of the endpoint pairs "
+            f"live in the input stores" if cm.n_alldiff else "")
+    print(f"[{tag}] fixpoint at [{L}, {V}] ({what}, uncapped, {sweeps} "
+          f"lane-sweeps): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} int32 "
+          f"ops at {peak_int32 / 1e12:.2f} T/s; kernel {ms / bound_ms:.0f}x "
+          f"the bound){pair_note(cm, sweeps, peak_int32)}{live} on {card}")
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def search_bound_ms(cm, start, out, peak_int32, launches=1):
+    """Least time for the work of `launches` launches from `start` to
+    `out`: the LaneState read once and written once per launch (bools one
+    byte each) and the tables read once per launch, over the HBM rate;
+    the sweeps they needed times `ops_per_sweep`, plus, per lane and live
+    superstep, the commit's solved/failed checks (2·V) and branch
+    selection (3·B), over the int32 peak.  Dispatch, the tells and
+    backtracking are counted as nothing, so this is a lower bound."""
+    st_in, st_out = start[0], out[0]
+    L, V = st_in.lb.shape
+    B = int(cm.branch_vars.shape[0])
+    steps = int(out[2]) - int(start[2])
+    sweeps = int(st_out.n_sweeps.long().sum() - st_in.n_sweeps.long().sum())
+    state = sum(a.numel() * a.element_size() for a in st_in
+                if a is not None)
+    nbytes = launches * (2 * state + table_bytes(cm))
+    ops = sweeps * ops_per_sweep(cm) + steps * L * (2 * V + 3 * B)
+    return (*bound(nbytes, ops, peak_int32), nbytes, ops, steps, sweeps)
+
+
+def time_search(card, peak_int32, timing_state, tag, what):
+    """`search_cuda` and `search_plain` per launch (CUDA events) from one
+    start, beside the bound; returns (kernel ms, plain ms, bound ms,
+    bound_by)."""
+    from repro_torch.kernels.fixpoint_kernel import search_cuda, search_plain
+    cm, slb, sub, start, kw = timing_state
+    n0 = search_cuda.launches
+    out = search_cuda(cm, slb, sub, *start, supersteps=MAIN_K, **kw)
+    ms = cuda_ms(lambda: search_cuda(cm, slb, sub, *start,
+                                     supersteps=MAIN_K, **kw),
+                 reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: search_plain(cm, slb, sub, *start,
+                                            supersteps=MAIN_K, **kw),
+                       reps=2, warmup=1)
+    search_cuda.launches = n0             # timing launches are not counted
+    bound_ms, bound_by, nbytes, ops, steps, sweeps = search_bound_ms(
+        cm, start, out, peak_int32)
+    L = start[0].lb.shape[0]
+    print(f"[{tag}] search at {L} lanes, K={MAIN_K} ({what}, from the state "
+          f"after {WARM_STEPS}; {steps} live supersteps, {sweeps} "
+          f"lane-sweeps): kernel {ms:.4f} ms per launch "
+          f"({ms / max(steps, 1):.4f} ms per superstep), plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
           f"{nbytes} B, {ops} int32 ops at {peak_int32 / 1e12:.2f} T/s; "
-          f"kernel {ms / bound_ms:.0f}x the bound) on {card}")
+          f"kernel {ms / bound_ms:.0f}x the bound)"
+          f"{pair_note(cm, sweeps, peak_int32)}; library: none "
+          f"(no PyTorch call computes a superstep) on {card}")
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def time_resident_solve(card, peak_int32, tag, c, cfg, res):
+    """Every launch of one `cuda_resident` solve, replayed from the same
+    options and a pool decomposed as the solve's (the split depends on
+    the strategy pair) and timed one by one (CUDA events); the replay's
+    supersteps and nodes must equal the solve's `res`."""
+    import torch
+    from repro_torch.kernels.fixpoint_kernel import search_cuda
+    from repro_torch.testing import search_inputs
+    opts = cfg.search_options()
+    kw = dict(max_fixpoint_iters=opts.max_fixpoint_iters,
+              var_strategy=opts.var_strategy,
+              val_strategy=opts.val_strategy,
+              stop_on_first=opts.stop_on_first)
+    slb, sub, st, gbest, head = search_inputs(c.cm, cfg.n_lanes,
+                                              cfg.resolved_eps_target(), opts)
+    start = cur = (st, gbest, 0, head)
+    n0 = search_cuda.launches
+    times = []
+    while True:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = search_cuda(c.cm, slb, sub, *cur,
+                          supersteps=cfg.resolved_supersteps(), **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        cur = out[:4]
+        if bool(out[4]) or int(out[2]) >= cfg.max_supersteps:
+            break
+    search_cuda.launches = n0             # replay launches are not counted
+    nodes = int(out[0].n_nodes.long().sum())
+    if (int(out[2]), nodes) != (res.n_supersteps, res.n_nodes):
+        fail(f"{tag}: the replay reached {int(out[2])} supersteps and "
+             f"{nodes} nodes, the solve {res.n_supersteps} and "
+             f"{res.n_nodes}")
+    bound_ms, bound_by, nbytes, ops, steps, sweeps = search_bound_ms(
+        c.cm, start, out, peak_int32, launches=len(times))
+    total = sum(times)
+    mid = sorted(times)[len(times) // 2]
+    print(f"[12] {tag} main-path replay ({cfg.backend}, K="
+          f"{cfg.resolved_supersteps()}, {cfg.n_lanes} lanes): "
+          f"{len(times)} launches, {steps} supersteps, {sweeps} lane-sweeps, "
+          f"nodes {nodes} as the solve; device {total:.2f} ms in all "
+          f"against the solve's {(res.wall_s - res.eps_s) * 1e3:.1f} ms of "
+          f"search wall; per launch mean {total / len(times):.4f} ms, "
+          f"median {mid:.4f}, min {min(times):.4f}, max {max(times):.4f}; "
+          f"bound {bound_ms:.5f} ms in all ({bound_by}: {nbytes} B, {ops} "
+          f"int32 ops; kernel {total / bound_ms:.0f}x the bound)"
+          f"{pair_note(c.cm, sweeps, peak_int32)} on {card}")
+    print("[12] per-launch ms: " + " ".join(f"{t:.3f}" for t in times))
+    return total / len(times)
+
+
+def phase_times(card, peak_int32, cases, launches, max_err):
+    c = cases["J60"]
+    ms, plain_ms, bound_ms, bound_by = time_fixpoint(
+        card, peak_int32, c.cm, c.lbs, c.ubs, "4", "J60 random stores")
     print(f"kernels: fixpoint_cuda launches={launches}")
     return [dict(name="fixpoint_cuda", route="cuda", source=FIXPOINT_SOURCE,
                  replaces=FIXPOINT_REPLACES, launches=launches,
@@ -382,13 +735,37 @@ def phase_times(card, peak_int32, models, launches, max_err):
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
 
 
+def phase_search_times(card, peak_int32, timing_state, launches, max_err):
+    ms, plain_ms, bound_ms, bound_by = time_search(
+        card, peak_int32, timing_state, "7", "J60, prove")
+    print(f"kernels: search_cuda launches={launches}")
+    return dict(name="search_cuda", route="cuda", source=SEARCH_SOURCE,
+                replaces=SEARCH_REPLACES, launches=launches,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_alldiff_times(card, peak_int32, cases, states, long):
+    """Both kernels at the N-queens-32 shapes, then the long N-queens-32
+    solve's launches replayed."""
+    c = cases["nqueens32"]
+    time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "12",
+                  "N-queens 32 stores of phase 8")
+    time_search(card, peak_int32, states[("nqueens32", "min_dom/split")],
+                "12", "N-queens 32, min_dom/split, early state")
+    time_resident_solve(card, peak_int32, "nqueens32", c, *long["nqueens32"])
+
+
 # --------------------------------------------------------------------------
-# phase 5: resident search kernel against plain version
+# phases 5 and 9: the resident search kernel against its plain version
 # --------------------------------------------------------------------------
 
-def search_kwargs(preset):
+def search_kwargs(preset, strategy=None):
     from repro_torch.solver import SolveConfig
-    opts = SolveConfig.preset(preset, backend="cuda_resident").search_options()
+    pair = (dict(var_strategy=strategy[0], val_strategy=strategy[1])
+            if strategy else {})
+    opts = SolveConfig.preset(preset, backend="cuda_resident",
+                              **pair).search_options()
     return opts, dict(max_fixpoint_iters=opts.max_fixpoint_iters,
                       var_strategy=opts.var_strategy,
                       val_strategy=opts.val_strategy,
@@ -407,7 +784,13 @@ def max_abs_diff(ref, got):
     return err
 
 
-def phase_search_vs_plain(models):
+def phase_search_vs_plain(phase, cases, lanes, variants, around_first):
+    """`search_cuda` against `search_plain` on each case (`lanes[tag]`
+    lanes, its EPS pool) under each variant, at every K of SEARCH_K,
+    from fresh lanes, after WARM_STEPS plain supersteps and, with
+    `around_first`, 8 supersteps before and after the first solution.
+    Returns the starts after WARM_STEPS by (tag, variant name) and the
+    max |err|."""
     import torch
     from repro_torch.kernels.fixpoint_kernel import (search_cuda,
                                                      search_grid,
@@ -415,34 +798,36 @@ def phase_search_vs_plain(models):
     from repro_torch.testing import search_diff, search_inputs
     n0 = search_cuda.launches
     max_err = 0
-    timing_state = None
-    for tag, lanes in (("J30", J30_SEARCH_LANES), ("J60", MAIN_LANES)):
-        cm, _, _, plb, pub = models[tag]
-        # the superstep that finds the first solution, from fresh lanes
-        opts, kw = search_kwargs("first_solution")
-        inputs = search_inputs(cm, lanes, None, opts, pool=(plb, pub))
-        out = search_plain(cm, *inputs[:3], inputs[3], 0, inputs[4],
-                           supersteps=FIRST_SOL_MAX, **kw)
-        if not bool(out[4]):
-            fail(f"{tag}: no solution in {FIRST_SOL_MAX} supersteps")
-        first = int(out[2])
-        starts = sorted({0, WARM_STEPS, max(first - 8, 0), first + 8})
-        print(f"[5] {tag}: {lanes} lanes on {search_grid(cm, lanes)} CTAs "
-              f"(cooperative grid), EPS pool {plb.shape[0]}; first solution "
-              f"at superstep {first}; starts after "
-              f"{', '.join(map(str, starts))} plain supersteps")
-        for preset in SEARCH_PRESETS:
-            opts, kw = search_kwargs(preset)
-            slb, sub, st, gbest, head = search_inputs(cm, lanes, None, opts,
-                                                      pool=(plb, pub))
+    states = {}
+    for tag, c in cases.items():
+        cm, L = c.cm, lanes[tag]
+        starts, msg = [0, WARM_STEPS], ""
+        if around_first:
+            # the superstep that finds the first solution, from fresh lanes
+            opts, kw = search_kwargs("first_solution")
+            inputs = search_inputs(cm, L, None, opts, pool=c.pool)
+            out = search_plain(cm, *inputs[:3], inputs[3], 0, inputs[4],
+                               supersteps=FIRST_SOL_MAX, **kw)
+            if not bool(out[4]):
+                fail(f"{tag}: no solution in {FIRST_SOL_MAX} supersteps")
+            first = int(out[2])
+            starts = sorted({0, WARM_STEPS, max(first - 8, 0), first + 8})
+            msg = f"; first solution at superstep {first}"
+        print(f"[{phase}] {tag}: {L} lanes on {search_grid(cm, L)} CTAs "
+              f"(cooperative grid), EPS pool {c.pool[0].shape[0]}{msg}; "
+              f"starts after {', '.join(map(str, starts))} plain supersteps")
+        for name, preset, strategy in variants:
+            opts, kw = search_kwargs(preset, strategy)
+            slb, sub, st, gbest, head = search_inputs(cm, L, None, opts,
+                                                      pool=c.pool)
             cur, done_steps = (st, gbest, 0, head), 0
             for n in starts:
                 if n > done_steps:
                     cur = search_plain(cm, slb, sub, *cur,
                                        supersteps=n - done_steps, **kw)[:4]
                     done_steps = n
-                if n == WARM_STEPS and tag == "J60" and preset == "prove":
-                    timing_state = (cm, slb, sub, cur, kw)
+                if n == WARM_STEPS:
+                    states[(tag, name)] = (cm, slb, sub, cur, kw)
                 for k in SEARCH_K:
                     ref = search_plain(cm, slb, sub, *cur, supersteps=k,
                                        **kw)
@@ -451,114 +836,21 @@ def phase_search_vs_plain(models):
                     torch.cuda.synchronize()
                     bad = search_diff(ref, got)
                     if bad:
-                        fail(f"{tag} {preset} from superstep {int(cur[2])}, "
+                        fail(f"{tag} {name} from superstep {int(cur[2])}, "
                              f"K={k}: search_cuda differs from search_plain "
                              f"in {', '.join(bad)}")
                     max_err = max(max_err, max_abs_diff(ref, got))
-                st0, st16 = cur[0], ref[0]
-                print(f"[5] {tag} {preset} from superstep {int(cur[2])} "
+                st0, stk = cur[0], ref[0]
+                print(f"[{phase}] {tag} {name} from superstep {int(cur[2])} "
                       f"({int(st0.has_sol.sum())} lanes with a solution): "
                       f"K={','.join(map(str, SEARCH_K))} equal on every "
                       f"field; after K={SEARCH_K[-1]}: it={int(ref[2])} "
-                      f"nodes={int(st16.n_nodes.sum())} "
-                      f"sols={int(st16.n_sols.sum())} gbest={int(ref[1])} "
+                      f"nodes={int(stk.n_nodes.sum())} "
+                      f"fails={int(stk.n_fails.sum())} "
+                      f"sols={int(stk.n_sols.sum())} gbest={int(ref[1])} "
                       f"head={int(ref[3])} stopped={bool(ref[4])}")
     search_cuda.launches = n0          # comparison launches are not counted
-    return timing_state, max_err
-
-
-# --------------------------------------------------------------------------
-# phase 6: the resident main path
-# --------------------------------------------------------------------------
-
-def phase_resident_path(ref):
-    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda, search_cuda
-    from repro_torch.solver import SolveConfig
-    cfg = SolveConfig.preset(
-        "prove", backend="cuda_resident", supersteps_per_launch=MAIN_K,
-        n_lanes=MAIN_LANES, eps_target=MAIN_EPS, timeout_s=MAIN_TIMEOUT_S)
-    fixpoint_cuda.launches = 0
-    search_cuda.launches = 0
-    res = solve(60, cfg)
-    launches = search_cuda.launches
-    eps_launches = fixpoint_cuda.launches
-    steps = res.n_supersteps
-    per_step = (res.wall_s - res.eps_s) / max(steps, 1) * 1e3
-    print(f"[6] J60 resident path (cuda_resident, K={MAIN_K}, {MAIN_LANES} "
-          f"lanes, eps_target {MAIN_EPS}): {res.status} "
-          f"objective={res.objective} nodes={res.n_nodes} "
-          f"({res.nodes_per_sec:.0f}/s) fails={res.n_fails} "
-          f"sols={res.n_sols} sweeps={res.n_sweeps} supersteps={steps} "
-          f"wall={res.wall_s:.2f} s eps={res.eps_s:.2f} s, search "
-          f"{(res.wall_s - res.eps_s) * 1e3:.1f} ms "
-          f"({per_step:.3f} ms/superstep after EPS) search_cuda "
-          f"launches={launches}, fixpoint_cuda launches={eps_launches} "
-          f"(EPS); ground check OK")
-    for k in COUNTERS:
-        if getattr(res, k) != getattr(ref, k):
-            fail(f"J60: cuda_resident {k} = {getattr(res, k)}, the cuda "
-                 f"backend gives {getattr(ref, k)}")
-    print("[6] J60: cuda_resident == cuda on " + ", ".join(COUNTERS))
-    if launches == 0 or launches < -(-steps // MAIN_K):
-        fail(f"J60: {launches} search_cuda launches for {steps} supersteps")
-    return launches
-
-
-# --------------------------------------------------------------------------
-# phase 7: resident kernel times
-# --------------------------------------------------------------------------
-
-def search_bound_ms(cm, start, out, peak_int32):
-    """Least time for one launch's work: the LaneState read once and
-    written once (bools one byte each) and the tables read once, over
-    the HBM rate; the sweeps this launch needed times `ops_per_sweep`,
-    plus, per lane and live superstep, the commit's solved/failed checks
-    (2·V) and branch selection (3·B), over the int32 peak.  Dispatch,
-    the tells and backtracking are counted as nothing, so this is a
-    lower bound."""
-    st_in, st_out = start[0], out[0]
-    L, V = st_in.lb.shape
-    B = int(cm.branch_vars.shape[0])
-    steps = int(out[2]) - int(start[2])
-    sweeps = int(st_out.n_sweeps.long().sum() - st_in.n_sweeps.long().sum())
-    state = sum(a.numel() * a.element_size() for a in st_in
-                if a is not None)
-    nbytes = 2 * state + table_bytes(cm)
-    ops = sweeps * ops_per_sweep(cm) + steps * L * (2 * V + 3 * B)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_int32 * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, ops, steps, sweeps)
-
-
-def phase_search_times(card, peak_int32, timing_state, launches, max_err):
-    from repro_torch.kernels.fixpoint_kernel import search_cuda, search_plain
-    cm, slb, sub, start, kw = timing_state
-    n0 = search_cuda.launches
-    out = search_cuda(cm, slb, sub, *start, supersteps=MAIN_K, **kw)
-    ms = cuda_ms(lambda: search_cuda(cm, slb, sub, *start,
-                                     supersteps=MAIN_K, **kw),
-                 reps=20, warmup=3)
-    plain_ms = cuda_ms(lambda: search_plain(cm, slb, sub, *start,
-                                            supersteps=MAIN_K, **kw),
-                       reps=2, warmup=1)
-    search_cuda.launches = n0             # timing launches are not counted
-    bound_ms, bound_by, nbytes, ops, steps, sweeps = search_bound_ms(
-        cm, start, out, peak_int32)
-    L = start[0].lb.shape[0]
-    print(f"[7] search at {L} lanes, K={MAIN_K} (J60, prove, from the state "
-          f"after {WARM_STEPS}; {steps} live supersteps, {sweeps} "
-          f"lane-sweeps): kernel {ms:.4f} ms per launch "
-          f"({ms / max(steps, 1):.4f} ms per superstep), plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{nbytes} B, {ops} int32 ops at {peak_int32 / 1e12:.2f} T/s; "
-          f"kernel {ms / bound_ms:.0f}x the bound); library: none "
-          f"(no PyTorch call computes a superstep) on {card}")
-    print(f"kernels: search_cuda launches={launches}")
-    return dict(name="search_cuda", route="cuda", source=SEARCH_SOURCE,
-                replaces=SEARCH_REPLACES, launches=launches,
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return states, max_err
 
 
 def main():
@@ -574,14 +866,38 @@ def main():
               "needs a CUDA GPU", file=sys.stderr)
         return 2
     t0 = time.time()
-    card, peak_int32 = phase_card_and_build()
-    models, max_err = phase_kernel_vs_plain()
-    launches, cuda_res = phase_main_path()
-    kernels = phase_times(card, peak_int32, models, launches, max_err)
-    timing_state, search_err = phase_search_vs_plain(models)
-    search_launches = phase_resident_path(cuda_res)
-    kernels.append(phase_search_times(card, peak_int32, timing_state,
-                                      search_launches, search_err))
+
+    def timed(phase, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        print(f"[{phase}] phase {phase} took {time.time() - t:.1f} s")
+        return out
+
+    card, peak_int32 = timed(1, phase_card_and_build)
+    rcpsp, max_err = timed(2, checked_cases, 2, rcpsp_cases)
+    launches, cuda_res = timed(3, phase_main_path, rcpsp)
+    kernels = timed(4, phase_times, card, peak_int32, rcpsp, launches,
+                    max_err)
+    states, search_err = timed(5, phase_search_vs_plain, 5, rcpsp,
+                               {"J30": 256, "J60": MAIN_LANES},
+                               RCPSP_VARIANTS, True)
+    search_launches = timed(6, phase_resident_path, rcpsp, cuda_res)
+    kernels.append(timed(7, phase_search_times, card, peak_int32,
+                         states[("J60", "prove")], search_launches,
+                         search_err))
+    zoo, ad_err = timed(8, checked_cases, 8, zoo_cases)
+    searched = {t: zoo[t] for t in ZOO_STRATEGY}
+    ad_states, ad_search_err = timed(
+        9, phase_search_vs_plain, 9, searched,
+        dict.fromkeys(searched, MAIN_LANES), ZOO_VARIANTS, False)
+    zoo_launches, long = timed(10, phase_zoo_main_path, zoo)
+    timed(11, phase_zoo_smoke)
+    timed(12, phase_alldiff_times, card, peak_int32, zoo, ad_states, long)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err)
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
+                                    ad_search_err)
+    print("kernels: zoo main-path launches (fixpoint_cuda, search_cuda): "
+          + ", ".join(f"{t} {b} {n}" for (t, b), n in zoo_launches.items()))
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

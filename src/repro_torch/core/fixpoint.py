@@ -13,12 +13,14 @@ module is the plain version the CUDA kernel
 arithmetic, the same neutral sentinels (``±iinfo.max // 4``), the same
 floor/ceil divisions, and per-lane sweep counts and convergence flags.
 
-This slice covers the banks that RCPSP lowers to: the ReifLinLe bank
-(`candidates_tile`) and the *dense* Cumulative bank
-(`cumulative_candidates_tile`).  `sweep_tile` raises
-``NotImplementedError`` for AllDifferent, sparse Cumulative,
-Compact-Table and a carried bitset store, which come with later slices
-of the port; it never propagates less than the reference silently.
+Ported banks: the ReifLinLe bank (`candidates_tile`), the *dense*
+AllDifferent bank (`alldiff_candidates_tile`) and the *dense*
+Cumulative bank (`cumulative_candidates_tile`) — what RCPSP, N-queens,
+graph coloring, knapsack and jobshop lower to at their smoke and bench
+tiers.  `sweep_tile` raises ``NotImplementedError`` for the sparse
+AllDifferent and Cumulative layouts, Compact-Table and a carried bitset
+store, which come with later slices of the port; it never propagates
+less than the reference silently.
 
 Integer dtype discipline: every reduction passes ``dtype=`` (torch widens
 int32 sums to int64, ``jnp`` does not), so stores stay in the model's
@@ -102,6 +104,56 @@ def candidates_tile(lb, ub, vidx, coef, rhs, bidx):
     return cand_lb, cand_ub
 
 
+def alldiff_candidates_tile(lb, ub, ad_vars, ad_offs, ad_mask):
+    """Bounds(Z)-consistency tells for the dense AllDifferent bank.
+
+    Hall-interval reasoning on the shifted views ``y_k = x_k + off_k``:
+    for every endpoint pair (i, j) the interval ``I = [yl_i, yu_j]`` is
+    tested — more members inside I than its width fails the row (every
+    member's lb is pushed to ``-neu_lb``, which the box clamp turns into
+    a crossed bound); exactly as many makes I a Hall interval, and every
+    other member's bound inside I is pushed out (lb → sup I + 1,
+    ub → inf I - 1).  The ``[L, A1, N, N, N]`` tensor is the
+    specification the kernel is held to, not its design.  Returns
+    (cand_lb, cand_ub), each ``[L, A1, N]``, in unshifted variable space;
+    padded members and the dummy row A are neutral.
+    """
+    dt = lb.dtype
+    neu_ub, neu_lb = _neutrals(dt)
+    msk = (ad_mask[None] != 0)                              # [1, A1, N]
+    off = ad_offs[None]
+    yl = _take(lb, ad_vars) + off                           # [L, A1, N]
+    yu = _take(ub, ad_vars) + off
+    a = yl[:, :, :, None]                    # interval inf from i
+    b = yu[:, :, None, :]                    # interval sup from j
+    pair_ok = msk[:, :, :, None] & msk[:, :, None, :] & (a <= b)
+    inside = (msk[:, :, None, None, :]
+              & (yl[:, :, None, None, :] >= a[..., None])
+              & (yu[:, :, None, None, :] <= b[..., None]))  # [L,A1,N,N,N]
+    cnt = inside.sum(-1, dtype=dt)                          # [L, A1, N, N]
+    width = b - a + 1
+    overflow = pair_ok & (cnt > width)
+    hall = pair_ok & (cnt == width)
+
+    # Hall pruning: member k outside I with a bound inside I is pushed out
+    out_k = msk[:, :, None, None, :] & ~inside
+    a5, b5 = a[..., None], b[..., None]
+    klb, kub = yl[:, :, None, None, :], yu[:, :, None, None, :]
+    push = hall[..., None]
+    lb_cand = torch.where(push & out_k & (klb >= a5) & (klb <= b5),
+                          b5 + 1, neu_lb)                   # [L,A1,N,N,N]
+    ub_cand = torch.where(push & out_k & (kub >= a5) & (kub <= b5),
+                          a5 - 1, neu_ub)
+    cand_lb = lb_cand.amax(dim=(2, 3))                      # [L, A1, N]
+    cand_ub = ub_cand.amin(dim=(2, 3))
+
+    # pigeonhole overflow: the row is unsatisfiable — fail every member
+    fail = overflow.any(3).any(2)                           # [L, A1]
+    cand_lb = torch.where(fail[:, :, None] & msk, -neu_lb, cand_lb)
+    # back to unshifted variable space (neutrals stay effectively neutral)
+    return cand_lb - off, cand_ub - off
+
+
 def cumulative_candidates_tile(lb, ub, cu_svar, cu_dur, cu_dem, cu_cap,
                                horizon: int):
     """Time-table tells for the dense Cumulative bank.
@@ -167,15 +219,15 @@ def _gather_join(cand_lb, cand_ub, occ_inst, occ_pos, L):
     return g_lb, g_ub
 
 
-def check_supported(*, n_alldiff: int = 0, n_cumulative: int = 0,
-                    cu_layout: str = "dense", n_table: int = 0,
-                    dom=None, **_statics) -> None:
+def check_supported(*, n_alldiff: int = 0, ad_layout: str = "dense",
+                    n_cumulative: int = 0, cu_layout: str = "dense",
+                    n_table: int = 0, dom=None, **_statics) -> None:
     """Raise for the banks this slice of the port does not propagate yet
     (rather than propagating less than the reference)."""
-    if n_alldiff:
+    if n_alldiff and ad_layout != "dense":
         raise NotImplementedError(
-            "AllDifferent banks are not ported yet (kernel sub-items 1b/1d, "
-            "ROADMAP queue 2)")
+            "the sparse AllDifferent tile is not ported yet (kernel "
+            "sub-item 1d, ROADMAP queue 2)")
     if n_cumulative and cu_layout != "dense":
         raise NotImplementedError(
             "the sparse Cumulative tile is not ported yet (kernel sub-item "
@@ -206,12 +258,19 @@ def sweep_tile(lb, ub, vidx, coef, rhs, bidx, occ_prop, occ_slot,
     Same positional signature as the reference (`model_tables` order),
     so the two stay easy to read side by side.  Returns (lb', ub').
     """
-    check_supported(n_alldiff=n_alldiff, n_cumulative=n_cumulative,
-                    cu_layout=cu_layout, n_table=n_table, dom=dom)
+    check_supported(n_alldiff=n_alldiff, ad_layout=ad_layout,
+                    n_cumulative=n_cumulative, cu_layout=cu_layout,
+                    n_table=n_table, dom=dom)
     L = lb.shape[0]
     cand_lb, cand_ub = candidates_tile(lb, ub, vidx, coef, rhs, bidx)
     # fold the reif-entailment slot in: occ_slot ∈ [0, K] indexes [K+1]
     g_lb, g_ub = _gather_join(cand_lb, cand_ub, occ_prop, occ_slot, L)
+    if n_alldiff:
+        ad_lb, ad_ub = alldiff_candidates_tile(lb, ub, ad_vars, ad_offs,
+                                               ad_mask)
+        j_lb, j_ub = _gather_join(ad_lb, ad_ub, ad_occ_inst, ad_occ_pos, L)
+        g_lb = torch.maximum(g_lb, j_lb)
+        g_ub = torch.minimum(g_ub, j_ub)
     if n_cumulative:
         cu_lb, cu_ub = cumulative_candidates_tile(
             lb, ub, cu_svar, cu_dur, cu_dem, cu_cap, horizon)

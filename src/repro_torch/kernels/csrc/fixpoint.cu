@@ -1,8 +1,9 @@
 // Per-lane propagation fixpoint for Hopper (sm_90a), one CTA per lane.
 //
 // Replaces the Pallas TPU kernel `fixpoint_pallas` /
-// `_fixpoint_kernel` of src/repro/kernels/fixpoint_kernel.py for the banks
-// RCPSP lowers to: the ReifLinLe bank and the dense Cumulative bank.  The
+// `_fixpoint_kernel` of src/repro/kernels/fixpoint_kernel.py for the
+// ReifLinLe bank, the dense AllDifferent bank and the dense Cumulative
+// bank (RCPSP, N-queens, graph coloring, knapsack, jobshop).  The
 // per-lane body is `fixlane::fixpoint_lane` (fixpoint_lane.cuh), shared
 // with the resident search kernel (search.cu); this file only loads lane
 // `blockIdx.x` into shared memory, runs it and writes the result back.
@@ -18,6 +19,9 @@
 // other, each a chain of dependent shared-memory and L2 loads with at
 // most a few hundred threads busy.  So it runs well above that bound
 // (PERF.md has the times); nothing in this design addresses that yet.
+// At the N-queens-32 shape the AllDifferent bank dominates a sweep: A·N²
+// endpoint pairs, each a loop over the row's N members, from shared
+// memory; int32 operations bound it too.
 // The kernel allocates nothing and launches on the caller's stream.
 
 #include <cuda_runtime.h>
@@ -69,30 +73,18 @@ __global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
 
 extern "C" {
 
-// Shared-memory bytes one CTA needs (the wrapper's budget uses the same
-// formula, kernels/fixpoint_kernel.py::smem_budget).
-size_t fixpoint_smem_bytes(int V, int P1, int K, int C1, int T, int H) {
-  return sizeof(int32_t) * fixlane::smem_words(V, P1, K, C1, T, H);
-}
-
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-int fixpoint_launch(const int32_t* vidx, const int32_t* coef,
-                    const int32_t* rhs, const int32_t* bidx,
-                    const int32_t* occ_prop, const int32_t* occ_slot,
-                    const int32_t* cu_svar, const int32_t* cu_dur,
-                    const int32_t* cu_dem, const int32_t* cu_cap,
-                    const int32_t* cu_occ_inst, const int32_t* cu_occ_pos,
-                    const int32_t* box_lo, const int32_t* box_hi,
+// `tables`: the fixlane::N_TABLES tables and `dims`: the fixlane::N_DIMS
+// sizes, both in fixlane::Tables order.
+int fixpoint_launch(const void* const* tables, const int* dims,
                     const int32_t* lb_in, const int32_t* ub_in,
                     int32_t* lb_out, int32_t* ub_out, int32_t* sweeps,
-                    int32_t* conv, int L, int V, int P1, int K, int D,
-                    int C1, int T, int Dcu, int H, int n_cumulative,
-                    int max_sweeps, void* stream) {
-  Params p{{vidx, coef, rhs, bidx, occ_prop, occ_slot, cu_svar, cu_dur,
-            cu_dem, cu_cap, cu_occ_inst, cu_occ_pos, box_lo, box_hi,
-            V, P1, K, D, C1, T, Dcu, H, n_cumulative},
-           lb_in, ub_in, lb_out, ub_out, sweeps, conv, max_sweeps};
-  const size_t smem = fixpoint_smem_bytes(V, P1, K, C1, T, H);
+                    int32_t* conv, int L, int max_sweeps, void* stream) {
+  Params p{fixlane::tables_from(tables, dims), lb_in, ub_in, lb_out, ub_out,
+           sweeps, conv, max_sweeps};
+  // shared-memory bytes of one CTA (kernels/fixpoint_kernel.py::
+  // smem_budget uses the same formula)
+  const size_t smem = sizeof(int32_t) * fixlane::smem_words(p.t);
   cudaError_t err = cudaFuncSetAttribute(
       fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

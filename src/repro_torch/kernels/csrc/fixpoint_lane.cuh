@@ -2,26 +2,46 @@
 // `fixpoint.cu` (one launch per fixpoint) and `search.cu` (K supersteps
 // per launch) share.
 //
-// It covers the banks RCPSP lowers to: the ReifLinLe bank
-// (`fixpoint.candidates_tile`) and the dense Cumulative bank
-// (`fixpoint.cumulative_candidates_tile`).  The plain PyTorch version is
-// repro_torch/core/fixpoint.py::fixpoint_batch; results (stores, sweep
-// counts, convergence flags) are equal bit for bit, capped or not.
+// It covers the ReifLinLe bank (`fixpoint.candidates_tile`), the dense
+// AllDifferent bank (`fixpoint.alldiff_candidates_tile`) and the dense
+// Cumulative bank (`fixpoint.cumulative_candidates_tile`): what RCPSP,
+// N-queens, graph coloring, knapsack and jobshop lower to.  The plain
+// PyTorch version is repro_torch/core/fixpoint.py::fixpoint_batch;
+// results (stores, sweep counts, convergence flags) are equal bit for
+// bit, capped or not.
 //
 // Design (TURBO's block-per-subproblem mapping):
 //   * the lane's current and next lb/ub live in shared memory,
 //     double-buffered, so every sweep reads only the old store (Jacobi,
 //     as the reference: capped stores and sweep counts match);
 //   * per sweep: (1) threads over linear rows write the [P1, K+1]
-//     candidates, threads over (row, time) build the compulsory-part
-//     profile [C1, H]; (2) threads over (row, task) find the first and
-//     last feasible start; (3) threads over variables min/max-reduce
-//     their occurrence lists, clamp to the box and write the next store;
+//     candidates, threads over AllDifferent members stage the shifted
+//     bounds yl/yu [A1, N], threads over (row, time) build the
+//     compulsory-part profile [C1, H]; (2) threads over AllDifferent
+//     endpoint pairs (row, i, j) count the members inside [yl_i, yu_j]
+//     and push, threads over (row, task) find the first and last
+//     feasible start; (3) threads over variables min/max-reduce their
+//     occurrence lists, clamp to the box and write the next store;
 //   * `__syncthreads_or` ends the loop on the per-lane rule
 //     changed ∧ it < max_sweeps ∧ ¬failed, so every thread leaves with
 //     the same sweep count, flags and result buffer.
 // The tables stay read-only in global memory (they sit in L2); only the
 // cumulative task table is staged in shared memory, once per CTA.
+//
+// AllDifferent (the reference's [L, A1, N, N, N] tensor is its
+// specification, not carried over): one thread per endpoint pair (i, j)
+// of a row tests I = [yl_i, yu_j] by a loop over the row's N members.
+// More members inside I than its width fails the row (a per-row flag);
+// exactly as many makes I a Hall interval, and each member outside I
+// with a bound inside it is pushed out with a shared-memory
+// atomicMax/atomicMin on the row's candidate pair.  Those commute, so
+// the pair equals the reference's max/min over (i, j).  Padded members
+// are staged as the empty interval yl = BIG > yu = -BIG: no pair starts
+// or ends at one, it is never inside (a real member of a store that is
+// swept has yl <= yu) and never pushed (real bounds stay inside the
+// box, far from ±BIG).  The join reads the pair
+// through ad_occ_inst/ad_occ_pos, with a failed row's lb candidates at
+// -NEU_LB, shifted back by the member's offset, as the reference.
 //
 // Arithmetic: int32 only (the wrappers reject int64 models).  Floor and
 // ceil division follow `_fdiv`/`_cdiv` (C++ `/` truncates toward zero).
@@ -51,6 +71,8 @@ __device__ __forceinline__ int32_t cdiv(int32_t p, int32_t q) {
 }
 
 // The model's propagator tables (global memory, read-only) and shapes.
+// The wrappers pass the N_TABLES pointers and N_DIMS sizes in this order
+// (kernels/fixpoint_kernel.py::kernel_tables, _c_tables).
 struct Tables {
   const int32_t* vidx;        // [P1, K]
   const int32_t* coef;        // [P1, K]
@@ -58,6 +80,11 @@ struct Tables {
   const int32_t* bidx;        // [P1]
   const int32_t* occ_prop;    // [V, D]
   const int32_t* occ_slot;    // [V, D]
+  const int32_t* ad_vars;     // [A1, N]
+  const int32_t* ad_offs;     // [A1, N]
+  const int32_t* ad_mask;     // [A1, N]
+  const int32_t* ad_occ_inst; // [V, Dad]
+  const int32_t* ad_occ_pos;  // [V, Dad]
   const int32_t* cu_svar;     // [C1, T]
   const int32_t* cu_dur;      // [C1, T]
   const int32_t* cu_dem;      // [C1, T]
@@ -66,15 +93,32 @@ struct Tables {
   const int32_t* cu_occ_pos;  // [V, Dcu]
   const int32_t* box_lo;      // [V]
   const int32_t* box_hi;      // [V]
-  int V, P1, K, D, C1, T, Dcu, H, n_cumulative;
+  int V, P1, K, D, A1, N, Dad, n_alldiff, C1, T, Dcu, H, n_cumulative;
 };
+
+constexpr int N_TABLES = 19;
+constexpr int N_DIMS = 13;
+
+inline Tables tables_from(const void* const* tb, const int* d) {
+  const int32_t* const* t = (const int32_t* const*)tb;
+  return Tables{t[0],  t[1],  t[2],  t[3],  t[4],  t[5],  t[6],
+                t[7],  t[8],  t[9],  t[10], t[11], t[12], t[13],
+                t[14], t[15], t[16], t[17], t[18],
+                d[0],  d[1],  d[2],  d[3],  d[4],  d[5],  d[6],
+                d[7],  d[8],  d[9],  d[10], d[11], d[12]};
+}
 
 // 32-bit words of shared memory one lane's fixpoint needs; the wrappers'
 // budget (kernels/fixpoint_kernel.py::smem_budget) uses the same formula.
-__host__ __device__ inline size_t smem_words(int V, int P1, int K, int C1,
-                                             int T, int H) {
-  return (size_t)4 * V + (size_t)2 * P1 * (K + 1) + (size_t)C1 * H +
-         (size_t)5 * C1 * T + (size_t)2 * C1;
+// A model without AllDifferent rows gets no AllDifferent part.
+__host__ __device__ inline size_t alldiff_words(const Tables& p) {
+  return p.n_alldiff > 0 ? (size_t)4 * p.A1 * p.N + (size_t)p.A1 : 0;
+}
+
+__host__ __device__ inline size_t smem_words(const Tables& p) {
+  return (size_t)4 * p.V + (size_t)2 * p.P1 * (p.K + 1) +
+         (size_t)p.C1 * p.H + (size_t)5 * p.C1 * p.T + (size_t)2 * p.C1 +
+         alldiff_words(p);
 }
 
 // The fixpoint's view of a CTA's shared memory.  Store buffer c (0 or
@@ -99,6 +143,11 @@ struct Smem {
   int32_t* t_dem;   // [C1, T]
   int32_t* t_cap;   // [C1]
   int32_t* ovl;     // [C1]
+  int32_t* yl;      // [A1, N] shifted member bounds (AllDifferent)
+  int32_t* yu;      // [A1, N]
+  int32_t* alb;     // [A1, N] AllDifferent candidate pair (shifted)
+  int32_t* aub;     // [A1, N]
+  int32_t* afail;   // [A1] pigeonhole failure per row
 };
 
 __device__ __forceinline__ Smem carve(const Tables& p, int32_t* base) {
@@ -116,6 +165,12 @@ __device__ __forceinline__ Smem carve(const Tables& p, int32_t* base) {
   s.t_dem = s.t_dur + C1 * T;
   s.t_cap = s.t_dem + C1 * T;
   s.ovl = s.t_cap + C1;
+  const int AN = p.n_alldiff > 0 ? p.A1 * p.N : 0;
+  s.yl = s.ovl + C1;
+  s.yu = s.yl + AN;
+  s.alb = s.yu + AN;
+  s.aub = s.alb + AN;
+  s.afail = s.aub + AN;
   return s;
 }
 
@@ -158,8 +213,9 @@ struct LaneResult {
 __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
                                     int max_sweeps) {
   const int V = p.V, P1 = p.P1, K = p.K, K1 = p.K + 1, C1 = p.C1,
-            T = p.T, H = p.H;
+            T = p.T, H = p.H, N = p.N, A = p.n_alldiff;
   const bool cumul = p.n_cumulative > 0;
+  const bool alldiff = A > 0;
   const int tid = threadIdx.x, nth = THREADS;
 
   __syncthreads();
@@ -217,7 +273,25 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
       cu[K] = smin > c ? 0 : NEU_UB;      // disentailed → b ≤ 0
     }
 
-    // -- (1b) compulsory-part profile, one thread per (row, time) ----------
+    // -- (1b) AllDifferent: shifted member bounds, neutral candidates -------
+    if (alldiff) {
+      for (int i = tid; i < p.A1 * N; i += nth) {
+        if (__ldg(p.ad_mask + i)) {
+          const int32_t v = __ldg(p.ad_vars + i);
+          const int32_t off = __ldg(p.ad_offs + i);
+          s.yl[i] = lb[v] + off;
+          s.yu[i] = ub[v] + off;
+        } else {                          // padding: inside no interval
+          s.yl[i] = BIG;
+          s.yu[i] = -BIG;
+        }
+        s.alb[i] = NEU_LB;
+        s.aub[i] = NEU_UB;
+      }
+      for (int a = tid; a < p.A1; a += nth) s.afail[a] = 0;
+    }
+
+    // -- (1c) compulsory-part profile, one thread per (row, time) ----------
     if (cumul) {
       for (int i = tid; i < C1 * H; i += nth) {
         const int c = i / H, tau = i - c * H;
@@ -236,7 +310,35 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
     }
     __syncthreads();
 
-    // -- (2) first/last feasible start, one thread per (row, task) ---------
+    // -- (2a) AllDifferent Hall intervals, one thread per (row, i, j) -------
+    if (alldiff) {
+      const int NN = N * N;
+      for (int q = tid; q < A * NN; q += nth) {
+        const int a = q / NN, i = (q - a * NN) / N, j = q - a * NN - i * N;
+        const int32_t* ylr = s.yl + a * N;
+        const int32_t* yur = s.yu + a * N;
+        const int32_t lo = ylr[i], hi = yur[j];
+        if (lo > hi) continue;            // empty interval or padding
+        int32_t cnt = 0;
+        for (int k = 0; k < N; ++k) {
+          const int32_t kl = ylr[k], ku = yur[k];
+          cnt += (kl >= lo) & (ku <= hi) & (kl <= ku);
+        }
+        const int32_t width = hi - lo + 1;
+        if (cnt > width) {
+          s.afail[a] = 1;                 // benign race: all write 1
+        } else if (cnt == width) {        // Hall interval: push the others
+          for (int k = 0; k < N; ++k) {
+            const int32_t kl = ylr[k], ku = yur[k];
+            if (kl >= lo && ku <= hi && kl <= ku) continue;   // inside I
+            if (kl >= lo && kl <= hi) atomicMax(s.alb + a * N + k, hi + 1);
+            if (ku >= lo && ku <= hi) atomicMin(s.aub + a * N + k, lo - 1);
+          }
+        }
+      }
+    }
+
+    // -- (2b) first/last feasible start, one thread per (row, task) --------
     if (cumul) {
       for (int j = tid; j < C1 * T; j += nth) {
         const int c = j / T;
@@ -296,6 +398,17 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
         const int idx = __ldg(op + d) * K1 + __ldg(os + d);
         glb = max(glb, s.clb[idx]);
         gub = min(gub, s.cub[idx]);
+      }
+      if (alldiff) {
+        const int32_t* oi = p.ad_occ_inst + (size_t)v * p.Dad;
+        const int32_t* opos = p.ad_occ_pos + (size_t)v * p.Dad;
+        for (int d = 0; d < p.Dad; ++d) {
+          const int a = __ldg(oi + d);
+          const int idx = a * N + __ldg(opos + d);
+          const int32_t off = __ldg(p.ad_offs + idx);
+          glb = max(glb, (s.afail[a] ? -NEU_LB : s.alb[idx]) - off);
+          gub = min(gub, s.aub[idx] - off);
+        }
       }
       if (cumul) {
         const int32_t* oi = p.cu_occ_inst + (size_t)v * p.Dcu;

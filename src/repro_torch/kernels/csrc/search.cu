@@ -52,7 +52,8 @@
 // and shared-memory traffic, as fixpoint.cu) plus a commit of O(V + B +
 // depth) per lane; the LaneState is read and written once per launch.
 // So int32 operations bound it, and a CTA that owns several lanes runs
-// them in sequence.  PERF.md has the times.  The kernel allocates
+// them in sequence.  On N-queens 32 the AllDifferent bank's endpoint
+// pairs take most of each sweep.  PERF.md has the times.  The kernel allocates
 // nothing and launches on the caller's stream.
 
 #include <cooperative_groups.h>
@@ -147,7 +148,7 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
   extern __shared__ int32_t smem[];
   const fixlane::Tables& t = p.t;
   const fixlane::Smem s = fixlane::carve(t, smem);
-  int32_t* scan = smem + fixlane::smem_words(t.V, t.P1, t.K, t.C1, t.T, t.H);
+  int32_t* scan = smem + fixlane::smem_words(t);
   int32_t* wsum = scan + THREADS;
   int32_t* sc = wsum + 32;
   const State& st = p.st;
@@ -411,6 +412,12 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
   }
 }
 
+// Shared-memory bytes one CTA needs (the wrapper's budget uses the same
+// formula, kernels/fixpoint_kernel.py::smem_budget(resident=True)).
+size_t search_smem_bytes(const fixlane::Tables& t) {
+  return sizeof(int32_t) * (fixlane::smem_words(t) + EXTRA_WORDS);
+}
+
 // Grid size: min(L, co-resident CTAs), or a negative cudaError_t.
 int grid_for(int L, size_t smem) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -436,33 +443,24 @@ int grid_for(int L, size_t smem) {
 
 extern "C" {
 
-// Shared-memory bytes one CTA needs (the wrapper's budget uses the same
-// formula, kernels/fixpoint_kernel.py::smem_budget(resident=True)).
-size_t search_smem_bytes(int V, int P1, int K, int C1, int T, int H) {
-  return sizeof(int32_t) *
-         (fixlane::smem_words(V, P1, K, C1, T, H) + EXTRA_WORDS);
-}
-
 // CTAs of a launch over L lanes, or a negative cudaError_t (no
 // cooperative launch on this device, the kernel does not fit an SM).
-int search_grid(int L, int V, int P1, int K, int C1, int T, int H) {
-  return grid_for(L, search_smem_bytes(V, P1, K, C1, T, H));
+// `tables`, `dims`: as search_launch.
+int search_grid(int L, const void* const* tables, const int* dims) {
+  return grid_for(L, search_smem_bytes(fixlane::tables_from(tables, dims)));
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// `tables`: the 14 fixpoint tables in Tables order; `state`: the 19
+// `tables`: the fixlane::N_TABLES fixpoint tables and `dims`: the
+// fixlane::N_DIMS sizes, both in fixlane::Tables order; `state`: the 19
 // LaneState fields in State order; `io`: branch_vars, subs_lb, subs_ub,
-// gbest_in, head_in, want, cells, out; `ints`: L, V, P1, K, D, C1, T, Dcu,
-// H, n_cumulative, B, S, MD, obj_var, supersteps, cap, var_strategy,
-// val_strategy, stop_on_first, it_in.
-int search_launch(void* const* tables, void* const* state, void* const* io,
-                  const int* ints, void* stream) {
+// gbest_in, head_in, want, cells, out; `ints`: L, B, S, MD, obj_var,
+// supersteps, cap, var_strategy, val_strategy, stop_on_first, it_in.
+int search_launch(const void* const* tables, const int* dims,
+                  void* const* state, void* const* io, const int* ints,
+                  void* stream) {
   Params p;
-  const int32_t* const* tb = (const int32_t* const*)tables;
-  p.t = fixlane::Tables{tb[0], tb[1], tb[2], tb[3], tb[4], tb[5], tb[6],
-                        tb[7], tb[8], tb[9], tb[10], tb[11], tb[12], tb[13],
-                        ints[1], ints[2], ints[3], ints[4], ints[5],
-                        ints[6], ints[7], ints[8], ints[9]};
+  p.t = fixlane::tables_from(tables, dims);
   int32_t* const* sf = (int32_t* const*)state;
   p.st = State{sf[0], sf[1], sf[2], sf[3], sf[4], sf[5], sf[6],
                sf[7], sf[8], sf[9], sf[10], sf[11], sf[12], sf[13],
@@ -476,18 +474,17 @@ int search_launch(void* const* tables, void* const* state, void* const* io,
   p.cells = (int32_t*)io[6];
   p.out = (int32_t*)io[7];
   p.L = ints[0];
-  p.B = ints[10];
-  p.S = ints[11];
-  p.MD = ints[12];
-  p.obj_var = ints[13];
-  p.supersteps = ints[14];
-  p.cap = ints[15];
-  p.var_strategy = ints[16];
-  p.val_strategy = ints[17];
-  p.stop_on_first = ints[18];
-  p.it_in = ints[19];
-  const size_t smem = search_smem_bytes(p.t.V, p.t.P1, p.t.K, p.t.C1,
-                                        p.t.T, p.t.H);
+  p.B = ints[1];
+  p.S = ints[2];
+  p.MD = ints[3];
+  p.obj_var = ints[4];
+  p.supersteps = ints[5];
+  p.cap = ints[6];
+  p.var_strategy = ints[7];
+  p.val_strategy = ints[8];
+  p.stop_on_first = ints[9];
+  p.it_in = ints[10];
+  const size_t smem = search_smem_bytes(p.t);
   const int grid = grid_for(p.L, smem);
   if (grid < 0) return -grid;
   void* args[] = {&p};

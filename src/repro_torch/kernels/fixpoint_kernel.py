@@ -12,8 +12,11 @@ their wrappers.
   same per-lane fixpoint (``csrc/fixpoint_lane.cuh``) and meet at two
   grid barriers per superstep.  Its plain version is `search_plain`.
 
-Both cover the ReifLinLe bank and the dense Cumulative bank — everything
-RCPSP lowers to.  On a CPU tensor a wrapper runs its plain version; on a
+Both cover the ReifLinLe bank, the dense AllDifferent bank and the
+dense Cumulative bank (``csrc/fixpoint_lane.cuh``) — what RCPSP,
+N-queens, graph coloring, knapsack and jobshop lower to at their smoke
+and bench tiers.  The sparse AllDifferent and Cumulative layouts and
+Compact-Table raise.  On a CPU tensor a wrapper runs its plain version; on a
 CUDA tensor it launches the kernel or raises (unsupported bank, int64
 model, wrong dtype/shape/device, failed build, refused launch).  It
 never falls back.
@@ -52,19 +55,26 @@ def smem_budget(cm, resident: bool = False) -> dict:
 
     * ``stores``     — current and next lb/ub, ``4·V`` int32;
     * ``linear``     — the ``[P+1, K+1]`` candidate pair;
+    * ``alldiff``    — the shifted member bounds and the candidate pair,
+      four ``[A+1, N]`` arrays, and a fail flag per row; nothing for a
+      model without AllDifferent rows (the counterpart of the
+      reference's ``vmem_budget`` alldiff term);
     * ``cumulative`` — the ``[C+1, horizon]`` profile, the ``[C+1, T]``
       candidate pair, the staged task table and per-row flags;
     * ``search``     — resident only: the dispatch scan and the lane
       scalars.
     """
     P1, K = cm.vidx.shape
+    A1, N = cm.ad_vars.shape
     C1, T = cm.cu_svar.shape
-    stores = 4 * cm.n_vars * 4
-    linear = 2 * P1 * (K + 1) * 4
-    cumulative = (C1 * cm.horizon + 5 * C1 * T + 2 * C1) * 4
-    search = SEARCH_EXTRA_WORDS * 4 if resident else 0
-    return dict(stores=stores, linear=linear, cumulative=cumulative,
-                search=search, total=stores + linear + cumulative + search)
+    parts = dict(
+        stores=4 * cm.n_vars * 4,
+        linear=2 * P1 * (K + 1) * 4,
+        alldiff=(4 * A1 * N + A1) * 4 if cm.n_alldiff else 0,
+        cumulative=(C1 * cm.horizon + 5 * C1 * T + 2 * C1) * 4,
+        search=SEARCH_EXTRA_WORDS * 4 if resident else 0)
+    parts["total"] = sum(parts.values())
+    return parts
 
 
 def fit_smem(cm, limit_bytes: int = SMEM_LIMIT_BYTES,
@@ -80,10 +90,34 @@ def fit_smem(cm, limit_bytes: int = SMEM_LIMIT_BYTES,
             f"{kernel}: model {cm.name or '<unnamed>'} needs "
             f"{b['total']:,} bytes of shared memory per lane (stores "
             f"{b['stores']:,}, linear candidates {b['linear']:,}, "
-            f"cumulative {b['cumulative']:,}, search {b['search']:,}) > "
-            f"{limit_bytes:,} per H100 block; shrink the horizon or the "
-            "linear bank, or use the gather backend")
+            f"alldiff {b['alldiff']:,}, cumulative {b['cumulative']:,}, "
+            f"search {b['search']:,}) > {limit_bytes:,} per H100 block; "
+            "shrink the horizon or the banks, or use the gather backend")
     return b
+
+
+def kernel_tables(cm) -> tuple:
+    """The model tables the kernels read, in ``fixlane::Tables`` order
+    (``csrc/fixpoint_lane.cuh``)."""
+    return (cm.vidx, cm.coef, cm.rhs, cm.bidx, cm.occ_prop, cm.occ_slot,
+            cm.ad_vars, cm.ad_offs, cm.ad_mask, cm.ad_occ_inst,
+            cm.ad_occ_pos, cm.cu_svar, cm.cu_dur, cm.cu_dem, cm.cu_cap,
+            cm.cu_occ_inst, cm.cu_occ_pos, cm.box_lo, cm.box_hi)
+
+
+def _c_tables(cm):
+    """`kernel_tables` and their sizes (in ``fixlane::Tables`` order: V,
+    P1, K, D, A1, N, Dad, n_alldiff, C1, T, Dcu, horizon, n_cumulative)
+    as the C arrays the launch functions take."""
+    tables = kernel_tables(cm)
+    P1, K = cm.vidx.shape
+    A1, N = cm.ad_vars.shape
+    C1, T = cm.cu_svar.shape
+    dims = (cm.n_vars, P1, K, cm.occ_prop.shape[1], A1, N,
+            cm.ad_occ_inst.shape[1], cm.n_alldiff, C1, T,
+            cm.cu_occ_inst.shape[1], cm.horizon, cm.n_cumulative)
+    return ((ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables)),
+            (ctypes.c_int * len(dims))(*dims))
 
 
 def _lib():
@@ -91,7 +125,7 @@ def _lib():
     lib = load("fixpoint")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fixpoint_launch.argtypes = [ptr] * 20 + [i32] * 11 + [ptr]
+        lib.fixpoint_launch.argtypes = [ptr] * 8 + [i32] * 2 + [ptr]
         lib.fixpoint_launch.restype = i32
         lib.fixpoint_error_string.argtypes = [i32]
         lib.fixpoint_error_string.restype = ctypes.c_char_p
@@ -131,7 +165,7 @@ def fixpoint_cuda(cm, lb, ub, *, max_sweeps=None):
         raise ValueError(f"fixpoint_cuda: unsupported device {lb.device}")
     _check(cm, lb, ub)
     fit_smem(cm)
-    L, V = lb.shape
+    L = lb.shape[0]
     lb_out, ub_out = torch.empty_like(lb), torch.empty_like(ub)
     sweeps = torch.empty(L, dtype=torch.int32, device=lb.device)
     conv = torch.empty(L, dtype=torch.int32, device=lb.device)
@@ -140,19 +174,10 @@ def fixpoint_cuda(cm, lb, ub, *, max_sweeps=None):
     cap = UNCAPPED if max_sweeps is None else int(max_sweeps)
     if cap < 0:
         raise ValueError(f"fixpoint_cuda: max_sweeps must be >= 0, got {cap}")
-    P1, K = cm.vidx.shape
-    C1, T = cm.cu_svar.shape
     lib = _lib()
     err = lib.fixpoint_launch(
-        cm.vidx.data_ptr(), cm.coef.data_ptr(), cm.rhs.data_ptr(),
-        cm.bidx.data_ptr(), cm.occ_prop.data_ptr(), cm.occ_slot.data_ptr(),
-        cm.cu_svar.data_ptr(), cm.cu_dur.data_ptr(), cm.cu_dem.data_ptr(),
-        cm.cu_cap.data_ptr(), cm.cu_occ_inst.data_ptr(),
-        cm.cu_occ_pos.data_ptr(), cm.box_lo.data_ptr(),
-        cm.box_hi.data_ptr(), lb.data_ptr(), ub.data_ptr(),
-        lb_out.data_ptr(), ub_out.data_ptr(), sweeps.data_ptr(),
-        conv.data_ptr(), L, V, P1, K, cm.occ_prop.shape[1], C1, T,
-        cm.cu_occ_inst.shape[1], cm.horizon, cm.n_cumulative, cap,
+        *_c_tables(cm), lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
+        ub_out.data_ptr(), sweeps.data_ptr(), conv.data_ptr(), L, cap,
         torch.cuda.current_stream(lb.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -226,9 +251,9 @@ def _search_lib():
     lib = load("search")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.search_launch.argtypes = [ptr, ptr, ptr, ptr, ptr]
+        lib.search_launch.argtypes = [ptr] * 6
         lib.search_launch.restype = i32
-        lib.search_grid.argtypes = [i32] * 7
+        lib.search_grid.argtypes = [i32, ptr, ptr]
         lib.search_grid.restype = i32
         lib.search_error_string.argtypes = [i32]
         lib.search_error_string.restype = ctypes.c_char_p
@@ -316,7 +341,7 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
     if cap < 0:
         raise ValueError(f"search_cuda: the sweep cap must be >= 0, got "
                          f"{cap}")
-    L, V = st.lb.shape
+    L = st.lb.shape[0]
     # the kernel updates copies in place; bools travel as int32 0/1
     out = {f: (getattr(st, f).to(torch.int32) if f in _BOOL_FIELDS
                else getattr(st, f).clone(memory_format=torch.contiguous_format))
@@ -328,15 +353,8 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
     res = torch.empty(4, dtype=torch.int32, device=dev)
     subs_lb, subs_ub = subs_lb.contiguous(), subs_ub.contiguous()
     bv = cm.branch_vars.to(torch.int32).contiguous()
-    P1, K = cm.vidx.shape
-    C1, T = cm.cu_svar.shape
-    tables = (cm.vidx, cm.coef, cm.rhs, cm.bidx, cm.occ_prop, cm.occ_slot,
-              cm.cu_svar, cm.cu_dur, cm.cu_dem, cm.cu_cap,
-              cm.cu_occ_inst, cm.cu_occ_pos, cm.box_lo, cm.box_hi)
     io = (bv, subs_lb, subs_ub, gbest_in, head_in, want, cells, res)
-    ints = (L, V, P1, K, cm.occ_prop.shape[1], C1, T,
-            cm.cu_occ_inst.shape[1], cm.horizon, cm.n_cumulative,
-            bv.shape[0], subs_lb.shape[0], st.dec_var.shape[1],
+    ints = (L, bv.shape[0], subs_lb.shape[0], st.dec_var.shape[1],
             cm.obj_var, supersteps, cap, _VAR_CODES[var_strategy],
             _VAL_CODES[val_strategy], int(stop_on_first), int(it))
 
@@ -345,7 +363,7 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
 
     lib = _search_lib()
     err = lib.search_launch(
-        ptrs(tables), ptrs([out[f] for f in _STATE_FIELDS]), ptrs(io),
+        *_c_tables(cm), ptrs([out[f] for f in _STATE_FIELDS]), ptrs(io),
         (ctypes.c_int * len(ints))(*ints),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -363,10 +381,8 @@ search_cuda.launches = 0
 def search_grid(cm, n_lanes: int) -> int:
     """CTAs one `search_cuda` launch over `n_lanes` lanes uses on this
     card: min(lanes, co-resident CTAs).  Builds the kernel."""
-    P1, K = cm.vidx.shape
-    C1, T = cm.cu_svar.shape
     lib = _search_lib()
-    g = lib.search_grid(n_lanes, cm.n_vars, P1, K, C1, T, cm.horizon)
+    g = lib.search_grid(n_lanes, *_c_tables(cm))
     if g < 0:
         raise RuntimeError("search_cuda: no grid: "
                            + lib.search_error_string(-g).decode())

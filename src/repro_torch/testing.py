@@ -27,6 +27,32 @@ def random_substores(rng: np.random.Generator, cm, n: int):
     return lbs, ubs
 
 
+def pigeonhole_stores(rng: np.random.Generator, cm, lbs, ubs, n: int):
+    """Copies of the first `n` stores of ``lbs``/``ubs`` in which one
+    AllDifferent row (picked at random) is overfull: its first
+    m = min(members, 3) members are told into m - 1 shifted values, which
+    fails the row by pigeonhole at the first sweep (N-queens: three
+    queens in two columns; coloring: both ends of an edge on one colour).
+    A store whose row has no such room in the root box is left as it was.
+    """
+    vars_ = cm.ad_vars.cpu().numpy()
+    offs = cm.ad_offs.cpu().numpy()
+    mask = cm.ad_mask.cpu().numpy()
+    lb0, ub0 = cm.lb0.cpu().numpy(), cm.ub0.cpu().numpy()
+    lbs, ubs = lbs[:n].copy(), ubs[:n].copy()
+    for i in range(lbs.shape[0]):
+        a = int(rng.integers(0, cm.n_alldiff))
+        k = np.flatnonzero(mask[a])[:3]
+        v, off = vars_[a, k], offs[a, k]
+        lo = int((lb0[v] + off).max())           # shifted interval [lo, hi]
+        hi = lo + len(k) - 2
+        if hi < lo or hi > int((ub0[v] + off).min()):
+            continue
+        lbs[i, v] = lo - off
+        ubs[i, v] = hi - off
+    return lbs, ubs
+
+
 def search_inputs(cm, n_lanes: int, eps_target, opts, pool=None):
     """The inputs of one resident launch at the start of a solve, as
     `Solver` makes them: the EPS pool (`pool`, or decomposed to

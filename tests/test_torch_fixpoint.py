@@ -7,7 +7,7 @@ sweep counts and convergence flags, capped or not, against JAX's gather
 The stores are an integer lattice: equality is exact.
 
 Also: the ``cuda`` backend takes the plain version on CPU tensors (and
-counts no launch), and unsupported banks raise.  The kernel itself is
+counts no launch), and the banks still to port raise.  The kernel itself is
 held against the plain version in ``test_torch_kernel.py``.
 """
 
@@ -136,12 +136,18 @@ def _alldiff_model():
 
 
 def test_unsupported_banks_raise():
+    """The banks still to port raise; the dense AllDifferent bank (ported
+    since) propagates instead, on both backends."""
     cm = _alldiff_model().compile(device="cpu")
     lb, ub = cm.lb0[None], cm.ub0[None]
-    with pytest.raises(NotImplementedError, match="AllDifferent"):
-        TF.fixpoint_batch(cm, lb, ub)
-    with pytest.raises(NotImplementedError, match="AllDifferent"):
-        get_backend("cuda").fixpoint_batch(cm, lb, ub)
+    assert cm.ad_layout == "dense"
+    for got in (TF.fixpoint_batch(cm, lb, ub),
+                get_backend("cuda").fixpoint_batch(cm, lb, ub)):
+        assert torch.equal(got[0], lb) and torch.equal(got[1], ub)
+    sparse = _alldiff_model().compile(device="cpu", bank_layout="sparse")
+    for fn in (TF.fixpoint_batch, get_backend("cuda").fixpoint_batch):
+        with pytest.raises(NotImplementedError, match="sparse AllDifferent"):
+            fn(sparse, sparse.lb0[None], sparse.ub0[None])
     m, _ = jrcpsp.build_model(jrcpsp.generate(**small(0)))
     sparse = port_from_jax(m.compile(bank_layout="sparse"))
     assert sparse.cu_layout == "sparse"

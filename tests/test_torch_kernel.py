@@ -21,7 +21,7 @@ from repro_torch.core import fixpoint as F
 from repro_torch.core import search as S
 from repro_torch.core.backend import get_backend
 from repro_torch.core.model import Model
-from repro_torch.core.models import rcpsp
+from repro_torch.core.models import coloring, nqueens, rcpsp, small_instance
 from repro_torch.kernels import build
 from repro_torch.kernels import fixpoint_kernel as K
 from repro_torch.testing import random_substores, search_diff, search_inputs
@@ -35,6 +35,15 @@ BENCH = dict(n_tasks=8, n_resources=3, edge_prob=0.25)
 def _rcpsp(kw, seed=0, device="cpu"):
     m, _ = rcpsp.build_model(rcpsp.generate(**kw, seed=seed))
     return m.compile(device=device)
+
+
+def _nqueens(n, device="cpu"):
+    return nqueens.build_model(nqueens.generate(n))[0].compile(device=device)
+
+
+def _coloring_small(device="cpu"):
+    inst = small_instance("coloring")
+    return coloring.build_model(inst)[0].compile(device=device)
 
 
 def _random_stores(cm, n, seed):
@@ -69,6 +78,22 @@ def test_shared_memory_budget():
     assert b["total"] < K.SMEM_LIMIT_BYTES
     with pytest.raises(ValueError, match="shared memory per lane"):
         K.fit_smem(cm, limit_bytes=b["total"] - 1)
+
+
+def test_alldiff_shared_memory_budget():
+    """The AllDifferent part: yl, yu and the candidate pair ``[A+1, N]``
+    and a fail flag per row (``alldiff_words`` in
+    ``csrc/fixpoint_lane.cuh``); none for a model without the bank."""
+    assert K.smem_budget(_rcpsp(SMALL))["alldiff"] == 0
+    for cm in (_nqueens(32), _coloring_small()):
+        A1, N = cm.ad_vars.shape
+        b = K.fit_smem(cm)
+        assert cm.n_alldiff == A1 - 1 > 0
+        assert b["alldiff"] == 4 * (4 * A1 * N + A1)
+        assert b["total"] == sum(v for k, v in b.items() if k != "total")
+    assert K.smem_budget(_nqueens(32))["alldiff"] == 2064     # [4, 32]
+    with pytest.raises(ValueError, match="alldiff 2,064"):
+        K.fit_smem(_nqueens(32), limit_bytes=1024)
 
 
 def test_search_shared_memory_budget():
@@ -155,8 +180,10 @@ def test_wrapper_checks():
     with pytest.raises(NotImplementedError, match="int32-only"):
         K._check(wide, wide.lb0[None], wide.ub0[None])
     ad = _alldiff_model().compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="AllDifferent"):
-        K._check(ad, ad.lb0[None], ad.ub0[None])
+    K._check(ad, ad.lb0[None], ad.ub0[None])            # dense: accepted
+    sparse = _alldiff_model().compile(device="cpu", bank_layout="sparse")
+    with pytest.raises(NotImplementedError, match="sparse AllDifferent"):
+        K._check(sparse, sparse.lb0[None], sparse.ub0[None])
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -207,11 +234,19 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("max_sweeps", [1, 4, None])
-def test_kernel_matches_plain_on_gpu(cuda, max_sweeps):
+def _gpu_models(device):
+    """(model, seed) of the card-only tests: RCPSP (ReifLinLe and dense
+    Cumulative) and N-queens 8 and coloring small (dense AllDifferent)."""
     for kw, seed in ((SMALL, 0), (BENCH, 1), (dict(n_tasks=30), 0),
                      (dict(n_tasks=60), 2)):
-        cm = _rcpsp(kw, seed=seed, device=cuda)
+        yield _rcpsp(kw, seed=seed, device=device), seed
+    yield _nqueens(8, device=device), 3
+    yield _coloring_small(device=device), 4
+
+
+@pytest.mark.parametrize("max_sweeps", [1, 4, None])
+def test_kernel_matches_plain_on_gpu(cuda, max_sweeps):
+    for cm, seed in _gpu_models(cuda):
         lb, ub = _random_stores(cm, 256, seed)
         before = K.fixpoint_cuda.launches
         got = K.fixpoint_cuda(cm, lb, ub, max_sweeps=max_sweeps)
@@ -223,7 +258,7 @@ def test_kernel_matches_plain_on_gpu(cuda, max_sweeps):
 
 
 def test_kernel_raises_on_unsupported_input_on_gpu(cuda):
-    ad = _alldiff_model().compile(device=cuda)
+    ad = _alldiff_model().compile(device=cuda, bank_layout="sparse")
     with pytest.raises(NotImplementedError):
         K.fixpoint_cuda(ad, ad.lb0[None], ad.ub0[None])
     wide = _int64_model().compile(device=cuda)
@@ -240,18 +275,25 @@ def test_kernel_raises_on_unsupported_input_on_gpu(cuda):
 
 
 def _search_cases(device):
-    """(what, cm, inputs, kwargs) at J30 class: from fresh lanes and from
-    the state after 5 plain supersteps, under prove, the capped fixpoint
-    and stop_on_first."""
-    cm, (slb, sub, st, gbest, head) = _search_setup(
-        dict(n_tasks=30), 128, 512, device=device)
-    for what, kw in (("prove", {}), ("capped", dict(max_fixpoint_iters=4)),
-                     ("first", dict(stop_on_first=True))):
-        kw = dict(var_strategy="min_lb", **kw)
-        yield f"{what} fresh", cm, (slb, sub, st, gbest, 0, head), kw
-        st5, g5, it5, h5, _ = K.search_plain(cm, slb, sub, st, gbest, 0,
-                                             head, supersteps=5, **kw)
-        yield f"{what} after 5", cm, (slb, sub, st5, g5, it5, h5), kw
+    """(what, cm, inputs, kwargs) at J30 class, and on N-queens 8 and
+    coloring small: from fresh lanes and from the state after 5 plain
+    supersteps, under prove, the capped fixpoint and stop_on_first."""
+    opts = S.SearchOptions(var_strategy="min_lb", max_depth=64)
+    models = [("j30", _rcpsp(dict(n_tasks=30), device=device), 512),
+              ("nqueens8", _nqueens(8, device=device), 256),
+              ("coloring", _coloring_small(device=device), 64)]
+    for name, cm, target in models:
+        slb, sub, st, gbest, head = search_inputs(cm, 128, target, opts)
+        for what, kw in (("prove", {}),
+                         ("capped", dict(max_fixpoint_iters=4)),
+                         ("first", dict(stop_on_first=True))):
+            kw = dict(var_strategy="min_lb", **kw)
+            yield (f"{name} {what} fresh", cm,
+                   (slb, sub, st, gbest, 0, head), kw)
+            st5, g5, it5, h5, _ = K.search_plain(cm, slb, sub, st, gbest, 0,
+                                                 head, supersteps=5, **kw)
+            yield (f"{name} {what} after 5", cm,
+                   (slb, sub, st5, g5, it5, h5), kw)
 
 
 @pytest.mark.parametrize("supersteps", [1, 16])
