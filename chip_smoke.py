@@ -71,7 +71,31 @@ exit code and no result line:
    supersteps), beside their plain versions and bounds; then every
    launch of phase 10's long N-queens-32 ``cuda_resident`` solve,
    replayed from the same options and pool and timed one by one (its
-   supersteps and nodes must equal the solve's).
+   supersteps and nodes must equal the solve's);
+13. the sparse banks, kernel against plain version: phase 2's comparison
+   on the J90 and J120 classes, jobshop 20 x 15 (sparse Cumulative),
+   N-queens 64 and N-queens 256 (sparse AllDifferent; the first 256
+   random stores overfull), 1024 random stores each and the EPS pools;
+   then a J30-class instance compiled ``bank_layout="sparse"`` against
+   its dense compile, both through ``fixpoint_cuda``: equal failed
+   masks, non-failed stores, sweeps and convergence flags;
+14. the sparse banks in the resident kernel: phase 5's comparison on the
+   J120 class (``prove``) and N-queens 64 (``min_dom``/``split``) at K =
+   1, 4 and 16, and on N-queens 256 at K = 4, 1024 lanes each, from
+   fresh lanes and after 5 supersteps, and on J120 also 8 supersteps
+   before and after its first solution;
+15. the main path on the sparse banks (1024 lanes, eps_target 4096, the
+   launch counters read around each solve, every solution
+   ground-checked): the J120 and J90 classes and rcpsp-96
+   (``large_instance("rcpsp")``) through ``cuda`` and ``cuda_resident``
+   (K=16), which must prove the JAX package's optima 157, 88 and 55 with
+   equal counters; N-queens 256 (``min_dom``/``split``) through both
+   under 256 supersteps (equal counters), then ``cuda_resident`` under
+   100,000 supersteps or a 30 s timeout, whichever comes first;
+16. times of both kernels at the J120 (``[1024, 122]``) and N-queens-256
+   (``[1024, 257]``) shapes of phases 13 and 14, beside their plain
+   versions, their bounds and the sparse banks' own work (sort compares
+   and scan steps).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -98,6 +122,16 @@ MAIN_TIMEOUT_S = 600.0
 # Proven optima of the generated instances, from the JAX package
 # (``repro.solver``, backend="gather", preset "prove", on the CPU).
 J60_OPTIMUM = 82           # rcpsp.generate(60, n_resources=4, seed=0)
+# phase 15, the sparse Cumulative layout: rcpsp.generate(n,
+# n_resources=4, seed=0) for n = 90 and 120, and large_instance("rcpsp")
+SPARSE_OPTIMUM = {"J90": 88, "J120": 157, "rcpsp96": 55}
+# phase 15's N-queens 256 strategy pair (first-fail, bisection), the
+# superstep cap of its cuda vs cuda_resident solves and the timeout of its
+# long solve: no pair of four tried on the card found a solution within
+# 20 s, and 2048 supersteps took 92 s and 161 s (PERF.md section 6)
+NQ256_STRATEGY = ("min_dom", "split")
+NQ256_CAP = 256
+NQ256_LONG_TIMEOUT_S = 30.0
 # rcpsp.generate(30, n_resources=4, seed=0), preset "prove", 32 lanes,
 # default eps_target: the JAX package's SolveResult counters.
 J30_LANES = 32
@@ -115,6 +149,9 @@ FIXPOINT_SOURCE = "src/repro_torch/kernels/csrc/fixpoint.cu"
 FIXPOINT_REPLACES = "src/repro/kernels/fixpoint_kernel.py:285"
 SEARCH_SOURCE = "src/repro_torch/kernels/csrc/search.cu"
 SEARCH_REPLACES = "src/repro/kernels/fixpoint_kernel.py:520"
+# the propagator banks both kernels cover (csrc/fixpoint_lane.cuh)
+BANKS = ("ReifLinLe", "AllDifferent dense", "AllDifferent sparse",
+         "Cumulative dense", "Cumulative sparse")
 # phases 5-7 and 9: the resident search kernel
 SEARCH_K = (1, 4, 16)
 WARM_STEPS = 5             # plain supersteps before the second start
@@ -367,9 +404,9 @@ def main_config(backend, strategy=None, **kw):
         kw.update(var_strategy=strategy[0], val_strategy=strategy[1])
     if backend == "cuda_resident":
         kw.update(supersteps_per_launch=MAIN_K)
+    kw.setdefault("timeout_s", MAIN_TIMEOUT_S)
     return SolveConfig.preset("prove", backend=backend, n_lanes=MAIN_LANES,
-                              eps_target=MAIN_EPS, timeout_s=MAIN_TIMEOUT_S,
-                              **kw)
+                              eps_target=MAIN_EPS, **kw)
 
 
 def solve_case(phase, tag, c, cfg, optimum=None):
@@ -516,9 +553,19 @@ def cuda_ms(fn, reps, warmup):
 
 
 def table_bytes(cm):
-    """Bytes of the propagator tables the kernels read."""
+    """Bytes of the propagator tables a sweep of this model reads: a
+    bank's dense ``[rows, width]`` tables or its packed (sparse) ones,
+    as the model compiled, and its occurrence lists."""
     from repro_torch.kernels.fixpoint_kernel import kernel_tables
-    return sum(t.numel() * t.element_size() for t in kernel_tables(cm))
+    unread = ((cm.ad_vars, cm.ad_offs, cm.ad_mask)
+              if cm.ad_layout == "sparse" else
+              (cm.ad_ptr, cm.ad_pk_var, cm.ad_pk_off, cm.ad_pk_seg))
+    unread += ((cm.cu_svar, cm.cu_dur, cm.cu_dem)
+               if cm.cu_layout == "sparse" else
+               (cm.cu_ptr, cm.cu_pk_svar, cm.cu_pk_dur, cm.cu_pk_dem,
+                cm.cu_pk_seg))
+    return sum(t.numel() * t.element_size() for t in kernel_tables(cm)
+               if not any(t is u for u in unread))
 
 
 def row_sizes(cm):
@@ -552,6 +599,27 @@ def ops_per_sweep(cm):
     return ops
 
 
+def sparse_work_per_sweep(cm):
+    """The sparse banks' own work per lane-sweep, as the kernel does it:
+    (sort compares, scan steps).  A sort of n keys counts n·⌈log2 n⌉
+    compares (n = Mad members; n = 2·Mcu events); the scans count one
+    step per (member, member of its row) in the Hall count and again in
+    the push (2·n² per row of n), and one per (task, event of its row),
+    forward and backward (2·n·2n per row of n tasks)."""
+    def nlog(n):
+        return n * math.ceil(math.log2(n)) if n > 1 else 0
+    sort = scan = 0
+    if cm.n_alldiff and cm.ad_layout == "sparse":
+        sort += nlog(cm.ad_packed)
+        scan += sum(2 * n * n for n in row_sizes(cm))
+    if cm.n_cumulative and cm.cu_layout == "sparse":
+        sort += nlog(2 * cm.cu_packed)
+        rows = (cm.cu_ptr[1:cm.n_cumulative + 1]
+                - cm.cu_ptr[:cm.n_cumulative]).tolist()
+        scan += sum(4 * n * n for n in rows)
+    return sort, scan
+
+
 def pair_ops_per_sweep(cm):
     """The AllDifferent work of the kernel's own endpoint-pair algorithm
     per lane-sweep, every pair counted: PAIR_OPS·n³ per row."""
@@ -581,15 +649,23 @@ def bound(nbytes, ops, peak_int32):
 
 
 def pair_note(cm, lane_sweeps, peak_int32):
-    """The endpoint-pair algorithm's own work beside the bound."""
-    if not cm.n_alldiff:
+    """The kernel's own work where it differs from the bound's count: the
+    dense AllDifferent bank's endpoint pairs, the sparse banks' sorts and
+    scans."""
+    if cm.n_alldiff and cm.ad_layout == "dense":
+        ops = lane_sweeps * pair_ops_per_sweep(cm)
+        return (f"; the endpoint-pair algorithm's own AllDifferent work, "
+                f"every pair: {ops} int32 ops "
+                f"({ops / peak_int32 * 1e3:.5f} ms)")
+    sort, scan = sparse_work_per_sweep(cm)
+    if not sort:
         return ""
-    ops = lane_sweeps * pair_ops_per_sweep(cm)
-    return (f"; the endpoint-pair algorithm's own AllDifferent work, every "
-            f"pair: {ops} int32 ops ({ops / peak_int32 * 1e3:.5f} ms)")
+    return (f"; the sparse banks' own work: {lane_sweeps * sort} sort "
+            f"compares and {lane_sweeps * scan} scan steps ({sort} and "
+            f"{scan} per lane-sweep)")
 
 
-def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what):
+def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what, plain_reps=5):
     """`fixpoint_cuda` and `fixpoint_batch` per launch (CUDA events) on
     ``[MAIN_LANES, V]`` stores, uncapped, beside the bound: each table
     and store read once and each output written once, over the HBM rate;
@@ -603,15 +679,16 @@ def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what):
     L, V = lb.shape
     n0 = fixpoint_cuda.launches
     ms = cuda_ms(lambda: fixpoint_cuda(cm, lb, ub), reps=50, warmup=5)
-    plain_ms = cuda_ms(lambda: F.fixpoint_batch(cm, lb, ub), reps=5,
-                       warmup=1)
+    plain_ms = cuda_ms(lambda: F.fixpoint_batch(cm, lb, ub),
+                       reps=plain_reps, warmup=1)
     fixpoint_cuda.launches = n0            # timing launches are not counted
     sweeps = int(F.fixpoint_batch(cm, lb, ub)[2].sum())
     nbytes = table_bytes(cm) + 4 * L * V * 4 + 2 * L * 4
     ops = sweeps * ops_per_sweep(cm)
     bound_ms, bound_by = bound(nbytes, ops, peak_int32)
     live = (f"; {live_pair_share(cm, lb, ub):.1%} of the endpoint pairs "
-            f"live in the input stores" if cm.n_alldiff else "")
+            f"live in the input stores"
+            if cm.n_alldiff and cm.ad_layout == "dense" else "")
     print(f"[{tag}] fixpoint at [{L}, {V}] ({what}, uncapped, {sweeps} "
           f"lane-sweeps): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} int32 "
@@ -640,7 +717,8 @@ def search_bound_ms(cm, start, out, peak_int32, launches=1):
     return (*bound(nbytes, ops, peak_int32), nbytes, ops, steps, sweeps)
 
 
-def time_search(card, peak_int32, timing_state, tag, what):
+def time_search(card, peak_int32, timing_state, tag, what, plain_reps=2,
+                plain_warmup=1):
     """`search_cuda` and `search_plain` per launch (CUDA events) from one
     start, beside the bound; returns (kernel ms, plain ms, bound ms,
     bound_by)."""
@@ -653,7 +731,7 @@ def time_search(card, peak_int32, timing_state, tag, what):
                  reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: search_plain(cm, slb, sub, *start,
                                             supersteps=MAIN_K, **kw),
-                       reps=2, warmup=1)
+                       reps=plain_reps, warmup=plain_warmup)
     search_cuda.launches = n0             # timing launches are not counted
     bound_ms, bound_by, nbytes, ops, steps, sweeps = search_bound_ms(
         cm, start, out, peak_int32)
@@ -784,9 +862,10 @@ def max_abs_diff(ref, got):
     return err
 
 
-def phase_search_vs_plain(phase, cases, lanes, variants, around_first):
+def phase_search_vs_plain(phase, cases, lanes, variants, around_first,
+                          ks=SEARCH_K):
     """`search_cuda` against `search_plain` on each case (`lanes[tag]`
-    lanes, its EPS pool) under each variant, at every K of SEARCH_K,
+    lanes, its EPS pool) under each variant, at every K of `ks`,
     from fresh lanes, after WARM_STEPS plain supersteps and, with
     `around_first`, 8 supersteps before and after the first solution.
     Returns the starts after WARM_STEPS by (tag, variant name) and the
@@ -828,7 +907,7 @@ def phase_search_vs_plain(phase, cases, lanes, variants, around_first):
                     done_steps = n
                 if n == WARM_STEPS:
                     states[(tag, name)] = (cm, slb, sub, cur, kw)
-                for k in SEARCH_K:
+                for k in ks:
                     ref = search_plain(cm, slb, sub, *cur, supersteps=k,
                                        **kw)
                     got = search_cuda(cm, slb, sub, *cur, supersteps=k,
@@ -843,14 +922,136 @@ def phase_search_vs_plain(phase, cases, lanes, variants, around_first):
                 st0, stk = cur[0], ref[0]
                 print(f"[{phase}] {tag} {name} from superstep {int(cur[2])} "
                       f"({int(st0.has_sol.sum())} lanes with a solution): "
-                      f"K={','.join(map(str, SEARCH_K))} equal on every "
-                      f"field; after K={SEARCH_K[-1]}: it={int(ref[2])} "
+                      f"K={','.join(map(str, ks))} equal on every "
+                      f"field; after K={ks[-1]}: it={int(ref[2])} "
                       f"nodes={int(stk.n_nodes.sum())} "
                       f"fails={int(stk.n_fails.sum())} "
                       f"sols={int(stk.n_sols.sum())} gbest={int(ref[1])} "
                       f"head={int(ref[3])} stopped={bool(ref[4])}")
     search_cuda.launches = n0          # comparison launches are not counted
     return states, max_err
+
+
+# --------------------------------------------------------------------------
+# phases 13-16: the sparse AllDifferent and Cumulative banks
+# --------------------------------------------------------------------------
+
+def sparse_cases():
+    """The sparse-layout models of phases 13-16 (the auto crossover picks
+    the layout), each with its random stores and EPS pool."""
+    from repro_torch.core.models import large_instance, nqueens, rcpsp
+
+    def gen(n):
+        return load("rcpsp", rcpsp.generate(n, n_resources=4, seed=SEED))
+    made = {"J90": gen(90), "J120": gen(120),
+            "jobshop20x15": load("jobshop",
+                                 large_instance("jobshop", seed=SEED)),
+            "nqueens64": load("nqueens", nqueens.generate(64, seed=SEED)),
+            "nqueens256": load("nqueens",
+                               large_instance("nqueens", seed=SEED))}
+    out = {}
+    for tag, c in made.items():
+        if "sparse" not in (c.cm.ad_layout, c.cm.cu_layout):
+            fail(f"{tag}: compiled to the dense layouts")
+        out[tag] = prepare(13, tag, c, MAIN_EPS)
+    return out
+
+
+def phase_sparse_vs_dense():
+    """A J30-class instance compiled sparse against its dense compile,
+    both through `fixpoint_cuda`, on 1024 random stores at every cap:
+    equal failed masks, non-failed stores, sweeps and convergence."""
+    import numpy as np
+    import torch
+    from repro_torch.core.models import rcpsp
+    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
+    from repro_torch.testing import random_substores
+    m, _ = rcpsp.build_model(rcpsp.generate(30, n_resources=4, seed=SEED))
+    dense, sparse = (m.compile(device="cuda", bank_layout=lay)
+                     for lay in ("dense", "sparse"))
+    print(f"[13] J30 dense: {describe(dense)}; sparse: {describe(sparse)}")
+    lbs, ubs = random_substores(np.random.default_rng(SEED), dense,
+                                N_RANDOM)
+    lb, ub = torch.from_numpy(lbs).cuda(), torch.from_numpy(ubs).cuda()
+    n0 = fixpoint_cuda.launches
+    for cap in CAPS:
+        dl, du, dsw, dconv = fixpoint_cuda(dense, lb, ub, max_sweeps=cap)
+        sl, su, ssw, sconv = fixpoint_cuda(sparse, lb, ub, max_sweeps=cap)
+        torch.cuda.synchronize()
+        failed = (dl > du).any(1)
+        ok = ~failed
+        if not (torch.equal(failed, (sl > su).any(1))
+                and torch.equal(dl[ok], sl[ok])
+                and torch.equal(du[ok], su[ok])
+                and torch.equal(dsw, ssw) and torch.equal(dconv, sconv)):
+            fail(f"J30 max_sweeps={cap}: the sparse compile differs from "
+                 "the dense one on the card")
+        print(f"[13] J30 sparse == dense on the card, max_sweeps={cap}: "
+              f"{int(ok.sum())} non-failed stores equal, "
+              f"{int(failed.sum())} failed in both, sweeps and flags equal")
+    fixpoint_cuda.launches = n0        # comparison launches are not counted
+
+
+def phase_sparse_search(cases):
+    """Phase 14: `search_cuda` against `search_plain` on J120 (prove; also
+    around its first solution, where lanes fail and backtrack), N-queens
+    64 at K = 1, 4, 16 and N-queens 256 at K = 4 (min_dom/split).
+    Returns the starts after WARM_STEPS and the max |err|."""
+    split = (("min_dom/split", "prove", ("min_dom", "split")),)
+    states, err = {}, 0
+    for tag, variants, around_first, ks in (
+            ("J120", (("prove", "prove", None),), True, SEARCH_K),
+            ("nqueens64", split, False, SEARCH_K),
+            ("nqueens256", split, False, (4,))):
+        st, e = phase_search_vs_plain(14, {tag: cases[tag]},
+                                      {tag: MAIN_LANES}, variants,
+                                      around_first, ks=ks)
+        states.update(st)
+        err = max(err, e)
+    return states, err
+
+
+def phase_sparse_main_path(cases):
+    """Phase 15: J120, J90 and rcpsp-96 proved on both backends, N-queens
+    256 on both under NQ256_CAP, then long on `cuda_resident`.  Returns
+    the launches by (tag, run)."""
+    from repro_torch.core.models import large_instance
+    launches = {}
+    rc96 = load("rcpsp", large_instance("rcpsp", seed=SEED))
+    print(f"[15] rcpsp96: {describe(rc96.cm)}")
+    for tag, c in (("J120", cases["J120"]), ("J90", cases["J90"]),
+                   ("rcpsp96", rc96)):
+        got = {}
+        for backend in ("cuda", "cuda_resident"):
+            got[backend], launches[(tag, backend)] = solve_case(
+                15, tag, c, main_config(backend), SPARSE_OPTIMUM[tag])
+        same_counters(15, tag, got)
+    c = cases["nqueens256"]
+    got = {}
+    for backend in ("cuda", "cuda_resident"):
+        got[backend], launches[("nqueens256", backend)] = solve_case(
+            15, "nqueens256", c, main_config(backend, NQ256_STRATEGY,
+                                             max_supersteps=NQ256_CAP))
+    same_counters(15, "nqueens256", got)
+    _, launches[("nqueens256", "long")] = solve_case(
+        15, "nqueens256", c, main_config(
+            "cuda_resident", NQ256_STRATEGY, max_supersteps=ZOO_LONG_CAP,
+            timeout_s=NQ256_LONG_TIMEOUT_S))
+    return launches
+
+
+def phase_sparse_times(card, peak_int32, cases, states):
+    """Phase 16: both kernels at the J120 and N-queens-256 shapes."""
+    for tag, what in (("J120", "J120 random stores of phase 13"),
+                      ("nqueens256", "N-queens 256 stores of phase 13")):
+        c = cases[tag]
+        time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "16", what,
+                      plain_reps=1)
+    time_search(card, peak_int32, states[("J120", "prove")], "16",
+                "J120, prove", plain_reps=1, plain_warmup=0)
+    time_search(card, peak_int32, states[("nqueens256", "min_dom/split")],
+                "16", "N-queens 256, min_dom/split", plain_reps=1,
+                plain_warmup=0)
 
 
 def main():
@@ -893,11 +1094,22 @@ def main():
     zoo_launches, long = timed(10, phase_zoo_main_path, zoo)
     timed(11, phase_zoo_smoke)
     timed(12, phase_alldiff_times, card, peak_int32, zoo, ad_states, long)
-    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err)
+    sparse, sp_err = timed(13, checked_cases, 13, sparse_cases)
+    timed(13, phase_sparse_vs_dense)
+    sp_states, sp_search_err = timed(14, phase_sparse_search, sparse)
+    sp_launches = timed(15, phase_sparse_main_path, sparse)
+    timed(16, phase_sparse_times, card, peak_int32, sparse, sp_states)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
+                                    sp_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
-                                    ad_search_err)
+                                    ad_search_err, sp_search_err)
+    for k in kernels:
+        k["banks"] = list(BANKS)
     print("kernels: zoo main-path launches (fixpoint_cuda, search_cuda): "
           + ", ".join(f"{t} {b} {n}" for (t, b), n in zoo_launches.items()))
+    print("kernels: sparse main-path launches (fixpoint_cuda, "
+          "search_cuda): " + ", ".join(
+              f"{t} {b} {n}" for (t, b), n in sp_launches.items()))
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -13,14 +13,15 @@ module is the plain version the CUDA kernel
 arithmetic, the same neutral sentinels (``±iinfo.max // 4``), the same
 floor/ceil divisions, and per-lane sweep counts and convergence flags.
 
-Ported banks: the ReifLinLe bank (`candidates_tile`), the *dense*
-AllDifferent bank (`alldiff_candidates_tile`) and the *dense*
-Cumulative bank (`cumulative_candidates_tile`) — what RCPSP, N-queens,
-graph coloring, knapsack and jobshop lower to at their smoke and bench
-tiers.  `sweep_tile` raises ``NotImplementedError`` for the sparse
-AllDifferent and Cumulative layouts, Compact-Table and a carried bitset
-store, which come with later slices of the port; it never propagates
-less than the reference silently.
+Ported banks: the ReifLinLe bank (`candidates_tile`), the AllDifferent
+bank in both layouts (`alldiff_candidates_tile`, dense;
+`alldiff_candidates_sparse_tile`, packed) and the Cumulative bank in
+both layouts (`cumulative_candidates_tile`,
+`cumulative_candidates_sparse_tile`) — what RCPSP (J30 to J120
+classes), N-queens, graph coloring, knapsack and jobshop lower to at
+every tier.  `sweep_tile` raises ``NotImplementedError`` for
+Compact-Table and a carried bitset store, which come with a later slice
+of the port; it never propagates less than the reference silently.
 
 Integer dtype discipline: every reduction passes ``dtype=`` (torch widens
 int32 sums to int64, ``jnp`` does not), so stores stay in the model's
@@ -206,6 +207,211 @@ def cumulative_candidates_tile(lb, ub, cu_svar, cu_dur, cu_dem, cu_cap,
     return cand_lb, cand_ub
 
 
+# elements of one ``[L, M, M]`` tensor of the sparse AllDifferent tile;
+# more lanes than fit are worked through in chunks (no result changes)
+_AD_CHUNK_ELEMS = 1 << 25
+
+
+def _lexsort(keys):
+    """``jnp.lexsort(keys, axis=-1)`` for ``[L, n]`` keys (the last key is
+    the primary one): chained stable sorts, least significant key first.
+    Returns the permutation ``[L, n]`` (int64)."""
+    perm = None
+    for k in keys:
+        kk = k if perm is None else torch.gather(k, 1, perm)
+        order = torch.sort(kk, dim=1, stable=True).indices
+        perm = order if perm is None else torch.gather(perm, 1, order)
+    return perm
+
+
+def alldiff_candidates_sparse_tile(lb, ub, ad_pk_var, ad_pk_off, ad_pk_seg,
+                                   n_alldiff: int):
+    """Segmented (packed/CSR) Hall-interval pass, the scale variant of
+    `alldiff_candidates_tile`.
+
+    Members of all rows live on one packed axis of length M with a
+    segment id each (padding slots carry seg == n_alldiff and stay
+    inert).  They are sorted by (segment, shifted lb); the count of
+    members inside ``[a_i, b_j]`` is then a suffix count read at the
+    first sorted position of i's key (tie-invariant, so the order among
+    equal keys cannot change a result).  Hall intervals fold to the
+    tightest inf per sup endpoint and the widest sup per inf endpoint
+    before the push.  Builds ``[L, M, M]`` tensors, a chunk of lanes at a
+    time.  Returns (cand_lb, cand_ub), each ``[L, M]`` over the packed
+    axis in unshifted variable space.
+    """
+    L, M = lb.shape[0], ad_pk_var.shape[0]
+    step = max(1, _AD_CHUNK_ELEMS // (M * M))
+    if L > step:
+        parts = [alldiff_candidates_sparse_tile(
+            lb[i:i + step], ub[i:i + step], ad_pk_var, ad_pk_off, ad_pk_seg,
+            n_alldiff) for i in range(0, L, step)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    dt = lb.dtype
+    neu_ub, neu_lb = _neutrals(dt)
+    off = ad_pk_off[None]                                   # [1, M]
+    yl = _take(lb, ad_pk_var) + off                         # [L, M]
+    yu = _take(ub, ad_pk_var) + off
+    segb = ad_pk_seg[None].expand(L, M)
+
+    perm = _lexsort((yl, segb))                             # seg, then yl
+    inv = torch.argsort(perm, dim=1)
+    syl = torch.gather(yl, 1, perm)
+    syu = torch.gather(yu, 1, perm)
+    sseg = torch.gather(segb, 1, perm)
+    sact = sseg < n_alldiff
+
+    same = sseg[:, :, None] == sseg[:, None, :]             # [L, M, M]
+    a_i = syl[:, :, None]               # interval inf from i (axis 1)
+    b_j = syu[:, None, :]               # interval sup from j (axis 2)
+
+    # suffix count: S[p, j] = |{x >= p : seg_x = seg_j and yu_x <= yu_j}|
+    T = (same & (syu[:, :, None] <= syu[:, None, :])).to(dt)
+    S = T.flip(1).cumsum(1, dtype=dt).flip(1)
+    # first sorted position of i's key = |{p : (seg_p, yl_p) < (seg_i, yl_i)}|
+    lt = ((sseg[:, None, :] < sseg[:, :, None])
+          | (same & (syl[:, None, :] < syl[:, :, None])))   # [L, i, p]
+    fp = lt.sum(2)                                          # [L, M]
+    cnt = torch.gather(S, 1, fp[:, :, None].expand(L, M, M))   # [L, i, j]
+
+    pair_ok = same & sact[:, :, None] & sact[:, None, :] & (a_i <= b_j)
+    width = b_j - a_i + 1
+    overflow = pair_ok & (cnt > width)
+    hall = pair_ok & (cnt == width)
+
+    # extremal Hall data: tightest inf per sup endpoint j, widest sup per
+    # inf endpoint i
+    min_inf = torch.where(hall, a_i, neu_ub).amin(1)        # [L, M] per j
+    max_sup = torch.where(hall, b_j, neu_lb).amax(2)        # [L, M] per i
+
+    # lb push for member k: a Hall [a_i, b_j] with a_i <= yl_k <= b_j < yu_k
+    yl_k, yu_k = syl[:, :, None], syu[:, :, None]           # k on axis 1
+    s_lb = torch.where(same & sact[:, :, None]
+                       & (min_inf[:, None, :] <= yl_k)
+                       & (yl_k <= b_j) & (b_j < yu_k),
+                       b_j + 1, neu_lb).amax(2)             # [L, M]
+    # ub push, mirrored: yl_k < a_i <= yu_k <= max_sup_i
+    a_i2 = syl[:, None, :]                                  # i on axis 2
+    s_ub = torch.where(same & sact[:, :, None]
+                       & (yl_k < a_i2) & (a_i2 <= yu_k)
+                       & (yu_k <= max_sup[:, None, :]),
+                       a_i2 - 1, neu_ub).amin(2)
+
+    # pigeonhole overflow fails every member of the affected row
+    rowfail = overflow.any(2)                               # [L, M] per i
+    failk = (same & rowfail[:, None, :]).any(2)             # [L, M] per k
+    s_lb = torch.where(failk & sact, -neu_lb, s_lb)
+
+    # unsort to packed order, then back to unshifted variable space
+    return torch.gather(s_lb, 1, inv) - off, torch.gather(s_ub, 1, inv) - off
+
+
+def cumulative_candidates_sparse_tile(lb, ub, cu_pk_svar, cu_pk_dur,
+                                      cu_pk_dem, cu_pk_seg, cu_cap,
+                                      n_cumulative: int):
+    """Event-based time-table pass, the scale variant of
+    `cumulative_candidates_tile`; never builds the ``[.., T, horizon]``
+    grid.
+
+    Each packed task emits two events (+q at lst, -q at ect, delta 0
+    without a compulsory part); sorted by (segment, time, kind) with
+    ends before starts, their prefix sum is each segment's
+    piecewise-constant profile (each segment's deltas sum to 0).  An
+    event owns ``[u, v)`` up to the next event of its segment; empty
+    intervals are disabled.  Overload and each task's forbidden
+    intervals are tested per interval; the first and last feasible start
+    come from a forward and a backward monotone-jump scan.  The
+    reference scans all 2M events with a same-segment mask; here each
+    task scans only its own segment's events, which the seg-major sort
+    keeps contiguous at ``[2·start, 2·end)`` of the segment's packed
+    slots, with the same result.  Returns (cand_lb, cand_ub), each
+    ``[L, M]`` over the packed axis.
+    """
+    dt = lb.dtype
+    neu_ub, neu_lb = _neutrals(dt)
+    dev = lb.device
+    L, M = lb.shape[0], cu_pk_svar.shape[0]
+    seg = cu_pk_seg
+    d = cu_pk_dur[None]                                     # [1, M]
+    q = cu_pk_dem[None]
+    act = (seg < n_cumulative)[None] & (d > 0) & (q > 0)
+    cap = cu_cap.index_select(0, seg)[None]                 # [1, M] per task
+    est = _take(lb, cu_pk_svar)                             # [L, M]
+    lst = _take(ub, cu_pk_svar)
+    ect = est + d
+    has_cp = act & (lst < ect)                              # compulsory part
+
+    times = torch.cat([lst, ect], 1)                        # [L, 2M]
+    delta = torch.cat([torch.where(has_cp, q, 0),
+                       torch.where(has_cp, -q, 0)], 1)
+    esegb = torch.cat([seg, seg])[None].expand(L, 2 * M)
+    # ends sort before starts at equal times: transient profiles are then
+    # confined to empty [t, t) intervals, which the u < v guard disables
+    kindb = torch.cat([torch.ones(M, dtype=dt, device=dev),
+                       torch.zeros(M, dtype=dt, device=dev)]
+                      )[None].expand(L, 2 * M)
+    perm = _lexsort((kindb, times, esegb))                  # seg, time, kind
+    stime = torch.gather(times, 1, perm)
+    sdelta = torch.gather(delta, 1, perm)
+    sseg = torch.gather(esegb, 1, perm)
+    prof = sdelta.cumsum(1, dtype=dt)                       # [L, 2M]
+
+    # event e owns [u, v) up to the next event while it stays in-segment;
+    # the last event of a segment owns an empty (disabled) interval
+    nxt_t = torch.cat([stime[:, 1:], stime[:, -1:]], 1)
+    nxt_s = torch.cat([sseg[:, 1:], torch.full_like(sseg[:, -1:], -1)], 1)
+    u_t = stime
+    v_t = torch.where(nxt_s == sseg, nxt_t, stime)
+    over_e = (u_t < v_t) & (prof > cu_cap[sseg.long()])     # [L, 2M]
+    # per-task overload: any overloaded interval in my segment
+    seg_ovl = torch.zeros((L, n_cumulative + 1), dtype=torch.int32,
+                          device=dev).scatter_reduce(
+        1, sseg.long(), over_e.to(torch.int32), "amax")
+    ovl = torch.index_select(seg_ovl, 1, seg) != 0          # [L, M]
+
+    # each task's segment: sorted events [2·start, 2·(start + n))
+    segl = seg.long()
+    counts = torch.bincount(segl, minlength=n_cumulative + 1)
+    e0 = (2 * (torch.cumsum(counts, 0) - counts))[segl]     # [M]
+    ne = 2 * counts[segl]
+    n_scan = 2 * int(counts.max())
+
+    # forbidden-window scans: task t cannot run through interval [u, v)
+    # if profile-without-t + q_t > cap there (t's own compulsory part is
+    # tested at u only: its endpoints are events, so coverage is constant
+    # on [u, v))
+    def hit_at(t, s):
+        e = (e0 + t).clamp(max=2 * M - 1)
+        u, v, p = u_t[:, e], v_t[:, e], prof[:, e]          # [L, M]
+        cov = has_cp & (u >= lst) & (u < ect)
+        bad = act & (u < v) & (p + torch.where(cov, 0, q) > cap)
+        return (t < ne) & bad & (s < v) & (s + d > u), u, v
+
+    s_est = est                                    # first feasible >= est
+    for t in range(n_scan):
+        hit, u, v = hit_at(t, s_est)
+        s_est = torch.where(hit, v, s_est)
+    s_lst = lst                                    # last feasible <= lst
+    for t in reversed(range(n_scan)):
+        hit, u, v = hit_at(t, s_lst)
+        s_lst = torch.where(hit, u - d, s_lst)
+
+    cand_lb = s_est
+    # no feasible start >= 0: the dense tile's max over an empty set
+    cand_ub = torch.where(s_lst >= 0, s_lst, -neu_ub)
+    # a lone task over capacity: every start is forbidden (the dense tile
+    # marks the whole grid bad; events only cover [first, last))
+    qbig = act & (q > cap)
+    cand_lb = torch.where(qbig, -neu_lb, cand_lb)
+    cand_ub = torch.where(qbig, -neu_ub, cand_ub)
+    cand_lb = torch.where(act, cand_lb, neu_lb)
+    cand_ub = torch.where(act, cand_ub, neu_ub)
+    # overload: fail every effective task of the row
+    cand_lb = torch.where(ovl & act, -neu_lb, cand_lb)
+    return cand_lb, cand_ub
+
+
 def _gather_join(cand_lb, cand_ub, occ_inst, occ_pos, L):
     """Variable-centric join of one bank's candidates: each var reduces
     over its occurrence list (pure gather — no scatter, no atomics)."""
@@ -219,19 +425,20 @@ def _gather_join(cand_lb, cand_ub, occ_inst, occ_pos, L):
     return g_lb, g_ub
 
 
-def check_supported(*, n_alldiff: int = 0, ad_layout: str = "dense",
-                    n_cumulative: int = 0, cu_layout: str = "dense",
-                    n_table: int = 0, dom=None, **_statics) -> None:
+def _gather_join_flat(cand_lb, cand_ub, occ, L):
+    """`_gather_join` for packed-axis candidates: `occ` ``[V, D]`` holds
+    flat indices into the ``[L, M]`` candidates (``ptr[occ_inst] +
+    occ_pos``: the CSR rows are contiguous)."""
+    V, D = occ.shape
+    idx = occ.reshape(-1)
+    g_ub = cand_ub.index_select(1, idx).reshape(L, V, D).amin(-1)
+    g_lb = cand_lb.index_select(1, idx).reshape(L, V, D).amax(-1)
+    return g_lb, g_ub
+
+
+def check_supported(*, n_table: int = 0, dom=None, **_statics) -> None:
     """Raise for the banks this slice of the port does not propagate yet
     (rather than propagating less than the reference)."""
-    if n_alldiff and ad_layout != "dense":
-        raise NotImplementedError(
-            "the sparse AllDifferent tile is not ported yet (kernel "
-            "sub-item 1d, ROADMAP queue 2)")
-    if n_cumulative and cu_layout != "dense":
-        raise NotImplementedError(
-            "the sparse Cumulative tile is not ported yet (kernel sub-item "
-            "1e, ROADMAP queue 2)")
     if n_table:
         raise NotImplementedError(
             "Compact-Table banks are not ported yet (kernel sub-item 1f, "
@@ -258,23 +465,36 @@ def sweep_tile(lb, ub, vidx, coef, rhs, bidx, occ_prop, occ_slot,
     Same positional signature as the reference (`model_tables` order),
     so the two stay easy to read side by side.  Returns (lb', ub').
     """
-    check_supported(n_alldiff=n_alldiff, ad_layout=ad_layout,
-                    n_cumulative=n_cumulative, cu_layout=cu_layout,
-                    n_table=n_table, dom=dom)
+    check_supported(n_table=n_table, dom=dom)
     L = lb.shape[0]
     cand_lb, cand_ub = candidates_tile(lb, ub, vidx, coef, rhs, bidx)
     # fold the reif-entailment slot in: occ_slot ∈ [0, K] indexes [K+1]
     g_lb, g_ub = _gather_join(cand_lb, cand_ub, occ_prop, occ_slot, L)
     if n_alldiff:
-        ad_lb, ad_ub = alldiff_candidates_tile(lb, ub, ad_vars, ad_offs,
-                                               ad_mask)
-        j_lb, j_ub = _gather_join(ad_lb, ad_ub, ad_occ_inst, ad_occ_pos, L)
+        if ad_layout == "sparse":
+            ad_lb, ad_ub = alldiff_candidates_sparse_tile(
+                lb, ub, ad_pk_var, ad_pk_off, ad_pk_seg, n_alldiff)
+            occ = ad_ptr[ad_occ_inst.long()] + ad_occ_pos   # flat [V, Dad]
+            j_lb, j_ub = _gather_join_flat(ad_lb, ad_ub, occ, L)
+        else:
+            ad_lb, ad_ub = alldiff_candidates_tile(lb, ub, ad_vars, ad_offs,
+                                                   ad_mask)
+            j_lb, j_ub = _gather_join(ad_lb, ad_ub, ad_occ_inst, ad_occ_pos,
+                                      L)
         g_lb = torch.maximum(g_lb, j_lb)
         g_ub = torch.minimum(g_ub, j_ub)
     if n_cumulative:
-        cu_lb, cu_ub = cumulative_candidates_tile(
-            lb, ub, cu_svar, cu_dur, cu_dem, cu_cap, horizon)
-        j_lb, j_ub = _gather_join(cu_lb, cu_ub, cu_occ_inst, cu_occ_pos, L)
+        if cu_layout == "sparse":
+            cu_lb, cu_ub = cumulative_candidates_sparse_tile(
+                lb, ub, cu_pk_svar, cu_pk_dur, cu_pk_dem, cu_pk_seg,
+                cu_cap, n_cumulative)
+            occ = cu_ptr[cu_occ_inst.long()] + cu_occ_pos   # flat [V, Dcu]
+            j_lb, j_ub = _gather_join_flat(cu_lb, cu_ub, occ, L)
+        else:
+            cu_lb, cu_ub = cumulative_candidates_tile(
+                lb, ub, cu_svar, cu_dur, cu_dem, cu_cap, horizon)
+            j_lb, j_ub = _gather_join(cu_lb, cu_ub, cu_occ_inst, cu_occ_pos,
+                                      L)
         g_lb = torch.maximum(g_lb, j_lb)
         g_ub = torch.minimum(g_ub, j_ub)
     # clamp candidates into the initial box (overflow guard; sound because

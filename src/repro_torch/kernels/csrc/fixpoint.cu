@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel `fixpoint_pallas` /
 // `_fixpoint_kernel` of src/repro/kernels/fixpoint_kernel.py for the
-// ReifLinLe bank, the dense AllDifferent bank and the dense Cumulative
-// bank (RCPSP, N-queens, graph coloring, knapsack, jobshop).  The
+// ReifLinLe bank and the AllDifferent and Cumulative banks in both
+// layouts, dense and sparse (RCPSP, N-queens, graph coloring, knapsack,
+// jobshop); one instance per layout pair, picked at launch.  The
 // per-lane body is `fixlane::fixpoint_lane` (fixpoint_lane.cuh), shared
 // with the resident search kernel (search.cu); this file only loads lane
 // `blockIdx.x` into shared memory, runs it and writes the result back.
@@ -21,7 +22,10 @@
 // (PERF.md has the times); nothing in this design addresses that yet.
 // At the N-queens-32 shape the AllDifferent bank dominates a sweep: A·N²
 // endpoint pairs, each a loop over the row's N members, from shared
-// memory; int32 operations bound it too.
+// memory; int32 operations bound it too.  At the J120 and N-queens-256
+// shapes (sparse banks) a sweep adds a bitonic sort of 1024 keys (55
+// barrier steps) and O(n²) scans per row, all in shared memory: int32
+// operations again.
 // The kernel allocates nothing and launches on the caller's stream.
 
 #include <cuda_runtime.h>
@@ -44,9 +48,10 @@ struct Params {
   int max_sweeps;
 };
 
+template <bool AD_SPARSE, bool CU_SPARSE>
 __global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
   extern __shared__ int32_t smem[];
-  const fixlane::Smem s = fixlane::carve(p.t, smem);
+  const fixlane::Smem s = fixlane::carve<AD_SPARSE, CU_SPARSE>(p.t, smem);
   const int V = p.t.V;
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
@@ -56,8 +61,9 @@ __global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
     s.lb(0)[v] = p.lb_in[row + v];
     s.ub(0)[v] = p.ub_in[row + v];
   }
-  fixlane::stage_tables(p.t, s);
-  const fixlane::LaneResult r = fixlane::fixpoint_lane(p.t, s, p.max_sweeps);
+  fixlane::stage_tables<CU_SPARSE>(p.t, s);
+  const fixlane::LaneResult r =
+      fixlane::fixpoint_lane<AD_SPARSE, CU_SPARSE>(p.t, s, p.max_sweeps);
 
   for (int v = tid; v < V; v += THREADS) {
     p.lb_out[row + v] = s.lb(r.cur)[v];
@@ -67,6 +73,16 @@ __global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
     p.sweeps[lane] = r.sweeps;
     p.conv[lane] = r.conv;
   }
+}
+
+template <bool AD_SPARSE, bool CU_SPARSE>
+int launch(const Params& p, int L, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fixpoint_kernel<AD_SPARSE, CU_SPARSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fixpoint_kernel<AD_SPARSE, CU_SPARSE><<<L, THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -85,12 +101,12 @@ int fixpoint_launch(const void* const* tables, const int* dims,
   // shared-memory bytes of one CTA (kernels/fixpoint_kernel.py::
   // smem_budget uses the same formula)
   const size_t smem = sizeof(int32_t) * fixlane::smem_words(p.t);
-  cudaError_t err = cudaFuncSetAttribute(
-      fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fixpoint_kernel<<<L, THREADS, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (p.t.ad_sparse)
+    return p.t.cu_sparse ? launch<true, true>(p, L, smem, st)
+                         : launch<true, false>(p, L, smem, st);
+  return p.t.cu_sparse ? launch<false, true>(p, L, smem, st)
+                       : launch<false, false>(p, L, smem, st);
 }
 
 const char* fixpoint_error_string(int err) {

@@ -2,11 +2,13 @@
 // `fixpoint.cu` (one launch per fixpoint) and `search.cu` (K supersteps
 // per launch) share.
 //
-// It covers the ReifLinLe bank (`fixpoint.candidates_tile`), the dense
-// AllDifferent bank (`fixpoint.alldiff_candidates_tile`) and the dense
-// Cumulative bank (`fixpoint.cumulative_candidates_tile`): what RCPSP,
-// N-queens, graph coloring, knapsack and jobshop lower to.  The plain
-// PyTorch version is repro_torch/core/fixpoint.py::fixpoint_batch;
+// It covers the ReifLinLe bank (`fixpoint.candidates_tile`), the
+// AllDifferent bank in both layouts (`fixpoint.alldiff_candidates_tile`,
+// `alldiff_candidates_sparse_tile`) and the Cumulative bank in both
+// layouts (`cumulative_candidates_tile`,
+// `cumulative_candidates_sparse_tile`): what RCPSP (J30 to J120
+// classes), N-queens, graph coloring, knapsack and jobshop lower to.  The
+// plain PyTorch version is repro_torch/core/fixpoint.py::fixpoint_batch;
 // results (stores, sweep counts, convergence flags) are equal bit for
 // bit, capped or not.
 //
@@ -21,14 +23,16 @@
 //     endpoint pairs (row, i, j) count the members inside [yl_i, yu_j]
 //     and push, threads over (row, task) find the first and last
 //     feasible start; (3) threads over variables min/max-reduce their
-//     occurrence lists, clamp to the box and write the next store;
+//     occurrence lists, clamp to the box and write the next store (a
+//     sparse bank writes its sort keys in (1) and sorts and scans in
+//     (2), below);
 //   * `__syncthreads_or` ends the loop on the per-lane rule
 //     changed ∧ it < max_sweeps ∧ ¬failed, so every thread leaves with
 //     the same sweep count, flags and result buffer.
 // The tables stay read-only in global memory (they sit in L2); only the
 // cumulative task table is staged in shared memory, once per CTA.
 //
-// AllDifferent (the reference's [L, A1, N, N, N] tensor is its
+// Dense AllDifferent (the reference's [L, A1, N, N, N] tensor is its
 // specification, not carried over): one thread per endpoint pair (i, j)
 // of a row tests I = [yl_i, yu_j] by a loop over the row's N members.
 // More members inside I than its width fails the row (a per-row flag);
@@ -42,6 +46,33 @@
 // box, far from ±BIG).  The join reads the pair
 // through ad_occ_inst/ad_occ_pos, with a failed row's lb candidates at
 // -NEU_LB, shifted back by the member's offset, as the reference.
+//
+// The sparse layouts (packed/CSR rows: members or tasks of every row on
+// one axis of M slots with a segment id each, padding in segment A or C)
+// share a bitonic sort of 64-bit keys in shared memory (`block_sort`).
+// Signed values are biased (x ^ 0x80000000) before they are packed, so
+// the key order equals the reference's lexsort on every int32.
+//   * Cumulative: each packed task writes two events, (seg, lst, 1) with
+//     +q and (seg, ect, 0) with -q (delta 0 without a compulsory part,
+//     and every slot writes both: the interval bounds depend on all of
+//     them).  After the sort a block prefix sum gives the profile; an
+//     event owns [u, v) up to the next event of its segment.  Under the
+//     seg-major sort segment c's events are sorted positions
+//     [2·cu_ptr[c], 2·cu_ptr[c+1]), so one thread per task runs the
+//     forward and backward monotone-jump scans over its own segment only
+//     (the reference scans all events under a same-segment mask).  Keys
+//     that tie only span empty intervals, and the group's last event
+//     carries the group's whole sum, so the order among ties changes
+//     nothing.
+//   * AllDifferent: members sort by (seg, yl).  One thread per upper
+//     endpoint j walks its segment from the end, keeping the suffix count
+//     of members with yu <= yu_j; at the first sorted position of each
+//     yl value that count is cnt(i, j) for every i of that value (so ties
+//     are harmless).  Overflow fails the row; a Hall interval folds into
+//     min_inf[j] (the thread's own) and max_sup at the value's first
+//     position (shared-memory atomicMax, which commutes).  One thread per
+//     member then pushes over its segment, O(n) each: O(n^2) per row,
+//     where the dense bank's endpoint-pair loop is O(n^3).
 //
 // Arithmetic: int32 only (the wrappers reject int64 models).  Floor and
 // ceil division follow `_fdiv`/`_cdiv` (C++ `/` truncates toward zero).
@@ -85,40 +116,89 @@ struct Tables {
   const int32_t* ad_mask;     // [A1, N]
   const int32_t* ad_occ_inst; // [V, Dad]
   const int32_t* ad_occ_pos;  // [V, Dad]
+  const int32_t* ad_ptr;      // [A+2] packed row starts (CSR)
+  const int32_t* ad_pk_var;   // [Mad]
+  const int32_t* ad_pk_off;   // [Mad]
+  const int32_t* ad_pk_seg;   // [Mad] row of each slot, A for padding
   const int32_t* cu_svar;     // [C1, T]
   const int32_t* cu_dur;      // [C1, T]
   const int32_t* cu_dem;      // [C1, T]
   const int32_t* cu_cap;      // [C1]
   const int32_t* cu_occ_inst; // [V, Dcu]
   const int32_t* cu_occ_pos;  // [V, Dcu]
+  const int32_t* cu_ptr;      // [C+2] packed row starts (CSR)
+  const int32_t* cu_pk_svar;  // [Mcu]
+  const int32_t* cu_pk_dur;   // [Mcu]
+  const int32_t* cu_pk_dem;   // [Mcu]
+  const int32_t* cu_pk_seg;   // [Mcu] row of each slot, C for padding
   const int32_t* box_lo;      // [V]
   const int32_t* box_hi;      // [V]
   int V, P1, K, D, A1, N, Dad, n_alldiff, C1, T, Dcu, H, n_cumulative;
+  int Mad, Mcu;               // packed slots
+  int ad_sparse, cu_sparse;   // layouts: 1 = packed (sparse), 0 = dense
 };
 
-constexpr int N_TABLES = 19;
-constexpr int N_DIMS = 13;
+constexpr int N_TABLES = 28;
+constexpr int N_DIMS = 17;
 
 inline Tables tables_from(const void* const* tb, const int* d) {
   const int32_t* const* t = (const int32_t* const*)tb;
   return Tables{t[0],  t[1],  t[2],  t[3],  t[4],  t[5],  t[6],
                 t[7],  t[8],  t[9],  t[10], t[11], t[12], t[13],
-                t[14], t[15], t[16], t[17], t[18],
+                t[14], t[15], t[16], t[17], t[18], t[19], t[20],
+                t[21], t[22], t[23], t[24], t[25], t[26], t[27],
                 d[0],  d[1],  d[2],  d[3],  d[4],  d[5],  d[6],
-                d[7],  d[8],  d[9],  d[10], d[11], d[12]};
+                d[7],  d[8],  d[9],  d[10], d[11], d[12], d[13],
+                d[14], d[15], d[16]};
 }
 
-// 32-bit words of shared memory one lane's fixpoint needs; the wrappers'
-// budget (kernels/fixpoint_kernel.py::smem_budget) uses the same formula.
-// A model without AllDifferent rows gets no AllDifferent part.
+// Keys a sparse bank sorts: the next power of two of its events.
+__host__ __device__ inline int pow2_at_least(int n) {
+  int q = 1;
+  while (q < n) q <<= 1;
+  return q;
+}
+__host__ __device__ inline int ad_sort_n(const Tables& p) {
+  return pow2_at_least(p.Mad);
+}
+__host__ __device__ inline int cu_sort_n(const Tables& p) {
+  return pow2_at_least(2 * p.Mcu);
+}
+
+constexpr int SCAN_WORDS = 32;   // a block scan's per-warp sums
+
+// 32-bit words of shared memory one lane's fixpoint needs, by bank; the
+// wrappers' budget (kernels/fixpoint_kernel.py::smem_budget) uses the
+// same formula.  A bank counts only what its layout uses; a model
+// without AllDifferent rows gets no AllDifferent part.
+//   AllDifferent, dense:  yl, yu, candidate pair [A1, N] and a fail flag
+//     per row: 4·A1·N + A1;
+//   AllDifferent, sparse: sort keys (two words each) and payloads over
+//     ad_sort_n, then syl, syu, min_inf, max_sup and the candidate pair
+//     over Mad, and a fail flag per row: 3·ad_sort_n + 6·Mad + A1;
+//   Cumulative, dense:  profile [C1, H], candidate pair and task table
+//     [C1, T], capacity and overload per row: C1·H + 5·C1·T + 2·C1;
+//   Cumulative, sparse: event keys and deltas (then the profile) over
+//     cu_sort_n, task table (svar, dur, dem, seg) and candidate pair over
+//     Mcu, capacity and overload per row, the scan's warp sums:
+//     3·cu_sort_n + 6·Mcu + 2·C1 + 32.
 __host__ __device__ inline size_t alldiff_words(const Tables& p) {
-  return p.n_alldiff > 0 ? (size_t)4 * p.A1 * p.N + (size_t)p.A1 : 0;
+  if (p.n_alldiff <= 0) return 0;
+  if (p.ad_sparse)
+    return (size_t)3 * ad_sort_n(p) + (size_t)6 * p.Mad + (size_t)p.A1;
+  return (size_t)4 * p.A1 * p.N + (size_t)p.A1;
+}
+
+__host__ __device__ inline size_t cumulative_words(const Tables& p) {
+  if (p.cu_sparse)
+    return (size_t)3 * cu_sort_n(p) + (size_t)6 * p.Mcu + (size_t)2 * p.C1 +
+           SCAN_WORDS;
+  return (size_t)p.C1 * p.H + (size_t)5 * p.C1 * p.T + (size_t)2 * p.C1;
 }
 
 __host__ __device__ inline size_t smem_words(const Tables& p) {
   return (size_t)4 * p.V + (size_t)2 * p.P1 * (p.K + 1) +
-         (size_t)p.C1 * p.H + (size_t)5 * p.C1 * p.T + (size_t)2 * p.C1 +
-         alldiff_words(p);
+         cumulative_words(p) + alldiff_words(p);
 }
 
 // The fixpoint's view of a CTA's shared memory.  Store buffer c (0 or
@@ -135,59 +215,391 @@ struct Smem {
   }
   int32_t* clb;     // [P1, K+1]
   int32_t* cub;     // [P1, K+1]
-  int32_t* prof;    // [C1, H]
-  int32_t* ulb;     // [C1, T]
-  int32_t* uub;     // [C1, T]
-  int32_t* t_svar;  // [C1, T]
-  int32_t* t_dur;   // [C1, T]
-  int32_t* t_dem;   // [C1, T]
+  // Cumulative; dense: [C1, H] profile, [C1, T] pair and task table;
+  // sparse: [Mcu] pair and task table, [cu_sort_n] keys and deltas
+  int32_t* prof;    // dense only
+  int32_t* ulb;
+  int32_t* uub;
+  int32_t* t_svar;
+  int32_t* t_dur;
+  int32_t* t_dem;
+  int32_t* t_seg;   // sparse only
   int32_t* t_cap;   // [C1]
   int32_t* ovl;     // [C1]
-  int32_t* yl;      // [A1, N] shifted member bounds (AllDifferent)
-  int32_t* yu;      // [A1, N]
-  int32_t* alb;     // [A1, N] AllDifferent candidate pair (shifted)
-  int32_t* aub;     // [A1, N]
+  uint64_t* ckey;   // sparse: event keys (seg, time, kind)
+  int32_t* cval;    // sparse: event deltas, then the profile
+  int32_t* wsum;    // sparse: the prefix sum's per-warp sums
+  // AllDifferent; dense: [A1, N] shifted member bounds and pair (shifted);
+  // sparse: [Mad] sorted bounds, Hall folds and the pair in packed order
+  // (unshifted), [ad_sort_n] keys (seg, yl) and member indices
+  int32_t* yl;      // dense only
+  int32_t* yu;      // dense only
+  int32_t* syl;     // sparse only
+  int32_t* syu;     // sparse only
+  int32_t* minf;    // sparse only
+  int32_t* msup;    // sparse only
+  int32_t* alb;
+  int32_t* aub;
   int32_t* afail;   // [A1] pigeonhole failure per row
+  uint64_t* akey;   // sparse only
+  int32_t* aval;    // sparse only
 };
 
+// The 64-bit sort keys come right after the stores and the linear pair
+// (4·V + 2·P1·(K+1) words, an even number), so they are 8-byte aligned;
+// the other regions follow.  The total is smem_words'.  The layouts are
+// template parameters (equal to p.ad_sparse, p.cu_sparse), so each
+// kernel instance computes its own layout's addresses only.
+template <bool AD_SPARSE, bool CU_SPARSE>
 __device__ __forceinline__ Smem carve(const Tables& p, int32_t* base) {
-  const int V = p.V, K1 = p.K + 1, C1 = p.C1, T = p.T;
-  Smem s;
+  const int V = p.V, K1 = p.K + 1, C1 = p.C1;
+  Smem s = {};
   s.store = base;
   s.V = V;
   s.clb = base + 4 * V;
   s.cub = s.clb + p.P1 * K1;
-  s.prof = s.cub + p.P1 * K1;
-  s.ulb = s.prof + C1 * p.H;
-  s.uub = s.ulb + C1 * T;
-  s.t_svar = s.uub + C1 * T;
-  s.t_dur = s.t_svar + C1 * T;
-  s.t_dem = s.t_dur + C1 * T;
-  s.t_cap = s.t_dem + C1 * T;
-  s.ovl = s.t_cap + C1;
-  const int AN = p.n_alldiff > 0 ? p.A1 * p.N : 0;
-  s.yl = s.ovl + C1;
-  s.yu = s.yl + AN;
-  s.alb = s.yu + AN;
-  s.aub = s.alb + AN;
-  s.afail = s.aub + AN;
+  int32_t* w = s.cub + p.P1 * K1;
+  const bool ad_sparse = AD_SPARSE && p.n_alldiff > 0;
+  if (ad_sparse) {
+    s.akey = (uint64_t*)w;
+    w += 2 * ad_sort_n(p);
+  }
+  if (CU_SPARSE) {
+    s.ckey = (uint64_t*)w;
+    w += 2 * cu_sort_n(p);
+  }
+  if (CU_SPARSE) {
+    const int n = cu_sort_n(p), M = p.Mcu;
+    s.cval = w;
+    w += n;
+    s.t_svar = w;
+    s.t_dur = w + M;
+    s.t_dem = w + 2 * M;
+    s.t_seg = w + 3 * M;
+    s.ulb = w + 4 * M;
+    s.uub = w + 5 * M;
+    w += 6 * M;
+    s.t_cap = w;
+    s.ovl = w + C1;
+    s.wsum = w + 2 * C1;
+    w += 2 * C1 + SCAN_WORDS;
+  } else {
+    const int CT = C1 * p.T;
+    s.prof = w;
+    w += C1 * p.H;
+    s.ulb = w;
+    s.uub = w + CT;
+    s.t_svar = w + 2 * CT;
+    s.t_dur = w + 3 * CT;
+    s.t_dem = w + 4 * CT;
+    w += 5 * CT;
+    s.t_cap = w;
+    s.ovl = w + C1;
+    w += 2 * C1;
+  }
+  if (ad_sparse) {
+    const int n = ad_sort_n(p), M = p.Mad;
+    s.aval = w;
+    w += n;
+    s.syl = w;
+    s.syu = w + M;
+    s.minf = w + 2 * M;
+    s.msup = w + 3 * M;
+    s.alb = w + 4 * M;
+    s.aub = w + 5 * M;
+    s.afail = w + 6 * M;
+  } else if (p.n_alldiff > 0) {
+    const int AN = p.A1 * p.N;
+    s.yl = w;
+    s.yu = w + AN;
+    s.alb = w + 2 * AN;
+    s.aub = w + 3 * AN;
+    s.afail = w + 4 * AN;
+  }
   return s;
 }
 
 // Stage the cumulative task table in shared memory and clear the
 // overload flags; once per CTA, before its first fixpoint.  The caller
 // synchronises (fixpoint_lane starts with a barrier).
+template <bool CU_SPARSE>
 __device__ __forceinline__ void stage_tables(const Tables& p, const Smem& s) {
   if (p.n_cumulative <= 0) return;
   const int tid = threadIdx.x;
-  for (int i = tid; i < p.C1 * p.T; i += THREADS) {
-    s.t_svar[i] = p.cu_svar[i];
-    s.t_dur[i] = p.cu_dur[i];
-    s.t_dem[i] = p.cu_dem[i];
+  if (CU_SPARSE) {
+    for (int i = tid; i < p.Mcu; i += THREADS) {
+      s.t_svar[i] = p.cu_pk_svar[i];
+      s.t_dur[i] = p.cu_pk_dur[i];
+      s.t_dem[i] = p.cu_pk_dem[i];
+      s.t_seg[i] = p.cu_pk_seg[i];
+    }
+  } else {
+    for (int i = tid; i < p.C1 * p.T; i += THREADS) {
+      s.t_svar[i] = p.cu_svar[i];
+      s.t_dur[i] = p.cu_dur[i];
+      s.t_dem[i] = p.cu_dem[i];
+    }
   }
   for (int c = tid; c < p.C1; c += THREADS) {
     s.t_cap[c] = p.cu_cap[c];
     s.ovl[c] = 0;
+  }
+}
+
+// ---- block-wide building blocks (every thread of the CTA calls them) ----
+
+constexpr int WARPS = THREADS / 32;
+
+// Exclusive prefix sum of one value per thread over the CTA; `wsum` holds
+// 32 words.  Returns the thread's prefix and writes the total.
+__device__ int block_exclusive_scan(int v, int32_t* wsum, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < WARPS ? wsum[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < WARPS) wsum[lane] = w;
+  }
+  __syncthreads();
+  const int before = warp ? wsum[warp - 1] : 0;
+  *total = wsum[WARPS - 1];
+  __syncthreads();                       // wsum may be reused
+  return before + x - v;
+}
+
+// In-place inclusive prefix sum of x[0, n): a run per thread, the runs'
+// offsets by block_exclusive_scan.  Ends with a barrier.
+__device__ void block_inclusive_scan(int32_t* x, int n, int32_t* wsum) {
+  const int per = (n + THREADS - 1) / THREADS;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int32_t sum = 0;
+  for (int i = lo; i < hi; ++i) sum += x[i];
+  int total;
+  int32_t run = block_exclusive_scan(sum, wsum, &total);
+  for (int i = lo; i < hi; ++i) {
+    run += x[i];
+    x[i] = run;
+  }
+  __syncthreads();
+}
+
+// Sort n (a power of two) 64-bit keys ascending in shared memory, each
+// with its payload: a bitonic network, n/2 compare-exchanges per step
+// spread over the CTA.  Equal keys are never swapped.  The caller
+// synchronises before (the keys are written); it ends with a barrier.
+__device__ void block_sort(uint64_t* key, int32_t* val, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < (n >> 1); t += THREADS) {
+        const int i = 2 * j * (t / j) + (t % j);   // bit j of i is clear
+        const int l = i + j;
+        const uint64_t a = key[i], b = key[l];
+        if ((i & k) == 0 ? a > b : a < b) {
+          key[i] = b;
+          key[l] = a;
+          const int32_t x = val[i];
+          val[i] = val[l];
+          val[l] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Signed int32 in unsigned order (the bias that makes packed keys sort
+// as lexsort does), and back.
+__device__ __forceinline__ uint32_t biased(int32_t x) {
+  return (uint32_t)x ^ 0x80000000u;
+}
+__device__ __forceinline__ int32_t unbiased(uint32_t x) {
+  return (int32_t)(x ^ 0x80000000u);
+}
+
+// ---- the sparse Cumulative bank ------------------------------------------
+
+// Event key: segment, biased time, kind (0 = end at ect, 1 = start at
+// lst), so ends sort before starts at equal times.
+__device__ __forceinline__ int32_t ev_time(uint64_t k) {
+  return unbiased((uint32_t)(k >> 1));
+}
+
+// Step (1): one thread per event slot writes its key and delta; the
+// power-of-two tail gets keys that sort last.
+__device__ void cu_sparse_events(const Tables& p, const Smem& s,
+                                 const int32_t* lb, const int32_t* ub) {
+  const int M = p.Mcu, n = cu_sort_n(p);
+  for (int e = threadIdx.x; e < n; e += THREADS) {
+    if (e >= 2 * M) {
+      s.ckey[e] = ~0ull;
+      s.cval[e] = 0;
+      continue;
+    }
+    const bool start = e < M;
+    const int m = start ? e : e - M;
+    const int32_t d = s.t_dur[m], q = s.t_dem[m], c = s.t_seg[m];
+    const int v = s.t_svar[m];
+    const int32_t est = lb[v], lst = ub[v];
+    const bool cp = c < p.n_cumulative && d > 0 && q > 0 && lst < est + d;
+    const int32_t t = start ? lst : est + d;
+    s.ckey[e] = ((uint64_t)(uint32_t)c << 33) | ((uint64_t)biased(t) << 1) |
+                (uint64_t)start;
+    s.cval[e] = cp ? (start ? q : -q) : 0;
+  }
+}
+
+// Step (2): sort, profile, per-row overload, then one thread per task
+// finds its first and last feasible start.  Barriers separate its
+// passes; the caller synchronises after the last.
+__device__ void cu_sparse_scan(const Tables& p, const Smem& s,
+                               const int32_t* lb, const int32_t* ub) {
+  const int M = p.Mcu, E = 2 * M;
+  block_sort(s.ckey, s.cval, cu_sort_n(p));
+  block_inclusive_scan(s.cval, cu_sort_n(p), s.wsum);
+  // an overloaded non-empty interval [u, v) fails its row
+  for (int e = threadIdx.x; e < E; e += THREADS) {
+    const uint64_t k = s.ckey[e];
+    const int c = (int)(k >> 33);
+    const int32_t u = ev_time(k);
+    const int32_t v = (e + 1 < E && (int)(s.ckey[e + 1] >> 33) == c)
+                          ? ev_time(s.ckey[e + 1]) : u;
+    if (u < v && s.cval[e] > s.t_cap[c]) s.ovl[c] = 1;  // benign race
+  }
+  __syncthreads();
+  for (int m = threadIdx.x; m < M; m += THREADS) {
+    const int32_t d = s.t_dur[m], q = s.t_dem[m];
+    const int c = s.t_seg[m];
+    if (!(c < p.n_cumulative && d > 0 && q > 0)) {
+      s.ulb[m] = NEU_LB;
+      s.uub[m] = NEU_UB;
+      continue;
+    }
+    const int32_t cap = s.t_cap[c];
+    if (q > cap) {                 // a lone task over capacity
+      s.ulb[m] = -NEU_LB;
+      s.uub[m] = -NEU_UB;
+      continue;
+    }
+    const int v = s.t_svar[m];
+    const int32_t est = lb[v], lst = ub[v], ect = est + d;
+    const bool cp = lst < ect;
+    const int e0 = 2 * __ldg(p.cu_ptr + c), e1 = 2 * __ldg(p.cu_ptr + c + 1);
+    // first feasible start >= est: jump past each forbidden interval
+    int32_t st = est;
+    int32_t u = e0 < e1 ? ev_time(s.ckey[e0]) : 0;
+    for (int e = e0; e < e1; ++e) {
+      const int32_t v_ = e + 1 < e1 ? ev_time(s.ckey[e + 1]) : u;
+      if (u < v_) {
+        const bool own = cp && u >= lst && u < ect;
+        if (s.cval[e] + (own ? 0 : q) > cap && st < v_ && st + d > u)
+          st = v_;
+      }
+      u = v_;
+    }
+    // last feasible start <= lst: jump before each forbidden interval
+    int32_t sl = lst;
+    int32_t v_ = e1 > e0 ? ev_time(s.ckey[e1 - 1]) : 0;
+    for (int e = e1 - 1; e >= e0; --e) {
+      const int32_t u_ = ev_time(s.ckey[e]);
+      if (u_ < v_) {
+        const bool own = cp && u_ >= lst && u_ < ect;
+        if (s.cval[e] + (own ? 0 : q) > cap && sl < v_ && sl + d > u_)
+          sl = u_ - d;
+      }
+      v_ = u_;
+    }
+    s.ulb[m] = s.ovl[c] ? -NEU_LB : st;     // overload fails the row
+    s.uub[m] = sl >= 0 ? sl : -NEU_UB;
+  }
+}
+
+// ---- the sparse AllDifferent bank ----------------------------------------
+
+// Step (1): one thread per key slot writes (seg, yl) and the member
+// index; the Hall folds and fail flags are cleared.
+__device__ void ad_sparse_keys(const Tables& p, const Smem& s,
+                               const int32_t* lb) {
+  const int M = p.Mad, n = ad_sort_n(p);
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    if (i >= M) {
+      s.akey[i] = ~0ull;
+      s.aval[i] = 0;
+      continue;
+    }
+    const int32_t yl = lb[__ldg(p.ad_pk_var + i)] + __ldg(p.ad_pk_off + i);
+    s.akey[i] = ((uint64_t)(uint32_t)__ldg(p.ad_pk_seg + i) << 32) |
+                (uint64_t)biased(yl);
+    s.aval[i] = i;
+    s.msup[i] = NEU_LB;
+  }
+  for (int a = threadIdx.x; a < p.A1; a += THREADS) s.afail[a] = 0;
+}
+
+// Step (2): sort, Hall counts and folds, pushes.  Writes the candidate
+// pair in packed order, unshifted (a failed row's lb at -NEU_LB - off).
+// Barriers separate its passes; the caller synchronises after the last.
+__device__ void ad_sparse_hall(const Tables& p, const Smem& s,
+                               const int32_t* ub) {
+  const int M = p.Mad, A = p.n_alldiff;
+  block_sort(s.akey, s.aval, ad_sort_n(p));
+  for (int i = threadIdx.x; i < M; i += THREADS) {
+    const int m = s.aval[i];
+    s.syl[i] = unbiased((uint32_t)s.akey[i]);
+    s.syu[i] = ub[__ldg(p.ad_pk_var + m)] + __ldg(p.ad_pk_off + m);
+  }
+  __syncthreads();
+  // one thread per upper endpoint j: cnt(i, j) by the suffix count
+  for (int j = threadIdx.x; j < M; j += THREADS) {
+    const int c = (int)(s.akey[j] >> 32);
+    if (c >= A) continue;                       // padding
+    const int s0 = __ldg(p.ad_ptr + c), s1 = __ldg(p.ad_ptr + c + 1);
+    const int32_t b = s.syu[j];
+    int32_t cnt = 0, mi = NEU_UB;
+    bool fail = false;
+    for (int x = s1 - 1; x >= s0; --x) {
+      cnt += s.syu[x] <= b;
+      const int32_t a = s.syl[x];
+      if ((x == s0 || s.syl[x - 1] != a) && a <= b) {  // first of its key
+        const int32_t width = b - a + 1;
+        if (cnt > width) {
+          fail = true;
+        } else if (cnt == width) {              // Hall interval [a, b]
+          mi = min(mi, a);
+          atomicMax(s.msup + x, b);
+        }
+      }
+    }
+    s.minf[j] = mi;
+    if (fail) s.afail[c] = 1;                   // benign race: all write 1
+  }
+  __syncthreads();
+  // one thread per member k: push out of the Hall intervals of its row
+  for (int k = threadIdx.x; k < M; k += THREADS) {
+    const int c = (int)(s.akey[k] >> 32);
+    const int m = s.aval[k];
+    const int32_t off = __ldg(p.ad_pk_off + m);
+    int32_t slb = NEU_LB, sub = NEU_UB;
+    if (c < A) {
+      const int s0 = __ldg(p.ad_ptr + c), s1 = __ldg(p.ad_ptr + c + 1);
+      const int32_t yl = s.syl[k], yu = s.syu[k];
+      for (int x = s0; x < s1; ++x) {
+        const int32_t b = s.syu[x], a = s.syl[x];
+        if (s.minf[x] <= yl && yl <= b && b < yu) slb = max(slb, b + 1);
+        if (yl < a && a <= yu && yu <= s.msup[x]) sub = min(sub, a - 1);
+      }
+      if (s.afail[c]) slb = -NEU_LB;
+    }
+    s.alb[m] = slb - off;
+    s.aub[m] = sub - off;
   }
 }
 
@@ -209,13 +621,20 @@ struct LaneResult {
 // Run the store in s.lb(0) / s.ub(0) (written by the caller, by
 // any thread) to its fixed point, at most `max_sweeps` sweeps.  Every
 // thread of the CTA calls it and gets the same result; the overload
-// flags are clear again on return.
+// flags are clear again on return.  AD_SPARSE and CU_SPARSE must equal
+// the model's layouts (p.ad_sparse, p.cu_sparse; each kernel is
+// instantiated for the four pairs and the launch picks the one that
+// matches): compiled apart, a dense model's kernel carries none of the
+// sparse code and keeps its registers.
+template <bool AD_SPARSE, bool CU_SPARSE>
 __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
                                     int max_sweeps) {
   const int V = p.V, P1 = p.P1, K = p.K, K1 = p.K + 1, C1 = p.C1,
             T = p.T, H = p.H, N = p.N, A = p.n_alldiff;
   const bool cumul = p.n_cumulative > 0;
   const bool alldiff = A > 0;
+  const bool cu_sparse = cumul && CU_SPARSE, cu_dense = cumul && !CU_SPARSE;
+  const bool ad_sparse = alldiff && AD_SPARSE, ad_dense = alldiff && !AD_SPARSE;
   const int tid = threadIdx.x, nth = THREADS;
 
   __syncthreads();
@@ -274,7 +693,8 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
     }
 
     // -- (1b) AllDifferent: shifted member bounds, neutral candidates -------
-    if (alldiff) {
+    if (ad_sparse) ad_sparse_keys(p, s, lb);
+    if (ad_dense) {
       for (int i = tid; i < p.A1 * N; i += nth) {
         if (__ldg(p.ad_mask + i)) {
           const int32_t v = __ldg(p.ad_vars + i);
@@ -292,7 +712,8 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
     }
 
     // -- (1c) compulsory-part profile, one thread per (row, time) ----------
-    if (cumul) {
+    if (cu_sparse) cu_sparse_events(p, s, lb, ub);
+    if (cu_dense) {
       for (int i = tid; i < C1 * H; i += nth) {
         const int c = i / H, tau = i - c * H;
         int32_t acc = 0;
@@ -311,7 +732,8 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
     __syncthreads();
 
     // -- (2a) AllDifferent Hall intervals, one thread per (row, i, j) -------
-    if (alldiff) {
+    if (ad_sparse) ad_sparse_hall(p, s, ub);
+    if (ad_dense) {
       const int NN = N * N;
       for (int q = tid; q < A * NN; q += nth) {
         const int a = q / NN, i = (q - a * NN) / N, j = q - a * NN - i * N;
@@ -339,7 +761,8 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
     }
 
     // -- (2b) first/last feasible start, one thread per (row, task) --------
-    if (cumul) {
+    if (cu_sparse) cu_sparse_scan(p, s, lb, ub);
+    if (cu_dense) {
       for (int j = tid; j < C1 * T; j += nth) {
         const int c = j / T;
         const int32_t d = s.t_dur[j], q = s.t_dem[j];
@@ -399,7 +822,16 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
         glb = max(glb, s.clb[idx]);
         gub = min(gub, s.cub[idx]);
       }
-      if (alldiff) {
+      if (ad_sparse) {                  // flat: ad_ptr[inst] + pos
+        const int32_t* oi = p.ad_occ_inst + (size_t)v * p.Dad;
+        const int32_t* opos = p.ad_occ_pos + (size_t)v * p.Dad;
+        for (int d = 0; d < p.Dad; ++d) {
+          const int idx = __ldg(p.ad_ptr + __ldg(oi + d)) + __ldg(opos + d);
+          glb = max(glb, s.alb[idx]);
+          gub = min(gub, s.aub[idx]);
+        }
+      }
+      if (ad_dense) {
         const int32_t* oi = p.ad_occ_inst + (size_t)v * p.Dad;
         const int32_t* opos = p.ad_occ_pos + (size_t)v * p.Dad;
         for (int d = 0; d < p.Dad; ++d) {
@@ -410,11 +842,13 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
           gub = min(gub, s.aub[idx] - off);
         }
       }
-      if (cumul) {
+      if (cumul) {                      // sparse: flat cu_ptr[inst] + pos
         const int32_t* oi = p.cu_occ_inst + (size_t)v * p.Dcu;
         const int32_t* opos = p.cu_occ_pos + (size_t)v * p.Dcu;
         for (int d = 0; d < p.Dcu; ++d) {
-          const int idx = __ldg(oi + d) * T + __ldg(opos + d);
+          const int idx = CU_SPARSE
+                              ? __ldg(p.cu_ptr + __ldg(oi + d)) + __ldg(opos + d)
+                              : __ldg(oi + d) * T + __ldg(opos + d);
           glb = max(glb, s.ulb[idx]);
           gub = min(gub, s.uub[idx]);
         }

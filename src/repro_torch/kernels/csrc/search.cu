@@ -53,8 +53,11 @@
 // depth) per lane; the LaneState is read and written once per launch.
 // So int32 operations bound it, and a CTA that owns several lanes runs
 // them in sequence.  On N-queens 32 the AllDifferent bank's endpoint
-// pairs take most of each sweep.  PERF.md has the times.  The kernel allocates
-// nothing and launches on the caller's stream.
+// pairs take most of each sweep; on J120 and N-queens 256 the sparse
+// banks' sorts and scans.  The kernel is instantiated per layout pair of
+// the AllDifferent and Cumulative banks (dense or sparse), picked at
+// launch.  PERF.md has the times.  The kernel allocates nothing and
+// launches on the caller's stream.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -67,10 +70,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 using fixlane::BIG;
+using fixlane::block_exclusive_scan;
 using fixlane::THREADS;
 
 constexpr int32_t UNASSIGNED = 0x7fffffff / 2;   // search.UNASSIGNED
-constexpr int WARPS = THREADS / 32;
 
 // variable and value strategies (the wrapper maps the names)
 enum { INPUT_ORDER = 0, MIN_DOM = 1, MIN_LB = 2 };
@@ -115,39 +118,15 @@ struct Params {
 
 // Words of shared memory past the fixpoint's: the scan's per-thread
 // prefixes, its per-warp sums and the lane scalars.
-constexpr int EXTRA_WORDS = THREADS + 32 + N_SCALARS;
+constexpr int EXTRA_WORDS = THREADS + fixlane::SCAN_WORDS + N_SCALARS;
 
-// Exclusive prefix sum of one value per thread over the CTA; `wsum` holds
-// 32 words.  Returns the thread's prefix and writes the total.
-__device__ int block_exclusive_scan(int v, int32_t* wsum, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) wsum[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < WARPS ? wsum[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < WARPS) wsum[lane] = w;
-  }
-  __syncthreads();
-  const int before = warp ? wsum[warp - 1] : 0;
-  *total = wsum[WARPS - 1];
-  __syncthreads();                       // wsum may be reused
-  return before + x - v;
-}
 
+template <bool AD_SPARSE, bool CU_SPARSE>
 __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int32_t smem[];
   const fixlane::Tables& t = p.t;
-  const fixlane::Smem s = fixlane::carve(t, smem);
+  const fixlane::Smem s = fixlane::carve<AD_SPARSE, CU_SPARSE>(t, smem);
   int32_t* scan = smem + fixlane::smem_words(t);
   int32_t* wsum = scan + THREADS;
   int32_t* sc = wsum + 32;
@@ -155,7 +134,7 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
   const int tid = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int L = p.L, V = t.V, S = p.S, MD = p.MD;
 
-  fixlane::stage_tables(t, s);
+  fixlane::stage_tables<CU_SPARSE>(t, s);
 
   // The incoming done flag, reduced by every CTA over all lanes (nothing
   // writes the state before the first grid.sync).
@@ -254,7 +233,8 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         s.lb(0)[v] = lo;
         s.ub(0)[v] = hi;
       }
-      const fixlane::LaneResult r = fixlane::fixpoint_lane(t, s, p.cap);
+      const fixlane::LaneResult r =
+          fixlane::fixpoint_lane<AD_SPARSE, CU_SPARSE>(t, s, p.cap);
       int32_t* flb = s.lb(r.cur);
       int32_t* fub = s.ub(r.cur);
 
@@ -419,7 +399,9 @@ size_t search_smem_bytes(const fixlane::Tables& t) {
 }
 
 // Grid size: min(L, co-resident CTAs), or a negative cudaError_t.
+template <bool AD_SPARSE, bool CU_SPARSE>
 int grid_for(int L, size_t smem) {
+  const auto kernel = search_kernel<AD_SPARSE, CU_SPARSE>;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
@@ -428,15 +410,36 @@ int grid_for(int L, size_t smem) {
   if (!coop) return -(int)cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return -(int)err;
-  err = cudaFuncSetAttribute(search_kernel,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return -(int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, search_kernel,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       THREADS, smem);
   if (err != cudaSuccess) return -(int)err;
   if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
   return L < per_sm * sms ? L : per_sm * sms;
+}
+
+// grid_for for the instance of the model's layouts.
+int grid_of(const fixlane::Tables& t, int L, size_t smem) {
+  if (t.ad_sparse)
+    return t.cu_sparse ? grid_for<true, true>(L, smem)
+                       : grid_for<true, false>(L, smem);
+  return t.cu_sparse ? grid_for<false, true>(L, smem)
+                     : grid_for<false, false>(L, smem);
+}
+
+template <bool AD_SPARSE, bool CU_SPARSE>
+int launch(Params& p, size_t smem, cudaStream_t stream) {
+  const int grid = grid_for<AD_SPARSE, CU_SPARSE>(p.L, smem);
+  if (grid < 0) return -grid;
+  void* args[] = {&p};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)search_kernel<AD_SPARSE, CU_SPARSE>, dim3(grid),
+      dim3(THREADS), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -447,7 +450,8 @@ extern "C" {
 // cooperative launch on this device, the kernel does not fit an SM).
 // `tables`, `dims`: as search_launch.
 int search_grid(int L, const void* const* tables, const int* dims) {
-  return grid_for(L, search_smem_bytes(fixlane::tables_from(tables, dims)));
+  const fixlane::Tables t = fixlane::tables_from(tables, dims);
+  return grid_of(t, L, search_smem_bytes(t));
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
@@ -485,14 +489,12 @@ int search_launch(const void* const* tables, const int* dims,
   p.stop_on_first = ints[9];
   p.it_in = ints[10];
   const size_t smem = search_smem_bytes(p.t);
-  const int grid = grid_for(p.L, smem);
-  if (grid < 0) return -grid;
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)search_kernel, dim3(grid), dim3(THREADS), args, smem,
-      (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (p.t.ad_sparse)
+    return p.t.cu_sparse ? launch<true, true>(p, smem, st)
+                         : launch<true, false>(p, smem, st);
+  return p.t.cu_sparse ? launch<false, true>(p, smem, st)
+                       : launch<false, false>(p, smem, st);
 }
 
 const char* search_error_string(int err) {

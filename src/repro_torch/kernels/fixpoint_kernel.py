@@ -12,14 +12,14 @@ their wrappers.
   same per-lane fixpoint (``csrc/fixpoint_lane.cuh``) and meet at two
   grid barriers per superstep.  Its plain version is `search_plain`.
 
-Both cover the ReifLinLe bank, the dense AllDifferent bank and the
-dense Cumulative bank (``csrc/fixpoint_lane.cuh``) — what RCPSP,
-N-queens, graph coloring, knapsack and jobshop lower to at their smoke
-and bench tiers.  The sparse AllDifferent and Cumulative layouts and
-Compact-Table raise.  On a CPU tensor a wrapper runs its plain version; on a
-CUDA tensor it launches the kernel or raises (unsupported bank, int64
-model, wrong dtype/shape/device, failed build, refused launch).  It
-never falls back.
+Both cover the ReifLinLe bank and the AllDifferent and Cumulative
+banks in both layouts, dense and sparse (``csrc/fixpoint_lane.cuh``) —
+what RCPSP (J30 to J120 classes), N-queens, graph coloring, knapsack and
+jobshop lower to at every tier.  Compact-Table raises.  On a CPU tensor
+a wrapper runs its plain version; on a CUDA tensor it launches the
+kernel or raises (unsupported bank, int64 model, wrong
+dtype/shape/device, failed build, refused launch).  It never falls
+back.
 
 ``fixpoint_cuda.launches`` and ``search_cuda.launches`` count kernel
 launches (and nothing else), so a run can show that the main path went
@@ -40,9 +40,46 @@ SMEM_LIMIT_BYTES = 227 * 1024
 UNCAPPED = 2 ** 31 - 1
 # threads per CTA (fixlane::THREADS in csrc/fixpoint_lane.cuh)
 THREADS = 256
-# csrc/search.cu EXTRA_WORDS: the scan's per-thread prefixes, its 32
+# a block scan's per-warp sums (fixlane::SCAN_WORDS)
+SCAN_WORDS = 32
+# csrc/search.cu EXTRA_WORDS: the scan's per-thread prefixes, its
 # per-warp sums and 16 lane scalars
-SEARCH_EXTRA_WORDS = THREADS + 32 + 16
+SEARCH_EXTRA_WORDS = THREADS + SCAN_WORDS + 16
+
+
+def sort_size(n: int) -> int:
+    """Keys a sparse bank sorts for `n` events: the next power of two
+    (``fixlane::pow2_at_least``)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def bank_words(cm) -> dict:
+    """The 32-bit words of shared memory each bank of one lane's fixpoint
+    uses, by part, for the layout the model compiled to
+    (``fixlane::alldiff_words``/``cumulative_words``): a bank counts
+    only what its layout uses, and a model without AllDifferent rows
+    gets no AllDifferent part."""
+    A1, N = cm.ad_vars.shape
+    C1, T = cm.cu_svar.shape
+    if not cm.n_alldiff:
+        ad = {}
+    elif cm.ad_layout == "sparse":
+        n, M = sort_size(cm.ad_packed), cm.ad_packed
+        ad = {"sort keys": 2 * n, "member indices": n,
+              "sorted bounds and Hall folds": 4 * M,
+              "candidates": 2 * M, "row flags": A1}
+    else:
+        ad = {"member bounds": 2 * A1 * N, "candidates": 2 * A1 * N,
+              "row flags": A1}
+    if cm.cu_layout == "sparse":
+        n, M = sort_size(2 * cm.cu_packed), cm.cu_packed
+        cu = {"event keys": 2 * n, "profile": n, "task table": 4 * M,
+              "candidates": 2 * M, "row flags": 2 * C1,
+              "scan": SCAN_WORDS}
+    else:
+        cu = {"profile": C1 * cm.horizon, "candidates": 2 * C1 * T,
+              "task table": 3 * C1 * T, "row flags": 2 * C1}
+    return {"alldiff": ad, "cumulative": cu}
 
 
 def smem_budget(cm, resident: bool = False) -> dict:
@@ -55,23 +92,28 @@ def smem_budget(cm, resident: bool = False) -> dict:
 
     * ``stores``     — current and next lb/ub, ``4·V`` int32;
     * ``linear``     — the ``[P+1, K+1]`` candidate pair;
-    * ``alldiff``    — the shifted member bounds and the candidate pair,
-      four ``[A+1, N]`` arrays, and a fail flag per row; nothing for a
-      model without AllDifferent rows (the counterpart of the
-      reference's ``vmem_budget`` alldiff term);
-    * ``cumulative`` — the ``[C+1, horizon]`` profile, the ``[C+1, T]``
-      candidate pair, the staged task table and per-row flags;
+    * ``alldiff``    — dense layout: the shifted member bounds and the
+      candidate pair, four ``[A+1, N]`` arrays, and a fail flag per row;
+      sparse layout: the sort keys (two words each) and member indices
+      over the next power of two of the Mad packed slots, the sorted
+      bounds, the two Hall folds and the candidate pair over Mad, a
+      fail flag per row; nothing for a model without AllDifferent rows;
+    * ``cumulative`` — dense layout: the ``[C+1, horizon]`` profile, the
+      ``[C+1, T]`` candidate pair, the staged task table and per-row
+      flags; sparse layout: the event keys (two words each) and the
+      deltas, then the profile, over the next power of two of 2·Mcu,
+      the staged task table and candidate pair over Mcu, per-row flags
+      and the prefix sum's warp sums;
     * ``search``     — resident only: the dispatch scan and the lane
       scalars.
     """
     P1, K = cm.vidx.shape
-    A1, N = cm.ad_vars.shape
-    C1, T = cm.cu_svar.shape
+    words = bank_words(cm)
     parts = dict(
         stores=4 * cm.n_vars * 4,
         linear=2 * P1 * (K + 1) * 4,
-        alldiff=(4 * A1 * N + A1) * 4 if cm.n_alldiff else 0,
-        cumulative=(C1 * cm.horizon + 5 * C1 * T + 2 * C1) * 4,
+        alldiff=4 * sum(words["alldiff"].values()),
+        cumulative=4 * sum(words["cumulative"].values()),
         search=SEARCH_EXTRA_WORDS * 4 if resident else 0)
     parts["total"] = sum(parts.values())
     return parts
@@ -86,13 +128,20 @@ def fit_smem(cm, limit_bytes: int = SMEM_LIMIT_BYTES,
     b = smem_budget(cm, resident=resident)
     if b["total"] > limit_bytes:
         kernel = "search_cuda" if resident else "fixpoint_cuda"
+        words = bank_words(cm)
+
+        def bank(name, layout):
+            inner = ", ".join(f"{k} {4 * w:,}"
+                              for k, w in words[name].items())
+            return f"{name} {b[name]:,} ({layout}: {inner})"
         raise ValueError(
             f"{kernel}: model {cm.name or '<unnamed>'} needs "
             f"{b['total']:,} bytes of shared memory per lane (stores "
             f"{b['stores']:,}, linear candidates {b['linear']:,}, "
-            f"alldiff {b['alldiff']:,}, cumulative {b['cumulative']:,}, "
-            f"search {b['search']:,}) > {limit_bytes:,} per H100 block; "
-            "shrink the horizon or the banks, or use the gather backend")
+            f"{bank('alldiff', cm.ad_layout)}, "
+            f"{bank('cumulative', cm.cu_layout)}, search {b['search']:,})"
+            f" > {limit_bytes:,} per H100 block; shrink the horizon or "
+            "the banks, or use the gather backend")
     return b
 
 
@@ -101,21 +150,26 @@ def kernel_tables(cm) -> tuple:
     (``csrc/fixpoint_lane.cuh``)."""
     return (cm.vidx, cm.coef, cm.rhs, cm.bidx, cm.occ_prop, cm.occ_slot,
             cm.ad_vars, cm.ad_offs, cm.ad_mask, cm.ad_occ_inst,
-            cm.ad_occ_pos, cm.cu_svar, cm.cu_dur, cm.cu_dem, cm.cu_cap,
-            cm.cu_occ_inst, cm.cu_occ_pos, cm.box_lo, cm.box_hi)
+            cm.ad_occ_pos, cm.ad_ptr, cm.ad_pk_var, cm.ad_pk_off,
+            cm.ad_pk_seg, cm.cu_svar, cm.cu_dur, cm.cu_dem, cm.cu_cap,
+            cm.cu_occ_inst, cm.cu_occ_pos, cm.cu_ptr, cm.cu_pk_svar,
+            cm.cu_pk_dur, cm.cu_pk_dem, cm.cu_pk_seg, cm.box_lo, cm.box_hi)
 
 
 def _c_tables(cm):
     """`kernel_tables` and their sizes (in ``fixlane::Tables`` order: V,
-    P1, K, D, A1, N, Dad, n_alldiff, C1, T, Dcu, horizon, n_cumulative)
-    as the C arrays the launch functions take."""
+    P1, K, D, A1, N, Dad, n_alldiff, C1, T, Dcu, horizon, n_cumulative,
+    Mad, Mcu and the two layouts, 1 for sparse) as the C arrays the
+    launch functions take."""
     tables = kernel_tables(cm)
     P1, K = cm.vidx.shape
     A1, N = cm.ad_vars.shape
     C1, T = cm.cu_svar.shape
     dims = (cm.n_vars, P1, K, cm.occ_prop.shape[1], A1, N,
             cm.ad_occ_inst.shape[1], cm.n_alldiff, C1, T,
-            cm.cu_occ_inst.shape[1], cm.horizon, cm.n_cumulative)
+            cm.cu_occ_inst.shape[1], cm.horizon, cm.n_cumulative,
+            cm.ad_packed, cm.cu_packed, int(cm.ad_layout == "sparse"),
+            int(cm.cu_layout == "sparse"))
     return ((ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables)),
             (ctypes.c_int * len(dims))(*dims))
 

@@ -14,9 +14,10 @@ are an integer lattice):
   kernel `fixpoint_pallas` in interpret mode;
 * `search_plain` against JAX `search_pallas(..., lane_tile=0,
   interpret=True)` on N-queens small and coloring small;
-* the banks still to port raise, naming their ROADMAP sub-item: the
-  sparse AllDifferent layout (1d), the sparse Cumulative layout (1e),
-  Compact-Table (1f).
+* the sparse AllDifferent (N-queens 36) and sparse Cumulative (jobshop
+  20 x 15) layouts propagate through every entry point and equal the
+  JAX package; Compact-Table, still to port, raises naming its ROADMAP
+  sub-item (1f).
 """
 
 import jax.numpy as jnp
@@ -209,13 +210,32 @@ def _assert_raises_everywhere(cm, match):
             fn(cm, lb, ub)
 
 
+def _assert_propagates_like_jax(name, make):
+    """The port's own compile of an instance propagates through every
+    entry point, equal to the JAX package's gather fixpoint of the JAX
+    zoo's compile (random stores, uncapped)."""
+    tcm = _port_model(name, make(tzoo))
+    jcm = jzoo.ZOO[name].build_model(make(jzoo))[0].compile()
+    lbs, ubs = random_substores(np.random.default_rng(5), jcm, 4)
+    ref = JF.fixpoint_batch(jcm, jnp.asarray(lbs), jnp.asarray(ubs))
+    lb, ub = torch.from_numpy(lbs), torch.from_numpy(ubs)
+    TFK._check(tcm, lb, ub)                             # accepted
+    for fn in (TF.fixpoint_batch, get_backend("cuda").fixpoint_batch):
+        got = fn(tcm, lb, ub)
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    return tcm
+
+
 def test_banks_still_to_port_raise():
-    q36 = _port_model("nqueens", tzoo.nqueens.generate(36))
+    """The sparse layouts (1d, 1e) propagate now, equal to the reference;
+    Compact-Table (1f) still raises."""
+    q36 = _assert_propagates_like_jax(
+        "nqueens", lambda zoo: zoo.nqueens.generate(36))
     assert q36.ad_layout == "sparse" and q36.n_alldiff == 3
-    _assert_raises_everywhere(q36, r"sparse AllDifferent .*1d")
-    js = _port_model("jobshop", tzoo.large_instance("jobshop"))
+    js = _assert_propagates_like_jax(
+        "jobshop", lambda zoo: zoo.large_instance("jobshop"))
     assert js.cu_layout == "sparse" and js.ad_layout == "dense"
-    _assert_raises_everywhere(js, r"sparse Cumulative .*1e")
     for name in ("crossword", "configuration"):
         cm = _port_model(name, tzoo.small_instance(name))
         assert cm.n_table > 0

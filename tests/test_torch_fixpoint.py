@@ -7,7 +7,8 @@ sweep counts and convergence flags, capped or not, against JAX's gather
 The stores are an integer lattice: equality is exact.
 
 Also: the ``cuda`` backend takes the plain version on CPU tensors (and
-counts no launch), and the banks still to port raise.  The kernel itself is
+counts no launch), the sparse layouts propagate, and the banks still to
+port raise.  The kernel itself is
 held against the plain version in ``test_torch_kernel.py``.
 """
 
@@ -136,23 +137,25 @@ def _alldiff_model():
 
 
 def test_unsupported_banks_raise():
-    """The banks still to port raise; the dense AllDifferent bank (ported
-    since) propagates instead, on both backends."""
-    cm = _alldiff_model().compile(device="cpu")
-    lb, ub = cm.lb0[None], cm.ub0[None]
-    assert cm.ad_layout == "dense"
-    for got in (TF.fixpoint_batch(cm, lb, ub),
-                get_backend("cuda").fixpoint_batch(cm, lb, ub)):
-        assert torch.equal(got[0], lb) and torch.equal(got[1], ub)
-    sparse = _alldiff_model().compile(device="cpu", bank_layout="sparse")
-    for fn in (TF.fixpoint_batch, get_backend("cuda").fixpoint_batch):
-        with pytest.raises(NotImplementedError, match="sparse AllDifferent"):
-            fn(sparse, sparse.lb0[None], sparse.ub0[None])
+    """The banks still to port raise; the AllDifferent bank in both
+    layouts and the sparse Cumulative layout (ported since) propagate
+    instead, on both backends, equal to the reference."""
+    for layout in ("dense", "sparse"):
+        cm = _alldiff_model().compile(device="cpu", bank_layout=layout)
+        lb, ub = cm.lb0[None], cm.ub0[None]
+        assert cm.ad_layout == layout
+        for got in (TF.fixpoint_batch(cm, lb, ub),
+                    get_backend("cuda").fixpoint_batch(cm, lb, ub)):
+            assert torch.equal(got[0], lb) and torch.equal(got[1], ub)
     m, _ = jrcpsp.build_model(jrcpsp.generate(**small(0)))
-    sparse = port_from_jax(m.compile(bank_layout="sparse"))
+    jcm = m.compile(bank_layout="sparse")
+    sparse = port_from_jax(jcm)
     assert sparse.cu_layout == "sparse"
-    with pytest.raises(NotImplementedError, match="sparse Cumulative"):
-        TF.fixpoint_batch(sparse, sparse.lb0[None], sparse.ub0[None])
+    lbs, ubs = random_substores(np.random.default_rng(2), jcm, 8)
+    ref = jfixpoint_batch(jcm, jnp.asarray(lbs), jnp.asarray(ubs))
+    for fn in (TF.fixpoint_batch, get_backend("cuda").fixpoint_batch):
+        got = fn(sparse, torch.from_numpy(lbs), torch.from_numpy(ubs))
+        _assert_equal_runs(ref, [o.numpy() for o in got])
     tm = Model("tab")
     ys = [tm.int_var(0, 3) for _ in range(2)]
     tm.table(ys, [(0, 1), (2, 3)])

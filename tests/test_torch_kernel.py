@@ -21,7 +21,8 @@ from repro_torch.core import fixpoint as F
 from repro_torch.core import search as S
 from repro_torch.core.backend import get_backend
 from repro_torch.core.model import Model
-from repro_torch.core.models import coloring, nqueens, rcpsp, small_instance
+from repro_torch.core.models import (coloring, jobshop, nqueens, rcpsp,
+                                     small_instance)
 from repro_torch.kernels import build
 from repro_torch.kernels import fixpoint_kernel as K
 from repro_torch.testing import random_substores, search_diff, search_inputs
@@ -32,13 +33,14 @@ SMALL = dict(n_tasks=5, n_resources=2, edge_prob=0.3)
 BENCH = dict(n_tasks=8, n_resources=3, edge_prob=0.25)
 
 
-def _rcpsp(kw, seed=0, device="cpu"):
+def _rcpsp(kw, seed=0, device="cpu", **compile_kw):
     m, _ = rcpsp.build_model(rcpsp.generate(**kw, seed=seed))
-    return m.compile(device=device)
+    return m.compile(device=device, **compile_kw)
 
 
-def _nqueens(n, device="cpu"):
-    return nqueens.build_model(nqueens.generate(n))[0].compile(device=device)
+def _nqueens(n, device="cpu", **compile_kw):
+    return nqueens.build_model(nqueens.generate(n))[0].compile(
+        device=device, **compile_kw)
 
 
 def _coloring_small(device="cpu"):
@@ -58,6 +60,13 @@ def _alldiff_model():
     m = Model("ad")
     xs = [m.int_var(0, 3) for _ in range(4)]
     m.alldifferent(xs)
+    return m
+
+
+def _table_model():
+    m = Model("tab")
+    ys = [m.int_var(0, 3) for _ in range(2)]
+    m.table(ys, [(0, 1), (2, 3)])
     return m
 
 
@@ -94,6 +103,39 @@ def test_alldiff_shared_memory_budget():
     assert K.smem_budget(_nqueens(32))["alldiff"] == 2064     # [4, 32]
     with pytest.raises(ValueError, match="alldiff 2,064"):
         K.fit_smem(_nqueens(32), limit_bytes=1024)
+
+
+def test_sparse_shared_memory_budget():
+    """A bank counts only what its layout uses (``alldiff_words`` and
+    ``cumulative_words`` in ``csrc/fixpoint_lane.cuh``): pinned for the
+    J120 class (sparse Cumulative, Mcu 408, 1024 event keys), N-queens
+    256 (sparse AllDifferent, Mad 776, 1024 keys) and the dense J60 class
+    (unchanged)."""
+    j60 = _rcpsp(dict(n_tasks=60, n_resources=4))
+    j120 = _rcpsp(dict(n_tasks=120, n_resources=4))
+    q256 = _nqueens(256)
+    assert (j60.cu_layout, j120.cu_layout, q256.ad_layout) == (
+        "dense", "sparse", "sparse")
+    assert (j120.cu_packed, q256.ad_packed) == (408, 776)
+    assert K.sort_size(2 * 408) == K.sort_size(776) == 1024
+    assert K.smem_budget(j60) == dict(stores=992, linear=23328, alldiff=0,
+                                      cumulative=11000, search=0,
+                                      total=35320)
+    # 3·1024 + 6·408 + 2·5 + 32 words
+    assert K.smem_budget(j120) == dict(stores=1952, linear=89352,
+                                       alldiff=0, cumulative=22248,
+                                       search=0, total=113552)
+    # 3·1024 + 6·776 + 4 words; the dense Cumulative dummy stays
+    assert K.smem_budget(q256) == dict(stores=4112, linear=72,
+                                       alldiff=30928, cumulative=52,
+                                       search=0, total=35164)
+    assert K.fit_smem(j120, resident=True)["total"] == 113552 + 4 * 304
+    with pytest.raises(ValueError, match=r"cumulative 22,248 \(sparse: "
+                       r"event keys 8,192, profile 4,096, task table"):
+        K.fit_smem(j120, limit_bytes=100_000)
+    with pytest.raises(ValueError, match=r"alldiff 30,928 \(sparse: "
+                       r"sort keys 8,192, member indices 4,096"):
+        K.fit_smem(q256, limit_bytes=30_000)
 
 
 def test_search_shared_memory_budget():
@@ -179,11 +221,12 @@ def test_wrapper_checks():
     assert wide.dtype == "int64"
     with pytest.raises(NotImplementedError, match="int32-only"):
         K._check(wide, wide.lb0[None], wide.ub0[None])
-    ad = _alldiff_model().compile(device="cpu")
-    K._check(ad, ad.lb0[None], ad.ub0[None])            # dense: accepted
-    sparse = _alldiff_model().compile(device="cpu", bank_layout="sparse")
-    with pytest.raises(NotImplementedError, match="sparse AllDifferent"):
-        K._check(sparse, sparse.lb0[None], sparse.ub0[None])
+    for layout in ("dense", "sparse"):                  # both accepted
+        ad = _alldiff_model().compile(device="cpu", bank_layout=layout)
+        K._check(ad, ad.lb0[None], ad.ub0[None])
+    tab = _table_model().compile(device="cpu")
+    with pytest.raises(NotImplementedError, match="Compact-Table"):
+        K._check(tab, tab.lb0[None], tab.ub0[None])
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -236,12 +279,21 @@ def cuda():
 
 def _gpu_models(device):
     """(model, seed) of the card-only tests: RCPSP (ReifLinLe and dense
-    Cumulative) and N-queens 8 and coloring small (dense AllDifferent)."""
+    Cumulative) and N-queens 8 and coloring small (dense AllDifferent);
+    then forced-sparse compiles: RCPSP J30 class and jobshop small
+    (sparse Cumulative), N-queens 9 (sparse AllDifferent), and N-queens
+    36 (sparse by the crossover)."""
     for kw, seed in ((SMALL, 0), (BENCH, 1), (dict(n_tasks=30), 0),
                      (dict(n_tasks=60), 2)):
         yield _rcpsp(kw, seed=seed, device=device), seed
     yield _nqueens(8, device=device), 3
     yield _coloring_small(device=device), 4
+    yield _rcpsp(dict(n_tasks=30), seed=0, device=device,
+                 bank_layout="sparse"), 5
+    yield _nqueens(9, device=device, bank_layout="sparse"), 6
+    yield _nqueens(36, device=device), 7
+    js = jobshop.build_model(small_instance("jobshop"))[0]
+    yield js.compile(device=device, bank_layout="sparse"), 8
 
 
 @pytest.mark.parametrize("max_sweeps", [1, 4, None])
@@ -258,9 +310,9 @@ def test_kernel_matches_plain_on_gpu(cuda, max_sweeps):
 
 
 def test_kernel_raises_on_unsupported_input_on_gpu(cuda):
-    ad = _alldiff_model().compile(device=cuda, bank_layout="sparse")
+    tab = _table_model().compile(device=cuda)
     with pytest.raises(NotImplementedError):
-        K.fixpoint_cuda(ad, ad.lb0[None], ad.ub0[None])
+        K.fixpoint_cuda(tab, tab.lb0[None], tab.ub0[None])
     wide = _int64_model().compile(device=cuda)
     with pytest.raises(NotImplementedError):
         K.fixpoint_cuda(wide, wide.lb0[None], wide.ub0[None])
@@ -276,12 +328,17 @@ def test_kernel_raises_on_unsupported_input_on_gpu(cuda):
 
 def _search_cases(device):
     """(what, cm, inputs, kwargs) at J30 class, and on N-queens 8 and
-    coloring small: from fresh lanes and from the state after 5 plain
+    coloring small, and on forced-sparse J30 and N-queens 9: from fresh
+    lanes and from the state after 5 plain
     supersteps, under prove, the capped fixpoint and stop_on_first."""
     opts = S.SearchOptions(var_strategy="min_lb", max_depth=64)
     models = [("j30", _rcpsp(dict(n_tasks=30), device=device), 512),
               ("nqueens8", _nqueens(8, device=device), 256),
-              ("coloring", _coloring_small(device=device), 64)]
+              ("coloring", _coloring_small(device=device), 64),
+              ("j30 sparse", _rcpsp(dict(n_tasks=30), device=device,
+                                    bank_layout="sparse"), 512),
+              ("nqueens9 sparse", _nqueens(9, device=device,
+                                           bank_layout="sparse"), 256)]
     for name, cm, target in models:
         slb, sub, st, gbest, head = search_inputs(cm, 128, target, opts)
         for what, kw in (("prove", {}),
