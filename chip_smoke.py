@@ -95,13 +95,49 @@ exit code and no result line:
 16. times of both kernels at the J120 (``[1024, 122]``) and N-queens-256
    (``[1024, 257]``) shapes of phases 13 and 14, beside their plain
    versions, their bounds and the sparse banks' own work (sort compares
-   and scan steps).
+   and scan steps);
+17. the Compact-Table bank and the bitset store, kernel against plain
+   version: phase 2's comparison on crossword and configuration at the
+   small, bench and large tiers and a model whose tables hold more than
+   32 tuples (two support words), in both modes — a carried bitset store
+   (1024 random stores with 1024 random bitset stores, the first 256 of
+   which wipe out a table's interior, and the EPS pool's range words)
+   and the transient one (no store) — at ``max_sweeps`` 1, 4 and
+   uncapped: failed masks, non-failed stores and words, sweeps and
+   convergence flags must be equal;
+18. the resident kernel with the bitset store: phase 5's comparison on
+   crossword large and configuration large under ``prove`` and
+   ``min_lb``/``middle_out``, fed their EPS pool (2 subproblems, as the
+   main path) and a pool of phase 17's 1024 random stores (every lane
+   searches; the second start is after 2 supersteps, as the search ends
+   within 4; the compared states must hold failed nodes and lanes in a
+   right branch, so backtracking through ``root_dom`` is checked), and
+   on N-queens 32 and coloring 64 under ``min_dom``/``middle_out``, at K
+   = 1, 4 and 16, 1024 lanes, from fresh lanes and after 5 supersteps:
+   every LaneState field, ``dom`` and ``root_dom`` included, must be
+   equal;
+19. the main path on the table models and ``middle_out`` (the launch
+   counters read around each solve, every solution ground-checked):
+   crossword large and configuration large through ``cuda`` and
+   ``cuda_resident`` (1024 lanes, eps_target 4096), which must prove the
+   JAX package's optima 22 and 107 with equal counters; N-queens 32 under
+   ``min_dom``/``middle_out`` through both under 2048 supersteps (equal
+   counters); the J30 class under ``middle_out`` through both, whose
+   counters must equal its ``split`` solve's (no start is tracked);
+20. times of both kernels at the shapes of phases 17 and 18
+   (``[1024, 50]`` configuration large and ``[1024, 65]`` crossword
+   large, with and without a carried store; K=16 on both, from fresh
+   lanes on the EPS pool and on the random pool, and
+   on N-queens 32 under ``min_dom``/``middle_out``), beside their plain
+   versions and bounds; the Compact-Table work of a bound is counted from
+   the member values of the stores each sweep reads.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
 repository around it, the script fails before it prints any result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -125,6 +161,17 @@ J60_OPTIMUM = 82           # rcpsp.generate(60, n_resources=4, seed=0)
 # phase 15, the sparse Cumulative layout: rcpsp.generate(n,
 # n_resources=4, seed=0) for n = 90 and 120, and large_instance("rcpsp")
 SPARSE_OPTIMUM = {"J90": 88, "J120": 157, "rcpsp96": 55}
+# phase 19: the proven optima of the zoo's large table instances
+# (large_instance(name, seed=0)), from the JAX package (backend="gather",
+# preset "prove", 64 lanes, eps_target 64, on the CPU)
+TABLE_OPTIMUM = {"crossword": 22, "configuration": 107}
+# of phase 17's random bitset stores, those that wipe out the interior of
+# one table row (all of its members' interior values cleared)
+N_WIPE = 256
+# the variants of phase 18: (name, preset, (var, val) pair or None)
+TABLE_VARIANTS = (("prove", "prove", None),
+                  ("min_lb/middle_out", "prove", ("min_lb", "middle_out")))
+MIDDLE_OUT = ("min_dom", "middle_out")
 # phase 15's N-queens 256 strategy pair (first-fail, bisection), the
 # superstep cap of its cuda vs cuda_resident solves and the timeout of its
 # long solve: no pair of four tried on the card found a solution within
@@ -151,10 +198,15 @@ SEARCH_SOURCE = "src/repro_torch/kernels/csrc/search.cu"
 SEARCH_REPLACES = "src/repro/kernels/fixpoint_kernel.py:520"
 # the propagator banks both kernels cover (csrc/fixpoint_lane.cuh)
 BANKS = ("ReifLinLe", "AllDifferent dense", "AllDifferent sparse",
-         "Cumulative dense", "Cumulative sparse")
+         "Cumulative dense", "Cumulative sparse", "Compact-Table",
+         "bitset store")
 # phases 5-7 and 9: the resident search kernel
 SEARCH_K = (1, 4, 16)
 WARM_STEPS = 5             # plain supersteps before the second start
+# phase 18's random pools: the large table models' searches from their
+# 1024 random stores end within 4 supersteps (PR 16 chip run), so the
+# second start is after 2, while lanes are mid-search
+RANDOM_WARM = 2
 FIRST_SOL_MAX = 512        # cap on the search for the first solution
 MAIN_K = 16                # supersteps per launch on the main path
 COUNTERS = ("status", "objective", "n_nodes", "n_fails", "n_sols",
@@ -183,7 +235,8 @@ ZOO_STRATEGY = {"nqueens32": ("min_dom", "split"),
 # the optima the long solves prove on the card: N-queens' objective is
 # q0 >= 0, and 0 is reached; coloring 64 needs five colours (cmax 4)
 ZOO_OPTIMUM = {"nqueens32": 0, "coloring64": 4}
-ZOO_SMOKE = ("rcpsp", "nqueens", "coloring", "knapsack", "jobshop")
+ZOO_SMOKE = ("rcpsp", "nqueens", "coloring", "knapsack", "jobshop",
+             "crossword", "configuration")
 ZOO_SMOKE_LANES = 16
 ZOO_BACKENDS = ("gather", "cuda", "cuda_resident")
 # small_instance(name, seed=0), preset "prove", 16 lanes, default
@@ -199,12 +252,18 @@ ZOO_SMOKE_REFERENCE = {
                      n_fails=48, n_sols=16, n_sweeps=16, n_supersteps=5),
     "jobshop": dict(status="OPTIMAL", objective=6, n_nodes=64, n_fails=48,
                     n_sols=16, n_sweeps=16, n_supersteps=5),
+    "crossword": dict(status="OPTIMAL", objective=22, n_nodes=2, n_fails=0,
+                      n_sols=2, n_sweeps=18, n_supersteps=2),
+    "configuration": dict(status="OPTIMAL", objective=18, n_nodes=8,
+                          n_fails=3, n_sols=5, n_sweeps=18, n_supersteps=2),
 }
 
 # One model of the run: the zoo module, instance and handles (for the
-# ground check), the compiled model on the card, its random stores and
-# its EPS pool (None where no phase needs them).
-Case = namedtuple("Case", "mod inst handles cm lbs ubs pool")
+# ground check), the compiled model on the card, its random stores, its
+# EPS pool and, for a table model, its random bitset stores (None where
+# no phase needs them).
+Case = namedtuple("Case", "mod inst handles cm lbs ubs pool doms",
+                  defaults=(None,))
 
 
 def fail(msg):
@@ -236,6 +295,10 @@ def describe(cm):
     if cm.n_alldiff:
         s += (f" A={cm.n_alldiff} N={cm.ad_width} Dad={cm.ad_docc} "
               f"ad_layout={cm.ad_layout}")
+    if cm.n_table:
+        s += (f" tables={cm.n_table} R={cm.ct_arity} W={cm.n_words} "
+              f"TW={cm.ct_words} Dct={cm.ct_docc} ct_supp="
+              f"{list(cm.ct_supp.shape)}")
     return f"{s} {cm.dtype}"
 
 
@@ -246,13 +309,16 @@ def prepare(phase, tag, case, eps_target=None):
     import numpy as np
     from repro_torch.core import eps
     from repro_torch.solver import SolveConfig
-    from repro_torch.testing import pigeonhole_stores, random_substores
+    from repro_torch.testing import (pigeonhole_stores, random_dom_stores,
+                                     random_substores)
     cm = case.cm
     rng = np.random.default_rng(SEED)
     lbs, ubs = random_substores(rng, cm, N_RANDOM)
     if cm.n_alldiff:
         lbs[:N_PIGEONHOLE], ubs[:N_PIGEONHOLE] = pigeonhole_stores(
             rng, cm, lbs, ubs, N_PIGEONHOLE)
+    doms = (random_dom_stores(rng, cm, lbs, ubs, n_wipe=N_WIPE)
+            if cm.n_table else None)
     pool, msg = None, ""
     if eps_target:
         opts = SolveConfig.preset("prove", backend="cuda").search_options()
@@ -261,7 +327,7 @@ def prepare(phase, tag, case, eps_target=None):
         msg = (f"; EPS pool {pool[0].shape[0]} subproblems in "
                f"{time.perf_counter() - t0:.2f} s")
     print(f"[{phase}] {tag}: {describe(cm)}{msg}")
-    return case._replace(lbs=lbs, ubs=ubs, pool=pool)
+    return case._replace(lbs=lbs, ubs=ubs, pool=pool, doms=doms)
 
 
 def rcpsp_cases():
@@ -313,15 +379,20 @@ def phase_card_and_build():
 # phases 2 and 8: the fixpoint kernel against its plain version
 # --------------------------------------------------------------------------
 
-def compare(cm, lb, ub, cap, what):
-    """Kernel vs plain version on one batch; returns (max_abs_err over
-    non-failed stores, whole-output equality, sweeps, failed mask)."""
+def compare(cm, lb, ub, cap, what, dom=None):
+    """Kernel vs plain version on one batch (with `dom`, a carried bitset
+    store); returns (max_abs_err over non-failed stores, whole-output
+    equality, sweeps, failed mask)."""
     import torch
     from repro_torch.core import fixpoint as F
     from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
-    ref = F.fixpoint_batch(cm, lb, ub, max_iters=cap)
-    got = fixpoint_cuda(cm, lb, ub, max_sweeps=cap)
+    ref = F.fixpoint_batch(cm, lb, ub, dom, max_iters=cap)
+    got = fixpoint_cuda(cm, lb, ub, dom, max_sweeps=cap)
     torch.cuda.synchronize()
+    rdom = gdom = None
+    if dom is not None:
+        rdom, gdom = ref[2], got[2]
+        ref, got = ref[:2] + ref[3:], got[:2] + got[3:]
     rlb, rub, rsw, rconv = ref
     glb, gub, gsw, gconv = got
     rfail, gfail = (rlb > rub).any(1), (glb > gub).any(1)
@@ -340,7 +411,10 @@ def compare(cm, lb, ub, cap, what):
              f"{int((rsw != gsw).sum())} lanes")
     if not torch.equal(rconv, gconv):
         fail(f"{what}: convergence flags differ")
-    whole = torch.equal(rlb, glb) and torch.equal(rub, gub)
+    if dom is not None and not torch.equal(rdom[ok], gdom[ok]):
+        fail(f"{what}: the non-failed stores' domain words differ")
+    whole = (torch.equal(rlb, glb) and torch.equal(rub, gub)
+             and (dom is None or torch.equal(rdom, gdom)))
     return err, whole, rsw, rfail
 
 
@@ -552,10 +626,12 @@ def cuda_ms(fn, reps, warmup):
     return t0.elapsed_time(t1) / reps
 
 
-def table_bytes(cm):
+def table_bytes(cm, dom=False):
     """Bytes of the propagator tables a sweep of this model reads: a
     bank's dense ``[rows, width]`` tables or its packed (sparse) ones,
-    as the model compiled, and its occurrence lists."""
+    as the model compiled, and its occurrence lists; the Compact-Table
+    bank's only with tables, the domain layout (offsets, tracked flags)
+    only with tables or a carried store (`dom`)."""
     from repro_torch.kernels.fixpoint_kernel import kernel_tables
     unread = ((cm.ad_vars, cm.ad_offs, cm.ad_mask)
               if cm.ad_layout == "sparse" else
@@ -564,8 +640,13 @@ def table_bytes(cm):
                if cm.cu_layout == "sparse" else
                (cm.cu_ptr, cm.cu_pk_svar, cm.cu_pk_dur, cm.cu_pk_dem,
                 cm.cu_pk_seg))
+    if not cm.n_table:
+        unread += (cm.ct_vars, cm.ct_mask, cm.ct_supp, cm.ct_occ_inst,
+                   cm.ct_occ_pos)
+        if not dom:
+            unread += (cm.dom_off, cm.dom_track)
     return sum(t.numel() * t.element_size() for t in kernel_tables(cm)
-               if not any(t is u for u in unread))
+               if not any(t.data_ptr() == u.data_ptr() for u in unread))
 
 
 def row_sizes(cm):
@@ -573,9 +654,10 @@ def row_sizes(cm):
     return cm.ad_mask[:cm.n_alldiff].sum(1).tolist() if cm.n_alldiff else []
 
 
-def ops_per_sweep(cm):
-    """The int32 work one fixpoint sweep of one lane needs: 8·P1·K for
-    the linear bank and 2·V·D for its join; with a Cumulative bank,
+def ops_per_sweep(cm, dom=False):
+    """The int32 work one fixpoint sweep of one lane needs, apart from
+    the Compact-Table bank's per-value work (`ct_ops_per_value`): 8·P1·K
+    for the linear bank and 2·V·D for its join; with a Cumulative bank,
     4·C1·T + 2·C1·H for the time-table (each task adds its compulsory
     part's two ends to a difference array, a prefix sum and a capacity
     compare per time point build the profile, and each task's first and
@@ -585,7 +667,10 @@ def ops_per_sweep(cm):
     sort the members by lower and by upper bound and ALLDIFF_OPS per
     (upper endpoint, member) for the counts, the width tests and the
     pushes, or the endpoint-pair pass, PAIR_OPS·n³ (cheaper for n = 2);
-    and 2·V·Dad for its join."""
+    and 2·V·Dad for its join; with a Compact-Table bank, r·TW per table
+    row of r members to AND their support ORs into the current table and
+    2·V·Dct for its join; with a carried bitset store (`dom`) also
+    V·Dct·W to AND the tables' words in and 4·V·W to normalize."""
     P1, K = cm.vidx.shape
     V = cm.n_vars
     ops = 8 * P1 * K + 2 * V * cm.d_occ
@@ -596,7 +681,72 @@ def ops_per_sweep(cm):
         ops += sum(min(2 * n * math.ceil(math.log2(n)) + ALLDIFF_OPS * n * n,
                        PAIR_OPS * n ** 3)
                    for n in row_sizes(cm) if n > 1) + 2 * V * cm.ad_docc
+    W = cm.n_words
+    if cm.n_table:
+        TW = cm.ct_words
+        ops += int(cm.ct_mask[:cm.n_table].ne(0).sum()) * TW
+        ops += 2 * V * cm.ct_docc + (V * cm.ct_docc * W if dom else 0)
+    if dom:
+        ops += 4 * V * W
     return ops
+
+
+def ct_ops_per_value(cm):
+    """The Compact-Table bank's work per value a member holds in the
+    store a sweep reads: a bit test and an OR per support word (2·TW) to
+    OR the value's support into the member's, and three operations to
+    test whether it survives and fold it into the hull."""
+    return 2 * cm.ct_words + 3
+
+
+def ct_values(cm, lb, ub, dom=None):
+    """Per lane ``[L]``: the values the table rows' real members hold in
+    the store a sweep reads — the carried words `dom`, or without them
+    the range words of [lb, ub] (untracked variables all-ones), as the
+    sweep builds them — summed over every member of every row."""
+    import torch
+    from repro_torch.core import bitset as B
+    if dom is None:
+        dom = B.from_bounds(lb, ub, cm.dom_off, cm.n_words,
+                            track=cm.dom_track.view(torch.int32))
+    T = cm.n_table
+    members = cm.ct_vars[:T][cm.ct_mask[:T] != 0].long()
+    return B.count(dom.index_select(1, members)).long().sum(1)
+
+
+def ct_value_work(cm, lb, ub, dom, sweeps, plain_fixpoint):
+    """The member values the Compact-Table bank walks in a fixpoint run
+    from (lb, ub, dom) in which lane l made ``sweeps[l]`` sweeps: sweep k
+    reads the store after k - 1 sweeps (Jacobi), which one-sweep calls of
+    `plain_fixpoint` (`fixpoint_batch`) replay."""
+    total = 0
+    for k in range(int(sweeps.max()) if sweeps.numel() else 0):
+        total += int(ct_values(cm, lb, ub, dom)[sweeps > k].sum())
+        out = plain_fixpoint(cm, lb, ub, dom, max_iters=1)
+        lb, ub = out[0], out[1]
+        dom = out[2] if dom is not None else None
+    return total
+
+
+@contextlib.contextmanager
+def counting_ct_values(cm):
+    """Within the block, every plain fixpoint (`fixpoint_batch`, which
+    `search_plain` runs through its gather backend) adds the member
+    values its sweeps walk (`ct_value_work`) to the yielded list's one
+    cell."""
+    from repro_torch.core import fixpoint as F
+    plain = F.fixpoint_batch
+    acc = [0]
+
+    def counted(cm_, lb, ub, dom=None, **kw):
+        out = plain(cm_, lb, ub, dom, **kw)
+        acc[0] += ct_value_work(cm_, lb, ub, dom, out[-2], plain)
+        return out
+    F.fixpoint_batch = counted
+    try:
+        yield acc
+    finally:
+        F.fixpoint_batch = plain
 
 
 def sparse_work_per_sweep(cm):
@@ -665,10 +815,12 @@ def pair_note(cm, lane_sweeps, peak_int32):
             f"{scan} per lane-sweep)")
 
 
-def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what, plain_reps=5):
+def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what, plain_reps=5,
+                  doms=None):
     """`fixpoint_cuda` and `fixpoint_batch` per launch (CUDA events) on
-    ``[MAIN_LANES, V]`` stores, uncapped, beside the bound: each table
-    and store read once and each output written once, over the HBM rate;
+    ``[MAIN_LANES, V]`` stores (with `doms`, ``uint32 [L, V, W]``, a
+    carried bitset store), uncapped, beside the bound: each table and
+    store read once and each output written once, over the HBM rate;
     the sweeps this run needed times `ops_per_sweep`, over the int32
     peak.  Returns (kernel ms, plain ms, bound ms, bound_by)."""
     import torch
@@ -676,19 +828,31 @@ def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what, plain_reps=5):
     from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
     lb = torch.from_numpy(lbs[:MAIN_LANES]).cuda()
     ub = torch.from_numpy(ubs[:MAIN_LANES]).cuda()
+    dom = (None if doms is None else
+           torch.from_numpy(doms[:MAIN_LANES].view("int32")).cuda())
     L, V = lb.shape
     n0 = fixpoint_cuda.launches
-    ms = cuda_ms(lambda: fixpoint_cuda(cm, lb, ub), reps=50, warmup=5)
-    plain_ms = cuda_ms(lambda: F.fixpoint_batch(cm, lb, ub),
+    ms = cuda_ms(lambda: fixpoint_cuda(cm, lb, ub, dom), reps=50, warmup=5)
+    plain_ms = cuda_ms(lambda: F.fixpoint_batch(cm, lb, ub, dom),
                        reps=plain_reps, warmup=1)
     fixpoint_cuda.launches = n0            # timing launches are not counted
-    sweeps = int(F.fixpoint_batch(cm, lb, ub)[2].sum())
-    nbytes = table_bytes(cm) + 4 * L * V * 4 + 2 * L * 4
-    ops = sweeps * ops_per_sweep(cm)
+    lane_sweeps = F.fixpoint_batch(cm, lb, ub, dom)[-2]
+    sweeps = int(lane_sweeps.sum())
+    carried = dom is not None
+    nbytes = (table_bytes(cm, carried) + 4 * L * V * 4 + 2 * L * 4
+              + (2 * dom.numel() * 4 if carried else 0))
+    ops = sweeps * ops_per_sweep(cm, carried)
+    live = ""
+    if cm.n_table:
+        values = ct_value_work(cm, lb, ub, dom, lane_sweeps,
+                               F.fixpoint_batch)
+        ops += values * ct_ops_per_value(cm)
+        live = (f"; {values / sweeps:.1f} table-member values per "
+                f"lane-sweep")
     bound_ms, bound_by = bound(nbytes, ops, peak_int32)
-    live = (f"; {live_pair_share(cm, lb, ub):.1%} of the endpoint pairs "
-            f"live in the input stores"
-            if cm.n_alldiff and cm.ad_layout == "dense" else "")
+    if cm.n_alldiff and cm.ad_layout == "dense":
+        live = (f"; {live_pair_share(cm, lb, ub):.1%} of the endpoint "
+                f"pairs live in the input stores")
     print(f"[{tag}] fixpoint at [{L}, {V}] ({what}, uncapped, {sweeps} "
           f"lane-sweeps): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} int32 "
@@ -697,13 +861,14 @@ def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what, plain_reps=5):
     return ms, plain_ms, bound_ms, bound_by
 
 
-def search_bound_ms(cm, start, out, peak_int32, launches=1):
+def search_bound_ms(cm, start, out, peak_int32, launches=1, ct_vals=0):
     """Least time for the work of `launches` launches from `start` to
     `out`: the LaneState read once and written once per launch (bools one
     byte each) and the tables read once per launch, over the HBM rate;
-    the sweeps they needed times `ops_per_sweep`, plus, per lane and live
-    superstep, the commit's solved/failed checks (2·V) and branch
-    selection (3·B), over the int32 peak.  Dispatch, the tells and
+    the sweeps they needed times `ops_per_sweep`, the `ct_vals` table-
+    member values their sweeps walked times `ct_ops_per_value`, plus, per
+    lane and live superstep, the commit's solved/failed checks (2·V) and
+    branch selection (3·B), over the int32 peak.  Dispatch, the tells and
     backtracking are counted as nothing, so this is a lower bound."""
     st_in, st_out = start[0], out[0]
     L, V = st_in.lb.shape
@@ -712,8 +877,11 @@ def search_bound_ms(cm, start, out, peak_int32, launches=1):
     sweeps = int(st_out.n_sweeps.long().sum() - st_in.n_sweeps.long().sum())
     state = sum(a.numel() * a.element_size() for a in st_in
                 if a is not None)
-    nbytes = launches * (2 * state + table_bytes(cm))
-    ops = sweeps * ops_per_sweep(cm) + steps * L * (2 * V + 3 * B)
+    carried = st_in.dom is not None
+    nbytes = launches * (2 * state + table_bytes(cm, carried))
+    ops = (sweeps * ops_per_sweep(cm, carried)
+           + (ct_vals * ct_ops_per_value(cm) if cm.n_table else 0)
+           + steps * L * (2 * V + 3 * B))
     return (*bound(nbytes, ops, peak_int32), nbytes, ops, steps, sweeps)
 
 
@@ -733,17 +901,25 @@ def time_search(card, peak_int32, timing_state, tag, what, plain_reps=2,
                                             supersteps=MAIN_K, **kw),
                        reps=plain_reps, warmup=plain_warmup)
     search_cuda.launches = n0             # timing launches are not counted
+    ct_vals, note = 0, ""
+    if cm.n_table:
+        with counting_ct_values(cm) as acc:
+            search_plain(cm, slb, sub, *start, supersteps=MAIN_K, **kw)
+        ct_vals = acc[0]
     bound_ms, bound_by, nbytes, ops, steps, sweeps = search_bound_ms(
-        cm, start, out, peak_int32)
+        cm, start, out, peak_int32, ct_vals=ct_vals)
+    if cm.n_table:
+        note = (f"; {ct_vals / max(sweeps, 1):.1f} table-member values per "
+                f"lane-sweep")
     L = start[0].lb.shape[0]
     print(f"[{tag}] search at {L} lanes, K={MAIN_K} ({what}, from the state "
-          f"after {WARM_STEPS}; {steps} live supersteps, {sweeps} "
+          f"after {int(start[2])}; {steps} live supersteps, {sweeps} "
           f"lane-sweeps): kernel {ms:.4f} ms per launch "
           f"({ms / max(steps, 1):.4f} ms per superstep), plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
           f"{nbytes} B, {ops} int32 ops at {peak_int32 / 1e12:.2f} T/s; "
           f"kernel {ms / bound_ms:.0f}x the bound)"
-          f"{pair_note(cm, sweeps, peak_int32)}; library: none "
+          f"{pair_note(cm, sweeps, peak_int32)}{note}; library: none "
           f"(no PyTorch call computes a superstep) on {card}")
     return ms, plain_ms, bound_ms, bound_by
 
@@ -850,6 +1026,16 @@ def search_kwargs(preset, strategy=None):
                       stop_on_first=opts.stop_on_first)
 
 
+def right_branch_lanes(st):
+    """Lanes whose decision path holds a flipped (right-branch) decision:
+    each got there by a backtrack."""
+    import torch
+    md = st.dec_var.shape[1]
+    on = (torch.arange(md, device=st.depth.device)[None, :]
+          < st.depth[:, None])
+    return int((st.dec_flip & on).any(1).sum())
+
+
 def max_abs_diff(ref, got):
     """Largest |difference| over every LaneState field and the four
     scalars of two resident-launch results."""
@@ -863,13 +1049,15 @@ def max_abs_diff(ref, got):
 
 
 def phase_search_vs_plain(phase, cases, lanes, variants, around_first,
-                          ks=SEARCH_K):
+                          ks=SEARCH_K, must_search=False, warm=WARM_STEPS):
     """`search_cuda` against `search_plain` on each case (`lanes[tag]`
     lanes, its EPS pool) under each variant, at every K of `ks`,
-    from fresh lanes, after WARM_STEPS plain supersteps and, with
+    from fresh lanes, after `warm` plain supersteps and, with
     `around_first`, 8 supersteps before and after the first solution.
-    Returns the starts after WARM_STEPS by (tag, variant name) and the
-    max |err|."""
+    With `must_search`, each variant must have failed nodes and lanes
+    in a right branch (a backtrack) in the states it compared.
+    Returns the starts after `warm` supersteps by (tag, variant name),
+    the fresh starts by (tag, variant name, 0), and the max |err|."""
     import torch
     from repro_torch.kernels.fixpoint_kernel import (search_cuda,
                                                      search_grid,
@@ -880,7 +1068,7 @@ def phase_search_vs_plain(phase, cases, lanes, variants, around_first,
     states = {}
     for tag, c in cases.items():
         cm, L = c.cm, lanes[tag]
-        starts, msg = [0, WARM_STEPS], ""
+        starts, msg = [0, warm], ""
         if around_first:
             # the superstep that finds the first solution, from fresh lanes
             opts, kw = search_kwargs("first_solution")
@@ -890,23 +1078,30 @@ def phase_search_vs_plain(phase, cases, lanes, variants, around_first,
             if not bool(out[4]):
                 fail(f"{tag}: no solution in {FIRST_SOL_MAX} supersteps")
             first = int(out[2])
-            starts = sorted({0, WARM_STEPS, max(first - 8, 0), first + 8})
+            starts = sorted({0, warm, max(first - 8, 0), first + 8})
             msg = f"; first solution at superstep {first}"
-        print(f"[{phase}] {tag}: {L} lanes on {search_grid(cm, L)} CTAs "
-              f"(cooperative grid), EPS pool {c.pool[0].shape[0]}{msg}; "
-              f"starts after {', '.join(map(str, starts))} plain supersteps")
+        print(f"[{phase}] {tag}: {L} lanes, EPS pool {c.pool[0].shape[0]}"
+              f"{msg}; starts after {', '.join(map(str, starts))} plain "
+              f"supersteps")
         for name, preset, strategy in variants:
             opts, kw = search_kwargs(preset, strategy)
             slb, sub, st, gbest, head = search_inputs(cm, L, None, opts,
                                                       pool=c.pool)
+            carried = st.dom is not None
+            print(f"[{phase}] {tag} {name}: {search_grid(cm, L, carried)} "
+                  f"CTAs (cooperative grid), bitset store "
+                  f"{'carried' if carried else 'none'}")
             cur, done_steps = (st, gbest, 0, head), 0
+            fails = flipped = 0
             for n in starts:
                 if n > done_steps:
                     cur = search_plain(cm, slb, sub, *cur,
                                        supersteps=n - done_steps, **kw)[:4]
                     done_steps = n
-                if n == WARM_STEPS:
+                if n == warm:
                     states[(tag, name)] = (cm, slb, sub, cur, kw)
+                if n == 0:
+                    states[(tag, name, 0)] = (cm, slb, sub, cur, kw)
                 for k in ks:
                     ref = search_plain(cm, slb, sub, *cur, supersteps=k,
                                        **kw)
@@ -920,6 +1115,9 @@ def phase_search_vs_plain(phase, cases, lanes, variants, around_first,
                              f"in {', '.join(bad)}")
                     max_err = max(max_err, max_abs_diff(ref, got))
                 st0, stk = cur[0], ref[0]
+                right = right_branch_lanes(stk)
+                fails = max(fails, int(stk.n_fails.sum()))
+                flipped = max(flipped, right)
                 print(f"[{phase}] {tag} {name} from superstep {int(cur[2])} "
                       f"({int(st0.has_sol.sum())} lanes with a solution): "
                       f"K={','.join(map(str, ks))} equal on every "
@@ -927,7 +1125,12 @@ def phase_search_vs_plain(phase, cases, lanes, variants, around_first,
                       f"nodes={int(stk.n_nodes.sum())} "
                       f"fails={int(stk.n_fails.sum())} "
                       f"sols={int(stk.n_sols.sum())} gbest={int(ref[1])} "
-                      f"head={int(ref[3])} stopped={bool(ref[4])}")
+                      f"head={int(ref[3])} stopped={bool(ref[4])} "
+                      f"lanes in a right branch={right}")
+            if must_search and not (fails and flipped):
+                fail(f"{tag} {name}: the compared states hold {fails} "
+                     f"failed nodes and {flipped} lanes in a right branch; "
+                     f"this comparison needs both")
     search_cuda.launches = n0          # comparison launches are not counted
     return states, max_err
 
@@ -1054,6 +1257,166 @@ def phase_sparse_times(card, peak_int32, cases, states):
                 plain_warmup=0)
 
 
+# --------------------------------------------------------------------------
+# phases 17-20: the Compact-Table bank, the bitset store and middle_out
+# --------------------------------------------------------------------------
+
+def table_cases():
+    """The table models of phases 17-20: crossword and configuration at
+    the small, bench and large tiers and the wide-table model (tables of
+    more than 32 tuples), each with its random stores and bitset stores
+    and its EPS pool."""
+    from repro_torch.core.model import Model
+    from repro_torch.core.models import (bench_instance, large_instance,
+                                         small_instance)
+    from repro_torch.testing import wide_table_model
+    out = {}
+    for name in ("crossword", "configuration"):
+        for tier, make in (("small", small_instance),
+                           ("bench", bench_instance),
+                           ("large", large_instance)):
+            out[f"{name}_{tier}"] = prepare(
+                17, f"{name} {tier}", load(name, make(name, seed=SEED)),
+                MAIN_EPS)
+    wide = wide_table_model(Model, seed=SEED).compile(device="cuda")
+    if wide.ct_words != 2:
+        fail(f"the wide-table model has ct_words {wide.ct_words}, not 2")
+    out["wide_table"] = prepare(17, "wide table", Case(
+        None, None, None, wide, None, None, None), MAIN_EPS)
+    return out
+
+
+def phase_table_vs_plain(cases):
+    """`fixpoint_cuda` against `fixpoint_batch` on each table model's
+    random stores and EPS pool, with the bitset store carried (random
+    words; the pool's range words) and transient, at every cap of CAPS.
+    Returns the max |err|."""
+    import numpy as np
+    import torch
+    from repro_torch.core.bitset import np_from_bounds
+    max_err = 0
+    for tag, c in cases.items():
+        cm = c.cm
+        off = cm.dom_off.cpu().numpy()
+        track = cm.dom_track.cpu().numpy()
+        batches = [("random", c.lbs, c.ubs, c.doms)]
+        plb, pub = c.pool
+        for i in range(0, plb.shape[0], N_RANDOM):
+            bl, bu = plb[i:i + N_RANDOM], pub[i:i + N_RANDOM]
+            batches.append((f"pool[{i}:{i + N_RANDOM}]", bl, bu,
+                            np_from_bounds(bl, bu, off, cm.n_words,
+                                           track=track)))
+        for cap in CAPS:
+            for mode in ("carried", "transient"):
+                lanes = whole = wiped = 0
+                sweeps = []
+                for name, bl, bu, bd in batches:
+                    lb = torch.from_numpy(bl).cuda()
+                    ub = torch.from_numpy(bu).cuda()
+                    dom = (torch.from_numpy(bd.view(np.int32)).cuda()
+                           if mode == "carried" else None)
+                    err, same, sw, failed = compare(
+                        cm, lb, ub, cap,
+                        f"{tag} {name} {mode} max_sweeps={cap}", dom)
+                    if name == "random":
+                        wiped = int(failed[:N_WIPE].sum())
+                    max_err = max(max_err, err)
+                    lanes += lb.shape[0]
+                    whole += int(same)
+                    sweeps.append(sw)
+                sw = torch.cat(sweeps)
+                print(f"[17] {tag} {mode} max_sweeps={cap}: {lanes} lanes "
+                      f"equal (failed masks, stores, words, sweeps, "
+                      f"converged); {whole}/{len(batches)} batches equal in "
+                      f"every output; sweeps mean "
+                      f"{sw.float().mean().item():.2f} max {int(sw.max())};"
+                      f" {wiped}/{N_WIPE} interior-wipe stores failed")
+    return max_err
+
+
+def phase_table_search(tcases, zoo):
+    """Phase 18: `search_cuda` against `search_plain` with the bitset
+    store on crossword and configuration large (prove, and
+    min_lb/middle_out), from their EPS pool (the main path's 2
+    subproblems) and from a pool of their N_RANDOM random stores, where
+    every lane searches, fails and backtracks (the shared bound ends the
+    search within 4 supersteps, so the second start is after
+    RANDOM_WARM); and on N-queens 32 and coloring 64
+    (min_dom/middle_out).  Returns the starts and the max |err|."""
+    big = {t: tcases[t] for t in ("crossword_large", "configuration_large")}
+    states, err = phase_search_vs_plain(
+        18, big, dict.fromkeys(big, MAIN_LANES), TABLE_VARIANTS, False)
+    rand = {f"{t} random pool": c._replace(pool=(c.lbs, c.ubs))
+            for t, c in big.items()}
+    more, err2 = phase_search_vs_plain(
+        18, rand, dict.fromkeys(rand, MAIN_LANES), TABLE_VARIANTS, False,
+        must_search=True, warm=RANDOM_WARM)
+    states.update(more)
+    mo = {t: zoo[t] for t in ("nqueens32", "coloring64")}
+    more, err3 = phase_search_vs_plain(
+        18, mo, dict.fromkeys(mo, MAIN_LANES),
+        (("min_dom/middle_out", "prove", MIDDLE_OUT),), False)
+    states.update(more)
+    return states, max(err, err2, err3)
+
+
+def phase_table_main_path(tcases, zoo, rcpsp):
+    """Phase 19: crossword and configuration large proved through both
+    backends; N-queens 32 under min_dom/middle_out through both under
+    ZOO_CAP; J30 under middle_out through both equal to its split
+    solve.  Returns the launches by (tag, run)."""
+    from repro_torch.solver import SolveConfig
+    launches = {}
+    for name in ("crossword", "configuration"):
+        tag = f"{name}_large"
+        got = {}
+        for backend in ("cuda", "cuda_resident"):
+            got[backend], launches[(tag, backend)] = solve_case(
+                19, tag, tcases[tag], main_config(backend),
+                TABLE_OPTIMUM[name])
+        same_counters(19, tag, got)
+    got = {}
+    for backend in ("cuda", "cuda_resident"):
+        got[backend], launches[("nqueens32 middle_out", backend)] = \
+            solve_case(19, "nqueens32", zoo["nqueens32"],
+                       main_config(backend, MIDDLE_OUT,
+                                   max_supersteps=ZOO_CAP))
+    same_counters(19, "nqueens32 min_dom/middle_out", got)
+    got = {}
+    for backend, val in (("cuda", "split"), ("cuda", "middle_out"),
+                         ("cuda_resident", "middle_out")):
+        got[f"{backend} {val}"], launches[(f"J30 {val}", backend)] = \
+            solve_case(19, "J30", rcpsp["J30"], SolveConfig.preset(
+                "prove", backend=backend, n_lanes=J30_LANES,
+                val_strategy=val))
+    same_counters(19, "J30 middle_out against split", got)
+    return launches
+
+
+def phase_table_times(card, peak_int32, tcases, states):
+    """Phase 20: both kernels at the large table models' shapes (the
+    fixpoint with and without a carried store; the search from fresh
+    lanes on the EPS pool, which solves within one launch, and on the
+    random pool, where every lane searches) and on N-queens 32 under
+    min_dom/middle_out (after WARM_STEPS)."""
+    for name in ("configuration", "crossword"):
+        tag = f"{name}_large"
+        c = tcases[tag]
+        time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "20",
+                      f"{name} large random stores, bitset store carried",
+                      doms=c.doms)
+        time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "20",
+                      f"{name} large random stores, transient")
+        for variant, _, _ in TABLE_VARIANTS:
+            time_search(card, peak_int32, states[(tag, variant, 0)], "20",
+                        f"{name} large, {variant}, EPS pool, fresh lanes")
+            time_search(card, peak_int32,
+                        states[(f"{tag} random pool", variant, 0)], "20",
+                        f"{name} large, {variant}, random pool, fresh lanes")
+    time_search(card, peak_int32, states[("nqueens32", "min_dom/middle_out")],
+                "20", "N-queens 32, min_dom/middle_out")
+
+
 def main():
     try:
         import repro_torch  # noqa: F401
@@ -1099,10 +1462,16 @@ def main():
     sp_states, sp_search_err = timed(14, phase_sparse_search, sparse)
     sp_launches = timed(15, phase_sparse_main_path, sparse)
     timed(16, phase_sparse_times, card, peak_int32, sparse, sp_states)
+    tables = timed(17, table_cases)
+    ct_err = timed(17, phase_table_vs_plain, tables)
+    ct_states, ct_search_err = timed(18, phase_table_search, tables, zoo)
+    ct_launches = timed(19, phase_table_main_path, tables, zoo, rcpsp)
+    timed(20, phase_table_times, card, peak_int32, tables, ct_states)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
-                                    sp_err)
+                                    sp_err, ct_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
-                                    ad_search_err, sp_search_err)
+                                    ad_search_err, sp_search_err,
+                                    ct_search_err)
     for k in kernels:
         k["banks"] = list(BANKS)
     print("kernels: zoo main-path launches (fixpoint_cuda, search_cuda): "
@@ -1110,6 +1479,9 @@ def main():
     print("kernels: sparse main-path launches (fixpoint_cuda, "
           "search_cuda): " + ", ".join(
               f"{t} {b} {n}" for (t, b), n in sp_launches.items()))
+    print("kernels: table and middle_out main-path launches (fixpoint_cuda,"
+          " search_cuda): " + ", ".join(
+              f"{t} {b} {n}" for (t, b), n in ct_launches.items()))
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -89,7 +89,7 @@ class Progress:
 
 
 _VAR_STRATEGIES = (S.INPUT_ORDER, S.MIN_DOM, S.MIN_LB)
-_VAL_STRATEGIES = (S.VAL_MIN, S.VAL_SPLIT)
+_VAL_STRATEGIES = (S.VAL_MIN, S.VAL_SPLIT, S.VAL_MIDDLE_OUT)
 
 PRESETS: Dict[str, Dict[str, Any]] = {
     "prove": dict(var_strategy=S.MIN_LB, max_depth=1024),
@@ -154,7 +154,6 @@ class SolveConfig:
         if self.var_strategy not in _VAR_STRATEGIES:
             bad(f"var_strategy {self.var_strategy!r} not in "
                 f"{_VAR_STRATEGIES}")
-        S._no_middle_out(self.val_strategy)
         if self.val_strategy not in _VAL_STRATEGIES:
             bad(f"val_strategy {self.val_strategy!r} not in "
                 f"{_VAL_STRATEGIES}")
@@ -219,7 +218,8 @@ def _bucket(n: int) -> int:
 
 
 class Carry(NamedTuple):
-    """Host-loop carry: lane state, global bound (0-d device tensor),
+    """Host-loop carry: lane state (its bitset store `dom`/`root_dom`
+    included when search carries one), global bound (0-d device tensor),
     global done flag and superstep counter (host values), pool cursor
     (0-d int32 device tensor)."""
     st: S.LaneState

@@ -1,7 +1,9 @@
 """Pluggable propagation backends — port of ``repro/core/backend.py``.
 
-Search and EPS only need ``fixpoint_batch(cm, lb, ub)``: a whole
-``[n_lanes, V]`` store tensor to its per-lane fixed points in one call.
+Search and EPS only need ``fixpoint_batch(cm, lb, ub, dom=None)``: a
+whole ``[n_lanes, V]`` store tensor (and, when search carries it, the
+``[n_lanes, V, W]`` bitset store) to its per-lane fixed points in one
+call.
 Three backends register here:
 
   ``gather``         the plain PyTorch sweep (`fixpoint.fixpoint_batch`);
@@ -15,9 +17,10 @@ Three backends register here:
 
 On CPU tensors the kernel wrappers run their plain versions; on CUDA
 tensors they launch the kernel or raise — there is no fallback.  Every
-``fixpoint_batch`` returns ``(lb', ub', sweeps[L], converged[L])`` with
-*per-lane* sweep counts, identical between the backends (and to the
-reference's gather and pallas backends).
+``fixpoint_batch`` returns ``(lb', ub', sweeps[L], converged[L])``, with
+dom' before the counters when `dom` is given, and *per-lane* sweep
+counts, identical between the backends (and to the reference's gather
+and pallas backends).
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ import torch
 from repro_torch.core import fixpoint as F
 from repro_torch.core.compile import CompiledModel
 
-FixpointResult = Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                       torch.Tensor]
+# (lb', ub', sweeps, converged), or (lb', ub', dom', sweeps, converged)
+FixpointResult = Tuple[torch.Tensor, ...]
 
 
 @runtime_checkable
@@ -62,8 +65,7 @@ class CudaBackend:
 
     def fixpoint_batch(self, cm, lb, ub, *, dom=None, max_iters=None):
         from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
-        F.check_supported(dom=dom)
-        return fixpoint_cuda(cm, lb, ub, max_sweeps=max_iters)
+        return fixpoint_cuda(cm, lb, ub, dom, max_sweeps=max_iters)
 
 
 class CudaResidentBackend(CudaBackend):

@@ -21,6 +21,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import lattice as LT
 from repro_torch.core import search as S
 from repro_torch.core.backend import get_backend
 from repro_torch.core.compile import CompiledModel
@@ -41,13 +42,12 @@ def decompose(cm: CompiledModel, target: int,
     Returns host arrays (subs_lb, subs_ub) of shape ``[S, V]``, S ≥ 1.
     """
     opts = opts or S.SearchOptions()
-    S._no_middle_out(opts.val_strategy)
     backend = get_backend(opts.backend)
     lb0 = cm.lb0.cpu().numpy()[None]
     ub0 = cm.ub0.cpu().numpy()[None]
     lb, ub = _propagate(backend, cm, lb0, ub0)
     lb, ub = lb[0], ub[0]
-    if (lb > ub).any():
+    if LT.any_failed(lb, ub):
         return lb[None], ub[None]          # failed root: one failed sub
 
     bv = cm.branch_vars.cpu().numpy()

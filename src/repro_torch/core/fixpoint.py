@@ -15,13 +15,14 @@ floor/ceil divisions, and per-lane sweep counts and convergence flags.
 
 Ported banks: the ReifLinLe bank (`candidates_tile`), the AllDifferent
 bank in both layouts (`alldiff_candidates_tile`, dense;
-`alldiff_candidates_sparse_tile`, packed) and the Cumulative bank in
-both layouts (`cumulative_candidates_tile`,
-`cumulative_candidates_sparse_tile`) — what RCPSP (J30 to J120
-classes), N-queens, graph coloring, knapsack and jobshop lower to at
-every tier.  `sweep_tile` raises ``NotImplementedError`` for
-Compact-Table and a carried bitset store, which come with a later slice
-of the port; it never propagates less than the reference silently.
+`alldiff_candidates_sparse_tile`, packed), the Cumulative bank in both
+layouts (`cumulative_candidates_tile`,
+`cumulative_candidates_sparse_tile`) and the Compact-Table bank over the
+bitset domain store (`ct_candidates_tile`, `_gather_join_dom`,
+`dom_normalize_tile`): every bank the reference has.  A carried bitset
+store (``dom``, ``[L, V, W]`` int32 bit patterns, see `bitset`) rides
+through `sweep_tile`/`fixpoint_tile`/`fixpoint_batch` as in the
+reference.
 
 Integer dtype discipline: every reduction passes ``dtype=`` (torch widens
 int32 sums to int64, ``jnp`` does not), so stores stay in the model's
@@ -34,6 +35,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import bitset as B
+from repro_torch.core import lattice as LT
 from repro_torch.core.compile import CompiledModel
 
 
@@ -436,17 +439,109 @@ def _gather_join_flat(cand_lb, cand_ub, occ, L):
     return g_lb, g_ub
 
 
-def check_supported(*, n_table: int = 0, dom=None, **_statics) -> None:
-    """Raise for the banks this slice of the port does not propagate yet
-    (rather than propagating less than the reference)."""
-    if n_table:
-        raise NotImplementedError(
-            "Compact-Table banks are not ported yet (kernel sub-item 1f, "
-            "ROADMAP queue 2)")
-    if dom is not None:
-        raise NotImplementedError(
-            "the bitset domain store comes with the Compact-Table slice "
-            "(kernel sub-item 1f, ROADMAP queue 2)")
+# elements of the ``[L, T1, R, 32W, TW]`` support tensor of the
+# Compact-Table tile; more lanes than fit are worked through in chunks
+_CT_CHUNK_ELEMS = 1 << 24
+
+
+def ct_candidates_tile(lb, ub, dom, ct_vars, ct_mask, ct_supp, dom_off,
+                       n_table: int):
+    """Compact-Table tells for the extensional bank (the reset variant,
+    stateless per sweep), over ``[L, V]`` bounds and their ``[L, V, W]``
+    bitset domain:
+
+      1. each member's remaining value bits, from `dom`;
+      2. per member, the OR of the supports of its remaining values (the
+         masked supports never share a bit, each tuple having ONE value
+         per position, so the integer sum is the OR);
+      3. the AND of the members' words is the current table; an all-zero
+         current table fails the row (every member's lb is pushed past
+         its box);
+      4. a value survives iff its support meets the current table: the
+         surviving bits give each member a domain word mask and a
+         [min, max] hull candidate.
+
+    `ct_supp` is the ``[T1, R, 32W, TW]`` support table as int32 bit
+    patterns.  Returns (cand_lb, cand_ub, cand_dom), ``[L, T1, R]`` ×2
+    and ``[L, T1, R, W]``; padded member slots and the dummy row are
+    neutral (±big bounds, all-ones words).  Works through the lanes in
+    chunks of at most ``_CT_CHUNK_ELEMS`` support elements.
+    """
+    L = lb.shape[0]
+    T1, R, K32, TW = ct_supp.shape
+    step = max(1, _CT_CHUNK_ELEMS // (T1 * R * K32 * TW))
+    if L > step:
+        parts = [ct_candidates_tile(lb[i:i + step], ub[i:i + step],
+                                    dom[i:i + step], ct_vars, ct_mask,
+                                    ct_supp, dom_off, n_table)
+                 for i in range(0, L, step)]
+        return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
+    dt = lb.dtype
+    neu_ub, neu_lb = _neutrals(dt)
+    W = K32 // B.WORD_BITS
+    dev = lb.device
+    # 1. member value bits, unpacked to the [K32] value axis
+    mdom = dom.index_select(1, ct_vars.reshape(-1)).reshape(L, T1, R, W)
+    shifts = torch.arange(B.WORD_BITS, dtype=torch.int64, device=dev)
+    vb = ((B.unsigned(mdom)[..., None] >> shifts) & 1).reshape(L, T1, R, K32)
+    # 2. OR of the supports of the remaining values == SUM (disjoint)
+    mor = torch.where(vb[..., None] != 0, ct_supp[None], 0).sum(
+        3, dtype=torch.int32)                               # [L,T1,R,TW]
+    # 3. current table = AND over the real members (padding all-ones)
+    real = ct_mask[None] != 0                               # [1,T1,R]
+    mor = torch.where(real[..., None], mor, B.FULL_I32)
+    curr = mor[:, :, 0, :]
+    for r in range(1, R):                       # R is static and small
+        curr = curr & mor[:, :, r, :]
+    fail = (curr == 0).all(-1)                              # [L,T1]
+    # 4. surviving values = supports meeting the current table
+    surv = ((ct_supp[None] & curr[:, :, None, None, :]) != 0).any(-1)
+    ks = torch.arange(K32, dtype=dt, device=dev)
+    kmin = torch.where(surv, ks, neu_ub).amin(-1)           # [L,T1,R]
+    kmax = torch.where(surv, ks, neu_lb).amax(-1)
+    omem = dom_off.index_select(0, ct_vars.reshape(-1)).reshape(T1, R)
+    cand_lb = torch.where(real, omem[None] + kmin, neu_lb)
+    cand_ub = torch.where(real, omem[None] + kmax, neu_ub)
+    # row failure: push every real member past its box (the box clamp
+    # turns -neu_lb into box_hi, which crosses ub)
+    cand_lb = torch.where(fail[:, :, None] & real, -neu_lb, cand_lb)
+    # pack the surviving bits back into domain words
+    weights = torch.ones(B.WORD_BITS, dtype=torch.int64, device=dev) << shifts
+    packed = (surv.reshape(L, T1, R, W, B.WORD_BITS).long() * weights).sum(-1)
+    cand_dom = torch.where(real[..., None], B.from_unsigned(packed), B.FULL_I32)
+    return cand_lb, cand_ub, cand_dom
+
+
+def _gather_join_dom(cand_dom, occ_inst, occ_pos, dom):
+    """Variable-centric join of the CT bank's domain-word candidates:
+    each var ANDs the masks of its occurrences into its words (the
+    bitset-lattice ⊔)."""
+    L, _, R, W = cand_dom.shape
+    V, D = occ_inst.shape
+    occ = (occ_inst * R + occ_pos).reshape(-1)
+    g = cand_dom.reshape(L, -1, W).index_select(1, occ).reshape(L, V, D, W)
+    for d in range(D):                          # D is static and small
+        dom = B.join(dom, g[:, :, d])
+    return dom
+
+
+def dom_normalize_tile(lb, ub, dom, dom_off, dom_track, box_lo, box_hi,
+                       n_words: int):
+    """Re-sync the two lattices after a sweep's joins: the bitset loses
+    the values outside [lb, ub], and the bounds tighten to the bitset's
+    hull.  Untracked vars (dom_track == 0) pass through on both sides.
+    An empty tracked domain reads back as the crossed hull (off + 32W,
+    off - 1), which the box clamp keeps crossed: bitset wipeout is
+    bounds failure."""
+    trk = (dom_track != 0)[None, :]
+    rng = B.from_bounds(lb, ub, dom_off, n_words)
+    dom = torch.where(trk[..., None], B.join(dom, rng), dom)
+    lo, hi = B.to_bounds(dom, dom_off)
+    nlb, nub = LT.iz_join(lb, ub, torch.minimum(lo, box_hi[None, :]),
+                          torch.maximum(hi, box_lo[None, :]))
+    nlb = torch.where(trk, nlb, lb)
+    nub = torch.where(trk, nub, ub)
+    return nlb, nub, dom
 
 
 def sweep_tile(lb, ub, vidx, coef, rhs, bidx, occ_prop, occ_slot,
@@ -463,9 +558,13 @@ def sweep_tile(lb, ub, vidx, coef, rhs, bidx, occ_prop, occ_slot,
     """One eventless sweep over a ``[L, V]`` tile of stores (gather form).
 
     Same positional signature as the reference (`model_tables` order),
-    so the two stay easy to read side by side.  Returns (lb', ub').
+    so the two stay easy to read side by side.  With `dom` (the carried
+    ``[L, V, W]`` bitset store) the Compact-Table tile filters it, the
+    sweep ends with `dom_normalize_tile` and (lb', ub', dom') comes back;
+    without it a table model's CT tile reads the transient range domain
+    of the current bounds (untracked vars all-ones) and (lb', ub') comes
+    back.
     """
-    check_supported(n_table=n_table, dom=dom)
     L = lb.shape[0]
     cand_lb, cand_ub = candidates_tile(lb, ub, vidx, coef, rhs, bidx)
     # fold the reif-entailment slot in: occ_slot ∈ [0, K] indexes [K+1]
@@ -481,8 +580,7 @@ def sweep_tile(lb, ub, vidx, coef, rhs, bidx, occ_prop, occ_slot,
                                                    ad_mask)
             j_lb, j_ub = _gather_join(ad_lb, ad_ub, ad_occ_inst, ad_occ_pos,
                                       L)
-        g_lb = torch.maximum(g_lb, j_lb)
-        g_ub = torch.minimum(g_ub, j_ub)
+        g_lb, g_ub = LT.iz_join(g_lb, g_ub, j_lb, j_ub)
     if n_cumulative:
         if cu_layout == "sparse":
             cu_lb, cu_ub = cumulative_candidates_sparse_tile(
@@ -495,26 +593,39 @@ def sweep_tile(lb, ub, vidx, coef, rhs, bidx, occ_prop, occ_slot,
                 lb, ub, cu_svar, cu_dur, cu_dem, cu_cap, horizon)
             j_lb, j_ub = _gather_join(cu_lb, cu_ub, cu_occ_inst, cu_occ_pos,
                                       L)
-        g_lb = torch.maximum(g_lb, j_lb)
-        g_ub = torch.minimum(g_ub, j_ub)
+        g_lb, g_ub = LT.iz_join(g_lb, g_ub, j_lb, j_ub)
+    if n_table:
+        d_in = dom if dom is not None else B.from_bounds(
+            lb, ub, dom_off, n_words, track=dom_track)
+        ct_lb, ct_ub, ct_dm = ct_candidates_tile(
+            lb, ub, d_in, ct_vars, ct_mask, ct_supp, dom_off, n_table)
+        j_lb, j_ub = _gather_join(ct_lb, ct_ub, ct_occ_inst, ct_occ_pos, L)
+        g_lb, g_ub = LT.iz_join(g_lb, g_ub, j_lb, j_ub)
+        if dom is not None:
+            dom = _gather_join_dom(ct_dm, ct_occ_inst, ct_occ_pos, dom)
     # clamp candidates into the initial box (overflow guard; sound because
     # box_lo-1/box_hi+1 still cross the opposite bound on failure)
     g_ub = torch.maximum(g_ub, box_lo[None, :])
     g_lb = torch.minimum(g_lb, box_hi[None, :])
-    return torch.maximum(lb, g_lb), torch.minimum(ub, g_ub)
+    nlb, nub = LT.iz_join(lb, ub, g_lb, g_ub)
+    if dom is None:
+        return nlb, nub
+    return dom_normalize_tile(nlb, nub, dom, dom_off, dom_track,
+                              box_lo, box_hi, n_words)
 
 
 def model_tables(cm: CompiledModel) -> Tuple:
-    """The positional table args of `sweep_tile`, in order."""
+    """The positional table args of `sweep_tile`, in order; the two
+    ``uint32`` tables (`ct_supp`, `dom_track`) as their int32 views."""
     return (cm.vidx, cm.coef, cm.rhs, cm.bidx, cm.occ_prop, cm.occ_slot,
             cm.ad_vars, cm.ad_offs, cm.ad_mask, cm.ad_occ_inst,
             cm.ad_occ_pos, cm.ad_ptr, cm.ad_pk_var, cm.ad_pk_off,
             cm.ad_pk_seg, cm.cu_svar, cm.cu_dur, cm.cu_dem, cm.cu_cap,
             cm.cu_occ_inst, cm.cu_occ_pos, cm.cu_ptr, cm.cu_pk_svar,
             cm.cu_pk_dur, cm.cu_pk_dem, cm.cu_pk_seg,
-            cm.ct_vars, cm.ct_mask, cm.ct_supp, cm.ct_occ_inst,
-            cm.ct_occ_pos, cm.dom_off, cm.dom_track,
-            cm.box_lo, cm.box_hi)
+            cm.ct_vars, cm.ct_mask, cm.ct_supp.view(torch.int32),
+            cm.ct_occ_inst, cm.ct_occ_pos, cm.dom_off,
+            cm.dom_track.view(torch.int32), cm.box_lo, cm.box_hi)
 
 
 def model_statics(cm: CompiledModel) -> dict:
@@ -537,32 +648,48 @@ def fixpoint_tile(lb, ub, *tables, horizon: int, n_alldiff: int = 0,
     it < max_iters ∧ ¬failed) holds.  Lanes are independent, so each
     sweep runs only on the lanes still live (the result equals the
     reference's masked sweep over all lanes, by idempotence of ⊔).
-    Returns (lb', ub', sweeps i32[L], converged bool[L]).
+    With `dom` the bitset store is carried, and a sweep counts as
+    changed when any domain word moved even if the hull did not.
+    Returns (lb', ub', sweeps i32[L], converged bool[L]), with dom'
+    before the counters when it is carried.
     """
     statics = dict(horizon=horizon, n_alldiff=n_alldiff,
                    n_cumulative=n_cumulative, ad_layout=ad_layout,
                    cu_layout=cu_layout, n_table=n_table, n_words=n_words)
-    check_supported(**statics, dom=dom)
     L = lb.shape[0]
     dev = lb.device
+    have_dom = dom is not None
     changed = torch.ones(L, dtype=torch.bool, device=dev)
     it = torch.zeros(L, dtype=torch.int32, device=dev)
     lb, ub = lb.clone(), ub.clone()
+    if have_dom:
+        dom = dom.clone()
     while True:
         live = changed.clone()
         if max_iters is not None:
             live &= it < max_iters
         if stop_on_fail:
-            live &= ~(lb > ub).any(1)
+            live &= ~LT.is_empty(lb, ub).any(1)
         idx = live.nonzero().squeeze(1)
         if idx.numel() == 0:
             break
         olb, oub = lb[idx], ub[idx]
-        nlb, nub = sweep_tile(olb, oub, *tables, **statics)
-        changed[idx] = ((nlb != olb) | (nub != oub)).any(1)
+        if have_dom:
+            odom = dom[idx]
+            nlb, nub, ndom = sweep_tile(olb, oub, *tables, **statics,
+                                        dom=odom)
+            dom[idx] = ndom
+        else:
+            nlb, nub = sweep_tile(olb, oub, *tables, **statics)
+        ch = ((nlb != olb) | (nub != oub)).any(1)
+        if have_dom:
+            ch |= (ndom != odom).any(2).any(1)
+        changed[idx] = ch
         lb[idx], ub[idx] = nlb, nub
         it[idx] += 1
-    converged = ~changed | (lb > ub).any(1)
+    converged = ~changed | LT.is_empty(lb, ub).any(1)
+    if have_dom:
+        return lb, ub, dom, it, converged
     return lb, ub, it, converged
 
 
@@ -581,7 +708,8 @@ def fixpoint_batch(cm: CompiledModel, lb, ub, dom=None,
                    stop_on_fail: bool = True):
     """Lane-batched fixpoint over the whole ``[L, V]`` store tensor.
 
-    Returns (lb', ub', sweeps[L], converged[L]).
+    Returns (lb', ub', sweeps[L], converged[L]); with `dom` (``[L, V,
+    W]`` int32) the carried bitset store comes back before the counters.
     """
     return fixpoint_tile(lb, ub, *model_tables(cm), **model_statics(cm),
                          dom=dom, max_iters=max_iters,

@@ -17,11 +17,11 @@ exposes the uniform protocol:
 yields the seeded smoke instances used by the port's tests and
 ``chip_smoke.py``.
 
-What the port solves: rcpsp, knapsack and jobshop (small and bench
-tiers: the ReifLinLe and dense Cumulative banks), nqueens and coloring
-(the dense AllDifferent bank).  Crossword and configuration compile but
-raise when propagated (Compact-Table, kernel sub-item 1f); so do the
-large tiers that the auto crossover puts on a sparse bank (1d, 1e).
+The port propagates and solves all seven at every tier: rcpsp, knapsack
+and jobshop through the ReifLinLe and Cumulative banks (dense, or
+sparse where the auto crossover puts the large tiers), nqueens and
+coloring through the AllDifferent bank (likewise), crossword and
+configuration through the Compact-Table bank and the bitset store.
 """
 
 from __future__ import annotations

@@ -15,9 +15,17 @@ phases are plain tensor functions with the reference's mask-based
 control flow, so the state after k supersteps equals the reference's
 field for field.
 
-This slice covers the ``min`` and ``split`` value strategies; the
-``middle_out`` strategy needs the bitset store and raises until the
-Compact-Table slice of the port.
+Value strategies: ``min`` and ``split`` branch x ≤ m / x ≥ m+1;
+``middle_out`` branches x = m / x ≠ m on the remaining value nearest the
+interval midpoint, the right branch a bit clear in the carried bitset
+store (`LaneState.dom`/`root_dom`, int32 bit patterns; see `bitset`).
+Search carries that store for table models and under ``middle_out``
+(`use_dom`).  A variable wider than the 32·W-value bitset is untracked,
+and ``middle_out`` branches on it exactly as ``split`` does (value and
+tells); the reference's selection reads the pinned all-ones words of
+such a variable instead, which can pick a value outside its interval
+(ROADMAP, reference notes), so the two agree wherever every branch
+variable is tracked.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import bitset as B
+from repro_torch.core import lattice as LT
 from repro_torch.core.backend import get_backend
 from repro_torch.core.compile import CompiledModel
 
@@ -44,13 +54,6 @@ VAL_SPLIT = "split"   # m = (lb+ub)//2
 VAL_MIDDLE_OUT = "middle_out"
 
 I32 = torch.int32
-
-
-def _no_middle_out(val_strategy: str) -> None:
-    if val_strategy == VAL_MIDDLE_OUT:
-        raise NotImplementedError(
-            "middle_out value ordering needs the bitset domain store, "
-            "which comes with the Compact-Table slice of the port")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,23 +93,37 @@ class LaneState(NamedTuple):
     n_fails: torch.Tensor
     n_sols: torch.Tensor
     n_sweeps: torch.Tensor
-    # bitset domain stores: always None in this slice
-    dom: Optional[torch.Tensor] = None
-    root_dom: Optional[torch.Tensor] = None
+    # bitset domain stores (int32 bit patterns), None unless `use_dom`
+    dom: Optional[torch.Tensor] = None         # i32[L, V, W]
+    root_dom: Optional[torch.Tensor] = None    # i32[L, V, W]
+
+
+def _host_array(a):
+    """A host array as torch takes it: ``uint32`` (the reference's
+    bitset words) as its int32 view, everything else as it is."""
+    a = np.array(a)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
 
 
 def lane_state_from_arrays(arrays: dict, device) -> LaneState:
     """A `LaneState` from host arrays keyed by field name (missing or
-    None bitset fields stay None); dtypes are kept."""
+    None bitset fields stay None); dtypes are kept, except the bitset
+    words, which become int32 bit patterns."""
     return LaneState(**{
         f: (None if arrays.get(f) is None else
-            torch.from_numpy(np.array(arrays[f])).to(device))
+            torch.from_numpy(_host_array(arrays[f])).to(device))
         for f in LaneState._fields})
+
+
+def use_dom(cm: CompiledModel, opts: SearchOptions) -> bool:
+    """Whether search carries the bitset store: table models always
+    (Compact-Table filters value sets), and ``middle_out`` on any model
+    (its right branch x ≠ m is a bitset tell)."""
+    return cm.n_table > 0 or opts.val_strategy == VAL_MIDDLE_OUT
 
 
 def init_lanes(cm: CompiledModel, n_lanes: int,
                opts: SearchOptions) -> LaneState:
-    _no_middle_out(opts.val_strategy)
     V = cm.n_vars
     dt, dev = cm.tdtype, cm.device
     big = torch.iinfo(dt).max // 4
@@ -114,7 +131,9 @@ def init_lanes(cm: CompiledModel, n_lanes: int,
     def z(*s, dtype=I32):
         return torch.zeros(s, dtype=dtype, device=dev)
 
+    dom = z(n_lanes, V, cm.n_words) if use_dom(cm, opts) else None
     return LaneState(
+        dom=dom, root_dom=None if dom is None else dom.clone(),
         lb=z(n_lanes, V, dtype=dt), ub=z(n_lanes, V, dtype=dt),
         root_lb=z(n_lanes, V, dtype=dt), root_ub=z(n_lanes, V, dtype=dt),
         dec_var=z(n_lanes, opts.max_depth),
@@ -161,36 +180,67 @@ def apply_path_tile(root_lb, root_ub, dec_var, dec_val, dec_flip, depth, *,
                     val_strategy: str = VAL_MIN, root_dom=None,
                     dom_off=None, dom_track=None):
     """Full recomputation for a ``[L, V]`` tile: root ⊔ all decision
-    tells (left x ≤ m, right x ≥ m+1), as one flat scatter-min/max —
-    duplicate indices join associatively, as in the reference's
-    ``.at[].min/max``."""
-    _no_middle_out(val_strategy)
-    if root_dom is not None:
-        raise NotImplementedError("bitset stores come with the Compact-"
-                                  "Table slice of the port")
+    tells, as one flat scatter-min/max — duplicate indices join
+    associatively, as in the reference's ``.at[].min/max``.
+
+    ``min``/``split`` branch left x ≤ m, right x ≥ m+1.  Under
+    ``middle_out`` the left branch is x = m and the right branch x ≠ m,
+    a bit clear in `root_dom`: the flipped decisions' one-hot word masks
+    are summed by one flat scatter-add (an int64 accumulator, masked back
+    to 32 bits, as the reference's uint32 add wraps) and cleared.
+    Decisions on untracked vars tell x ≤ m / x ≥ m+1.  Returns (lb, ub),
+    plus the recomputed dom when `root_dom` is carried."""
     L, V = root_lb.shape
     md = dec_var.shape[1]
     dev, dt = root_lb.device, root_lb.dtype
     lvl = torch.arange(md, device=dev)
     on = lvl[None, :] < depth[:, None]
     big = torch.iinfo(dt).max // 4
-    ub_tell = torch.where(on & ~dec_flip, dec_val, big)      # left: x ≤ m
-    lb_tell = torch.where(on & dec_flip, dec_val + 1, -big)  # right: x ≥ m+1
+    dv = dec_var.long()
+    ub_tell = torch.where(on & ~dec_flip, dec_val, big)       # left: x ≤ m
+    if val_strategy == VAL_MIDDLE_OUT:
+        trk = dom_track[dv] != 0                                  # [L, MD]
+        lb_tell = torch.where(on & ~dec_flip & trk, dec_val,  # left: x = m
+                              torch.where(on & dec_flip & ~trk,
+                                          dec_val + 1, -big))  # x ≥ m+1
+    else:
+        lb_tell = torch.where(on & dec_flip, dec_val + 1, -big)  # x ≥ m+1
     rows = torch.arange(L, device=dev)[:, None] * V
-    flat = (rows + dec_var.long()).reshape(-1)
+    flat = (rows + dv).reshape(-1)
     ub = root_ub.reshape(L * V).clone().scatter_reduce_(
         0, flat, ub_tell.reshape(-1), "amin", include_self=True)
     lb = root_lb.reshape(L * V).clone().scatter_reduce_(
         0, flat, lb_tell.reshape(-1), "amax", include_self=True)
-    return lb.reshape(L, V), ub.reshape(L, V)
+    lb, ub = lb.reshape(L, V), ub.reshape(L, V)
+    if root_dom is None:
+        return lb, ub
+    dom = root_dom
+    if val_strategy == VAL_MIDDLE_OUT:
+        # right branches: clear bit (dec_val - off) of the decision var
+        W = root_dom.shape[-1]
+        bit = (dec_val - dom_off[dv]).long()                      # [L, MD]
+        hit = on & dec_flip & trk & (bit >= 0) & (bit < W * B.WORD_BITS)
+        word = torch.clamp(bit >> 5, 0, W - 1)
+        mask = torch.where(hit, torch.ones_like(bit) << (bit & 31), 0)
+        flat_w = (rows * W + dv * W + word).reshape(-1)
+        acc = torch.zeros(L * V * W, dtype=torch.int64,
+                          device=dev).scatter_add_(0, flat_w,
+                                                   mask.reshape(-1))
+        dom = dom & ~B.from_unsigned(acc & 0xFFFFFFFF).reshape(L, V, W)
+    return lb, ub, dom
 
 
 def select_branch_tile(lb, ub, branch_vars, *, var_strategy: str,
-                       val_strategy: str, dom=None, dom_off=None):
+                       val_strategy: str, dom=None, dom_off=None,
+                       dom_track=None):
     """Pick (var, m) for each lane's next decision over a ``[L, V]``
     tile.  Returns (var[L], m[L], any_unfixed[L]).  Ties go to the first
-    index, as ``jnp.argmax``/``argmin`` do."""
-    _no_middle_out(val_strategy)
+    index, as ``jnp.argmax``/``argmin`` do.
+
+    ``middle_out`` (needs the carried `dom`) picks the remaining value
+    nearest the interval midpoint (floor), ties to the lower value; on an
+    untracked var (``dom_track`` 0) it picks the midpoint itself, as
+    ``split`` does."""
     bv = branch_vars
     blb = lb.index_select(1, bv)                            # [L, B]
     bub = ub.index_select(1, bv)
@@ -213,6 +263,27 @@ def select_branch_tile(lb, ub, branch_vars, *, var_strategy: str,
         m = vlb
     elif val_strategy == VAL_SPLIT:
         m = torch.div(vlb + vub, 2, rounding_mode="floor")
+    elif val_strategy == VAL_MIDDLE_OUT:
+        if dom is None:
+            raise ValueError("middle_out value ordering needs the bitset "
+                             "domain store (search carries it whenever "
+                             "the strategy is selected)")
+        L, _, W = dom.shape
+        K32 = W * B.WORD_BITS
+        vdom = dom[torch.arange(L, device=dom.device), var.long()]  # [L, W]
+        shifts = torch.arange(B.WORD_BITS, dtype=torch.int64,
+                              device=dom.device)
+        bits = ((B.unsigned(vdom)[:, :, None] >> shifts) & 1).reshape(L, K32)
+        voff = dom_off[var.long()]                          # [L]
+        vals = voff[:, None] + torch.arange(K32, dtype=lb.dtype,
+                                            device=lb.device)[None, :]
+        mid = torch.div(vlb + vub, 2, rounding_mode="floor")
+        ok = (bits != 0) & (vals >= vlb[:, None]) & (vals <= vub[:, None])
+        # 2·distance + 1 for the upper side: nearest wins, ties go low
+        score = 2 * (vals - mid[:, None]).abs() + (vals > mid[:, None])
+        pos = torch.argmin(torch.where(ok, score, big), dim=1)
+        m = voff + pos.to(lb.dtype)
+        m = torch.where(dom_track[var.long()] != 0, m, mid)
     else:
         raise ValueError(val_strategy)
     return var, m, unfixed.any(1)
@@ -239,10 +310,9 @@ def lane_load_tile(subs_lb, subs_ub, st: LaneState, gbest, *,
     """Pre-propagation phase: subproblem load + B&B tell.
 
     `subs_lb/ub`: the pool ``[S, V]``; `gbest`: the 0-d global incumbent
-    bound (already min-reduced across lanes)."""
-    if st.dom is not None:
-        raise NotImplementedError("bitset stores come with the Compact-"
-                                  "Table slice of the port")
+    bound (already min-reduced across lanes).  With the bitset store a
+    loaded lane's root dom is its subproblem's box (the EPS pool is
+    interval-only, so this is lossless)."""
     S, V = subs_lb.shape
     dt = subs_lb.dtype
     big = torch.iinfo(dt).max // 4
@@ -260,6 +330,12 @@ def lane_load_tile(subs_lb, subs_ub, st: LaneState, gbest, *,
     next_sub = torch.where(load, UNASSIGNED, st.next_sub)   # consumed
     fresh = st.fresh & ~load & ~st.done
     active = ~st.done & ~fresh
+    dom = root_dom = None
+    if st.dom is not None:
+        fresh_dom = B.from_bounds(root_lb, root_ub, dom_off, n_words,
+                                  track=dom_track)
+        root_dom = torch.where(loadc[..., None], fresh_dom, st.root_dom)
+        dom = torch.where(loadc[..., None], root_dom, st.dom)
 
     # -- 2. branch & bound tell ------------------------------------------
     if obj_var >= 0:
@@ -269,7 +345,7 @@ def lane_load_tile(subs_lb, subs_ub, st: LaneState, gbest, *,
         ub[:, obj_var] = torch.minimum(ub[:, obj_var], tell)
     return LanePrep(lb=lb, ub=ub, root_lb=root_lb, root_ub=root_ub,
                     depth=depth, next_sub=next_sub, fresh=fresh,
-                    active=active)
+                    active=active, dom=dom, root_dom=root_dom)
 
 
 def lane_commit_tile(st: LaneState, pre: LanePrep, lb, ub, sweeps,
@@ -277,7 +353,8 @@ def lane_commit_tile(st: LaneState, pre: LanePrep, lb, ub, sweeps,
                      var_strategy: str, val_strategy: str,
                      dom=None, dom_off=None, dom_track=None) -> LaneState:
     """Post-propagation phase: record / backtrack-or-branch.  `lb`, `ub`,
-    `sweeps`, `converged` are the batched backend fixpoint outputs."""
+    `sweeps`, `converged` (and `dom`, when carried) are the batched
+    backend fixpoint outputs."""
     L, V = lb.shape
     md = st.dec_var.shape[1]
     dev, dt = lb.device, lb.dtype
@@ -286,9 +363,9 @@ def lane_commit_tile(st: LaneState, pre: LanePrep, lb, ub, sweeps,
     depth, next_sub = pre.depth, pre.next_sub
     fresh, active, done = pre.fresh, pre.active, st.done
 
-    failed = (lb > ub).any(1)
+    failed = LT.is_empty(lb, ub).any(1)
     # a fully-fixed store is only a SOLUTION at a (per-lane) fixed point
-    solved = active & converged & ~failed & (lb == ub).all(1)
+    solved = active & converged & ~failed & LT.is_fixed(lb, ub).all(1)
     failed = active & failed
 
     n_nodes = st.n_nodes + (failed | (active & converged)).to(I32)
@@ -324,14 +401,25 @@ def lane_commit_tile(st: LaneState, pre: LanePrep, lb, ub, sweeps,
     depth_bt = (bt_level + 1).to(I32)
 
     # full recomputation for backtracking lanes
-    rlb, rub = apply_path_tile(root_lb, root_ub, st.dec_var, st.dec_val,
-                               dec_flip, depth_bt,
-                               val_strategy=val_strategy)
+    root_dom = pre.root_dom
+    if dom is None:
+        rlb, rub = apply_path_tile(root_lb, root_ub, st.dec_var,
+                                   st.dec_val, dec_flip, depth_bt,
+                                   val_strategy=val_strategy,
+                                   dom_track=dom_track)
+    else:
+        rlb, rub, rdom = apply_path_tile(root_lb, root_ub, st.dec_var,
+                                         st.dec_val, dec_flip, depth_bt,
+                                         val_strategy=val_strategy,
+                                         root_dom=root_dom,
+                                         dom_off=dom_off,
+                                         dom_track=dom_track)
 
     # branching lanes (only at per-lane fixed points)
     var, m, any_unfixed = select_branch_tile(
         lb, ub, branch_vars, var_strategy=var_strategy,
-        val_strategy=val_strategy)
+        val_strategy=val_strategy, dom=dom, dom_off=dom_off,
+        dom_track=dom_track)
     do_branch = active & ~bt & converged & any_unfixed
     overflow = do_branch & (depth >= md)
     do_branch = do_branch & ~overflow
@@ -344,14 +432,23 @@ def lane_commit_tile(st: LaneState, pre: LanePrep, lb, ub, sweeps,
     btell = torch.where(do_branch, m, big)                        # [L]
     bub = torch.where(vcols[None, :] == var[:, None],             # left: x ≤ m
                       torch.minimum(ub, btell[:, None]), ub)
+    if val_strategy == VAL_MIDDLE_OUT:                            # left: x = m
+        trk_var = dom_track[var.long()] != 0
+        btell_lo = torch.where(do_branch & trk_var, m, -big)     # wide: x ≤ m
+        blb = torch.where(vcols[None, :] == var[:, None],
+                          torch.maximum(lb, btell_lo[:, None]), lb)
+    else:
+        blb = lb
 
     # -- 5. commit per-lane outcome ------------------------------------------
-    new_lb = torch.where(do_bt[:, None], rlb, lb)
+    new_lb = torch.where(do_bt[:, None], rlb, blb)
     new_ub = torch.where(do_bt[:, None], rub, bub)
     new_depth = torch.where(do_bt, depth_bt,
                             torch.where(do_branch, depth + 1, depth))
     fresh = fresh | exhausted | overflow
     incomplete = st.incomplete | overflow
+    new_dom = (None if dom is None
+               else torch.where(do_bt[:, None, None], rdom, dom))
 
     return LaneState(
         lb=new_lb, ub=new_ub, root_lb=root_lb, root_ub=root_ub,
@@ -359,7 +456,7 @@ def lane_commit_tile(st: LaneState, pre: LanePrep, lb, ub, sweeps,
         depth=new_depth, next_sub=next_sub, fresh=fresh, done=done,
         incomplete=incomplete, best_obj=best_obj, best_sol=best_sol,
         has_sol=has_sol, n_nodes=n_nodes, n_fails=n_fails, n_sols=n_sols,
-        n_sweeps=n_sweeps)
+        n_sweeps=n_sweeps, dom=new_dom, root_dom=root_dom)
 
 
 def lanes_step(cm: CompiledModel, subs_lb, subs_ub, opts: SearchOptions,
@@ -369,14 +466,24 @@ def lanes_step(cm: CompiledModel, subs_lb, subs_ub, opts: SearchOptions,
     tensor (one kernel launch under the ``cuda`` backend) → tile commit.
     Returns (state', pool_head')."""
     st, pool_head = dispatch_pool(st, pool_head, subs_lb.shape[0])
-    pre = lane_load_tile(subs_lb, subs_ub, st, gbest, obj_var=cm.obj_var)
+    dom_track = cm.dom_track.view(torch.int32)
+    pre = lane_load_tile(subs_lb, subs_ub, st, gbest, obj_var=cm.obj_var,
+                         dom_off=cm.dom_off, dom_track=dom_track,
+                         n_words=cm.n_words)
     backend = get_backend(opts.backend)
-    lb, ub, sweeps, converged = backend.fixpoint_batch(
-        cm, pre.lb, pre.ub, max_iters=opts.max_fixpoint_iters)
+    if pre.dom is not None:
+        lb, ub, dom, sweeps, converged = backend.fixpoint_batch(
+            cm, pre.lb, pre.ub, dom=pre.dom,
+            max_iters=opts.max_fixpoint_iters)
+    else:
+        dom = None
+        lb, ub, sweeps, converged = backend.fixpoint_batch(
+            cm, pre.lb, pre.ub, max_iters=opts.max_fixpoint_iters)
     st = lane_commit_tile(st, pre, lb, ub, sweeps, converged,
                           cm.branch_vars, obj_var=cm.obj_var,
                           var_strategy=opts.var_strategy,
-                          val_strategy=opts.val_strategy)
+                          val_strategy=opts.val_strategy, dom=dom,
+                          dom_off=cm.dom_off, dom_track=dom_track)
     return st, pool_head
 
 
@@ -384,6 +491,11 @@ def lanes_best(st: LaneState):
     """Cross-lane incumbent (the shared global-memory bound of the
     paper), a 0-d tensor."""
     return st.best_obj.min()
+
+
+def all_done(st: LaneState) -> torch.Tensor:
+    """Whether every lane has drained the pool (a 0-d bool tensor)."""
+    return st.done.all()
 
 
 def lane_totals(st: LaneState) -> dict:

@@ -2,15 +2,16 @@
 // `fixpoint.cu` (one launch per fixpoint) and `search.cu` (K supersteps
 // per launch) share.
 //
-// It covers the ReifLinLe bank (`fixpoint.candidates_tile`), the
-// AllDifferent bank in both layouts (`fixpoint.alldiff_candidates_tile`,
-// `alldiff_candidates_sparse_tile`) and the Cumulative bank in both
-// layouts (`cumulative_candidates_tile`,
-// `cumulative_candidates_sparse_tile`): what RCPSP (J30 to J120
-// classes), N-queens, graph coloring, knapsack and jobshop lower to.  The
-// plain PyTorch version is repro_torch/core/fixpoint.py::fixpoint_batch;
-// results (stores, sweep counts, convergence flags) are equal bit for
-// bit, capped or not.
+// It covers every bank of the reference: ReifLinLe
+// (`fixpoint.candidates_tile`), AllDifferent in both layouts
+// (`alldiff_candidates_tile`, `alldiff_candidates_sparse_tile`),
+// Cumulative in both layouts (`cumulative_candidates_tile`,
+// `cumulative_candidates_sparse_tile`) and Compact-Table over the bitset
+// domain store (`ct_candidates_tile`, `_gather_join_dom`,
+// `dom_normalize_tile`).  The plain PyTorch version is
+// repro_torch/core/fixpoint.py::fixpoint_batch; results (stores, domain
+// words, sweep counts, convergence flags) are equal bit for bit, capped
+// or not.
 //
 // Design (TURBO's block-per-subproblem mapping):
 //   * the lane's current and next lb/ub live in shared memory,
@@ -74,6 +75,28 @@
 //     member then pushes over its segment, O(n) each: O(n^2) per row,
 //     where the dense bank's endpoint-pair loop is O(n^3).
 //
+// Compact-Table and the bitset store (template flag DOM, so models
+// without tables and without a carried store compile none of it).  The
+// domain words of a carried store, [V, W] u32 per lane, are double-
+// buffered in shared memory beside lb/ub.  Per sweep, for each table row:
+// (1) one thread per (row, member, support word) ORs the supports of the
+// member's live values (the set bits of its words, walked with __ffs);
+// (2) one thread per (row, support word) ANDs the members' words into
+// the current table; (2') one thread per (row, member) tests each value's
+// support against the current table: the survivors give the member's
+// hull candidates and its domain-word candidates, and an all-zero
+// current table fails the row (every real member's lb at -NEU_LB, which
+// the box clamp turns into a crossing).  In (3) each variable also joins
+// its table occurrences: max/min into lb/ub, AND into its words; then
+// `dom_normalize_tile`: a tracked variable loses the bits outside
+// [lb, ub] and its bounds tighten to the words' hull (an empty domain
+// reads (off + 32·W, off - 1)); an untracked one passes through.  A sweep
+// counts as changed when any word moved.  Without a carried store (EPS,
+// `fixpoint_cuda` without `dom`) the member words are the transient range
+// words of the current bounds (all-ones for an untracked variable), the
+// domain candidates are dropped and nothing is normalized.  Tables stay
+// in global memory (L2), as the other banks'.
+//
 // Arithmetic: int32 only (the wrappers reject int64 models).  Floor and
 // ceil division follow `_fdiv`/`_cdiv` (C++ `/` truncates toward zero).
 // The compile-time headroom (compile.py) keeps every intermediate the
@@ -131,25 +154,43 @@ struct Tables {
   const int32_t* cu_pk_dur;   // [Mcu]
   const int32_t* cu_pk_dem;   // [Mcu]
   const int32_t* cu_pk_seg;   // [Mcu] row of each slot, C for padding
+  const int32_t* ct_vars;     // [T1, R]
+  const int32_t* ct_mask;     // [T1, R]
+  const uint32_t* ct_supp;    // [T1, R, 32·W, TW] support bitsets
+  const int32_t* ct_occ_inst; // [V, Dct]
+  const int32_t* ct_occ_pos;  // [V, Dct]
+  const int32_t* dom_off;     // [V] value of bit 0 (the initial lb)
+  const uint32_t* dom_track;  // [V] nonzero: the var has domain words
   const int32_t* box_lo;      // [V]
   const int32_t* box_hi;      // [V]
   int V, P1, K, D, A1, N, Dad, n_alldiff, C1, T, Dcu, H, n_cumulative;
   int Mad, Mcu;               // packed slots
   int ad_sparse, cu_sparse;   // layouts: 1 = packed (sparse), 0 = dense
+  int n_table, T1, R, W, TW, Dct;   // Compact-Table bank, W = n_words
+  int carry_dom;              // set by the launch: a [V, W] store rides
 };
 
-constexpr int N_TABLES = 28;
-constexpr int N_DIMS = 17;
+constexpr int N_TABLES = 35;
+constexpr int N_DIMS = 23;
 
-inline Tables tables_from(const void* const* tb, const int* d) {
+inline Tables tables_from(const void* const* tb, const int* d,
+                          int carry_dom) {
   const int32_t* const* t = (const int32_t* const*)tb;
   return Tables{t[0],  t[1],  t[2],  t[3],  t[4],  t[5],  t[6],
                 t[7],  t[8],  t[9],  t[10], t[11], t[12], t[13],
                 t[14], t[15], t[16], t[17], t[18], t[19], t[20],
                 t[21], t[22], t[23], t[24], t[25], t[26], t[27],
+                (const uint32_t*)t[28], t[29], t[30], t[31],
+                (const uint32_t*)t[32], t[33], t[34],
                 d[0],  d[1],  d[2],  d[3],  d[4],  d[5],  d[6],
                 d[7],  d[8],  d[9],  d[10], d[11], d[12], d[13],
-                d[14], d[15], d[16]};
+                d[14], d[15], d[16], d[17], d[18], d[19], d[20],
+                d[21], d[22], carry_dom};
+}
+
+// The kernel instance of a model: Compact-Table or a carried store.
+__host__ __device__ inline bool uses_dom(const Tables& p) {
+  return p.n_table > 0 || p.carry_dom;
 }
 
 // Keys a sparse bank sorts: the next power of two of its events.
@@ -196,9 +237,24 @@ __host__ __device__ inline size_t cumulative_words(const Tables& p) {
   return (size_t)p.C1 * p.H + (size_t)5 * p.C1 * p.T + (size_t)2 * p.C1;
 }
 
+//   Compact-Table (tables only): the members' support words [T1, R, TW],
+//     the current tables [T1, TW], the hull candidate pair [T1, R] and
+//     the domain-word candidates [T1, R, W];
+//   bitset store (carried only): current and next words, 2·V·W.
+__host__ __device__ inline size_t table_words(const Tables& p) {
+  if (p.n_table <= 0) return 0;
+  const size_t TR = (size_t)p.T1 * p.R;
+  return TR * p.TW + (size_t)p.T1 * p.TW + 2 * TR + TR * p.W;
+}
+
+__host__ __device__ inline size_t dom_words(const Tables& p) {
+  return p.carry_dom ? (size_t)2 * p.V * p.W : 0;
+}
+
 __host__ __device__ inline size_t smem_words(const Tables& p) {
   return (size_t)4 * p.V + (size_t)2 * p.P1 * (p.K + 1) +
-         cumulative_words(p) + alldiff_words(p);
+         cumulative_words(p) + alldiff_words(p) + table_words(p) +
+         dom_words(p);
 }
 
 // The fixpoint's view of a CTA's shared memory.  Store buffer c (0 or
@@ -243,14 +299,26 @@ struct Smem {
   int32_t* afail;   // [A1] pigeonhole failure per row
   uint64_t* akey;   // sparse only
   int32_t* aval;    // sparse only
+  // Compact-Table and the bitset store (DOM instances only)
+  uint32_t* domst;  // [dom0 | dom1], V·W words each (carried only)
+  uint32_t* ctor;   // [T1, R, TW] OR of each member's supports
+  uint32_t* ctcur;  // [T1, TW] current tables
+  int32_t* ctlb;    // [T1, R]
+  int32_t* ctub;    // [T1, R]
+  uint32_t* ctdom;  // [T1, R, W]
+  __device__ __forceinline__ uint32_t* dom(int c) const {
+    return domst + (size_t)c * V * W;
+  }
+  int W;
 };
 
 // The 64-bit sort keys come right after the stores and the linear pair
 // (4·V + 2·P1·(K+1) words, an even number), so they are 8-byte aligned;
-// the other regions follow.  The total is smem_words'.  The layouts are
-// template parameters (equal to p.ad_sparse, p.cu_sparse), so each
-// kernel instance computes its own layout's addresses only.
-template <bool AD_SPARSE, bool CU_SPARSE>
+// the other regions follow, the Compact-Table and bitset regions (32-bit
+// words) last.  The total is smem_words'.  The layouts and DOM are
+// template parameters (equal to p.ad_sparse, p.cu_sparse, uses_dom(p)),
+// so each kernel instance computes its own layout's addresses only.
+template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 __device__ __forceinline__ Smem carve(const Tables& p, int32_t* base) {
   const int V = p.V, K1 = p.K + 1, C1 = p.C1;
   Smem s = {};
@@ -308,6 +376,7 @@ __device__ __forceinline__ Smem carve(const Tables& p, int32_t* base) {
     s.alb = w + 4 * M;
     s.aub = w + 5 * M;
     s.afail = w + 6 * M;
+    w += 6 * M + p.A1;
   } else if (p.n_alldiff > 0) {
     const int AN = p.A1 * p.N;
     s.yl = w;
@@ -315,6 +384,23 @@ __device__ __forceinline__ Smem carve(const Tables& p, int32_t* base) {
     s.alb = w + 2 * AN;
     s.aub = w + 3 * AN;
     s.afail = w + 4 * AN;
+    w += 4 * AN + p.A1;
+  }
+  if (DOM) {
+    s.W = p.W;
+    if (p.n_table > 0) {
+      const int TR = p.T1 * p.R;
+      s.ctor = (uint32_t*)w;
+      w += TR * p.TW;
+      s.ctcur = (uint32_t*)w;
+      w += p.T1 * p.TW;
+      s.ctlb = w;
+      s.ctub = w + TR;
+      w += 2 * TR;
+      s.ctdom = (uint32_t*)w;
+      w += TR * p.W;
+    }
+    if (p.carry_dom) s.domst = (uint32_t*)w;
   }
   return s;
 }
@@ -612,21 +698,120 @@ __device__ __forceinline__ bool bad_at(const int32_t* prof_c, int tau,
   return prof_c[tau] - own + q > cap;
 }
 
+// ---- Compact-Table and the bitset store -----------------------------------
+
+// Word with bits [0, n) set, n clipped into [0, 32] (bitset.low_mask).
+__device__ __forceinline__ uint32_t low_mask(int32_t n) {
+  return n >= 32 ? 0xffffffffu : (n <= 0 ? 0u : (1u << n) - 1u);
+}
+
+// Word w of the interval [lo, hi] as domain bits from `off`
+// (bitset.from_bounds).
+__device__ __forceinline__ uint32_t range_word(int32_t lo, int32_t hi,
+                                               int32_t off, int w) {
+  const int32_t base = 32 * w;
+  return low_mask(hi - off + 1 - base) & ~low_mask(lo - off - base);
+}
+
+// Step (1): one thread per (row, member, support word) ORs the supports of
+// the member's live values; a padded slot gets all-ones.  The member's
+// words are the carried store's or, without one, the range words of the
+// current bounds (all-ones for an untracked variable).
+__device__ void ct_supports(const Tables& p, const Smem& s, int cur,
+                            const int32_t* lb, const int32_t* ub) {
+  const int TW = p.TW, W = p.W, K32 = 32 * p.W;
+  for (int i = threadIdx.x; i < p.T1 * p.R * TW; i += THREADS) {
+    const int tr = i / TW, tw = i - tr * TW;
+    uint32_t acc = 0xffffffffu;
+    if (__ldg(p.ct_mask + tr)) {
+      const int v = __ldg(p.ct_vars + tr);
+      const uint32_t* sp = p.ct_supp + (size_t)tr * K32 * TW + tw;
+      const bool trk = __ldg(p.dom_track + v) != 0;
+      const int32_t off = __ldg(p.dom_off + v);
+      acc = 0;
+      for (int w = 0; w < W; ++w) {
+        uint32_t word = p.carry_dom ? s.dom(cur)[v * W + w]
+                        : trk       ? range_word(lb[v], ub[v], off, w)
+                                    : 0xffffffffu;
+        while (word) {
+          const int b = __ffs(word) - 1;
+          word &= word - 1;
+          acc |= __ldg(sp + (size_t)(32 * w + b) * TW);
+        }
+      }
+    }
+    s.ctor[i] = acc;
+  }
+}
+
+// Step (2): one thread per (row, support word) ANDs the members' words
+// into the current table.
+__device__ void ct_current(const Tables& p, const Smem& s) {
+  const int R = p.R, TW = p.TW;
+  for (int i = threadIdx.x; i < p.T1 * TW; i += THREADS) {
+    const int t = i / TW, tw = i - t * TW;
+    uint32_t c = 0xffffffffu;
+    for (int r = 0; r < R; ++r) c &= s.ctor[(t * R + r) * TW + tw];
+    s.ctcur[i] = c;
+  }
+}
+
+// Step (2'): one thread per (row, member) keeps the values whose support
+// meets the current table: hull candidates (a failed row's lb at
+// -NEU_LB) and, with a carried store, domain-word candidates.  Padded
+// slots are neutral.
+__device__ void ct_survivors(const Tables& p, const Smem& s) {
+  const int R = p.R, TW = p.TW, W = p.W, K32 = 32 * p.W;
+  for (int i = threadIdx.x; i < p.T1 * R; i += THREADS) {
+    if (!__ldg(p.ct_mask + i)) {
+      s.ctlb[i] = NEU_LB;
+      s.ctub[i] = NEU_UB;
+      if (p.carry_dom)
+        for (int w = 0; w < W; ++w) s.ctdom[i * W + w] = 0xffffffffu;
+      continue;
+    }
+    const uint32_t* cur = s.ctcur + (i / R) * TW;
+    bool fail = true;
+    for (int tw = 0; tw < TW; ++tw) fail &= cur[tw] == 0;
+    const uint32_t* sp = p.ct_supp + (size_t)i * K32 * TW;
+    int32_t kmin = NEU_UB, kmax = NEU_LB;
+    for (int w = 0; w < W; ++w) {
+      uint32_t word = 0;
+      for (int b = 0; b < 32; ++b) {
+        const int k = 32 * w + b;
+        uint32_t hit = 0;
+        for (int tw = 0; tw < TW; ++tw)
+          hit |= __ldg(sp + (size_t)k * TW + tw) & cur[tw];
+        if (hit) {
+          word |= 1u << b;
+          kmin = min(kmin, k);
+          kmax = k;
+        }
+      }
+      if (p.carry_dom) s.ctdom[i * W + w] = word;
+    }
+    const int32_t omem = __ldg(p.dom_off + __ldg(p.ct_vars + i));
+    s.ctlb[i] = fail ? -NEU_LB : omem + kmin;
+    s.ctub[i] = omem + kmax;
+  }
+}
+
 struct LaneResult {
   int cur;      // buffer (0 or 1) that holds the final store
   int sweeps;
   int conv;     // converged: ¬changed ∨ failed
 };
 
-// Run the store in s.lb(0) / s.ub(0) (written by the caller, by
-// any thread) to its fixed point, at most `max_sweeps` sweeps.  Every
-// thread of the CTA calls it and gets the same result; the overload
-// flags are clear again on return.  AD_SPARSE and CU_SPARSE must equal
-// the model's layouts (p.ad_sparse, p.cu_sparse; each kernel is
-// instantiated for the four pairs and the launch picks the one that
+// Run the store in s.lb(0) / s.ub(0) (and, carried, s.dom(0)), written by
+// the caller, by any thread, to its fixed point, at most `max_sweeps`
+// sweeps.  Every thread of the CTA calls it and gets the same result; the
+// overload flags are clear again on return.  AD_SPARSE, CU_SPARSE and DOM
+// must equal the model's layouts and uses_dom(p) (each kernel is
+// instantiated for the eight triples and the launch picks the one that
 // matches): compiled apart, a dense model's kernel carries none of the
-// sparse code and keeps its registers.
-template <bool AD_SPARSE, bool CU_SPARSE>
+// sparse code, a bounds-only one none of the bitset code, and each keeps
+// its registers.
+template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
                                     int max_sweeps) {
   const int V = p.V, P1 = p.P1, K = p.K, K1 = p.K + 1, C1 = p.C1,
@@ -635,6 +820,8 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
   const bool alldiff = A > 0;
   const bool cu_sparse = cumul && CU_SPARSE, cu_dense = cumul && !CU_SPARSE;
   const bool ad_sparse = alldiff && AD_SPARSE, ad_dense = alldiff && !AD_SPARSE;
+  const bool table = DOM && p.n_table > 0;
+  const bool carry = DOM && p.carry_dom;
   const int tid = threadIdx.x, nth = THREADS;
 
   __syncthreads();
@@ -711,6 +898,9 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
       for (int a = tid; a < p.A1; a += nth) s.afail[a] = 0;
     }
 
+    // -- (1d) Compact-Table: each member's OR of supports ----------------
+    if (table) ct_supports(p, s, cur, lb, ub);
+
     // -- (1c) compulsory-part profile, one thread per (row, time) ----------
     if (cu_sparse) cu_sparse_events(p, s, lb, ub);
     if (cu_dense) {
@@ -760,6 +950,9 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
       }
     }
 
+    // -- (2c) Compact-Table: current tables --------------------------------
+    if (table) ct_current(p, s);
+
     // -- (2b) first/last feasible start, one thread per (row, task) --------
     if (cu_sparse) cu_sparse_scan(p, s, lb, ub);
     if (cu_dense) {
@@ -807,6 +1000,11 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
       }
     }
     __syncthreads();
+    // -- (2d) Compact-Table: survivors, hull and word candidates ----------
+    if (table) {
+      ct_survivors(p, s);
+      __syncthreads();
+    }
 
     // -- (3) per-variable gather join, box clamp, next store ---------------
     int32_t* nlb_s = s.lb(cur ^ 1);
@@ -853,10 +1051,50 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
           gub = min(gub, s.uub[idx]);
         }
       }
+      if (table) {
+        const int32_t* oi = p.ct_occ_inst + (size_t)v * p.Dct;
+        const int32_t* opos = p.ct_occ_pos + (size_t)v * p.Dct;
+        for (int d = 0; d < p.Dct; ++d) {
+          const int idx = __ldg(oi + d) * p.R + __ldg(opos + d);
+          glb = max(glb, s.ctlb[idx]);
+          gub = min(gub, s.ctub[idx]);
+        }
+      }
       gub = max(gub, __ldg(p.box_lo + v));
       glb = min(glb, __ldg(p.box_hi + v));
-      const int32_t l = max(lb[v], glb);
-      const int32_t u = min(ub[v], gub);
+      int32_t l = max(lb[v], glb);
+      int32_t u = min(ub[v], gub);
+      if (carry) {
+        // AND the table occurrences into the words, then normalize
+        const int W = p.W;
+        const uint32_t* dc = s.dom(cur) + (size_t)v * W;
+        uint32_t* dn = s.dom(cur ^ 1) + (size_t)v * W;
+        const bool trk = __ldg(p.dom_track + v) != 0;
+        const int32_t off = __ldg(p.dom_off + v);
+        int32_t lo_pos = 32 * W, hi_pos = -1;
+        for (int w = 0; w < W; ++w) {
+          uint32_t word = dc[w];
+          if (table) {
+            const int32_t* oi = p.ct_occ_inst + (size_t)v * p.Dct;
+            const int32_t* opos = p.ct_occ_pos + (size_t)v * p.Dct;
+            for (int d = 0; d < p.Dct; ++d)
+              word &= s.ctdom[(__ldg(oi + d) * p.R + __ldg(opos + d)) * W + w];
+          }
+          if (trk) {
+            word &= range_word(l, u, off, w);
+            if (word) {
+              lo_pos = min(lo_pos, 32 * w + __ffs(word) - 1);
+              hi_pos = 32 * w + 31 - __clz(word);
+            }
+          }
+          dn[w] = word;
+          my_changed |= word != dc[w];
+        }
+        if (trk) {
+          l = max(l, min(off + lo_pos, __ldg(p.box_hi + v)));
+          u = min(u, max(off + hi_pos, __ldg(p.box_lo + v)));
+        }
+      }
       nlb_s[v] = l;
       nub_s[v] = u;
       my_changed |= (l != lb[v]) | (u != ub[v]);

@@ -13,7 +13,20 @@
 // One superstep, as `lanes_step`: dispatch_pool → lane_load_tile (load +
 // branch & bound tell with the previous superstep's bound) → the lane's
 // fixpoint → lane_commit_tile (record, backtrack by recomputation from
-// the root, branch); then gbest = min(gbest, min best_obj).  A superstep
+// the root, branch); then gbest = min(gbest, min best_obj).
+//
+// The bitset store (`LaneState.dom`/`root_dom`, [L, V, W] u32, carried
+// for table models and under `middle_out`): the working words live in the
+// fixpoint's shared-memory buffers (fixpoint_lane.cuh), `root_dom` in
+// device memory.  A loaded lane's root words are its subproblem's range
+// words (all-ones for an untracked variable).  Backtracking recomputes
+// the words from `root_dom`: the one-hot masks of the flipped
+// `middle_out` decisions on tracked variables are summed (shared-memory
+// atomicAdd, as the reference's uint32 scatter-add; the masks of a
+// well-formed path are disjoint, so the sum is their OR) and cleared.
+// `middle_out` branches x = m / x ≠ m on the live value nearest the
+// floor midpoint, ties to the lower value; on an untracked variable it
+// takes the midpoint and tells x ≤ m / x ≥ m+1, as `split`.  A superstep
 // that starts with the global done flag set (every lane done, or any
 // solution under stop_on_first) is the identity.
 //
@@ -77,7 +90,7 @@ constexpr int32_t UNASSIGNED = 0x7fffffff / 2;   // search.UNASSIGNED
 
 // variable and value strategies (the wrapper maps the names)
 enum { INPUT_ORDER = 0, MIN_DOM = 1, MIN_LB = 2 };
-enum { VAL_MIN = 0, VAL_SPLIT = 1 };
+enum { VAL_MIN = 0, VAL_SPLIT = 1, VAL_MIDDLE_OUT = 2 };
 
 // global cells: the running bound, then "some lane not done" and "some
 // lane has a solution", one cell per superstep parity
@@ -99,6 +112,7 @@ struct State {
   int32_t *best_obj;                             // [L]
   int32_t *best_sol;                             // [L, V]
   int32_t *has_sol, *n_nodes, *n_fails, *n_sols, *n_sweeps;  // [L]
+  uint32_t *dom, *root_dom;                      // [L, V, W] or null
 };
 
 struct Params {
@@ -121,12 +135,15 @@ struct Params {
 constexpr int EXTRA_WORDS = THREADS + fixlane::SCAN_WORDS + N_SCALARS;
 
 
-template <bool AD_SPARSE, bool CU_SPARSE>
+template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int32_t smem[];
   const fixlane::Tables& t = p.t;
-  const fixlane::Smem s = fixlane::carve<AD_SPARSE, CU_SPARSE>(t, smem);
+  const fixlane::Smem s =
+      fixlane::carve<AD_SPARSE, CU_SPARSE, DOM>(t, smem);
+  const bool carry = DOM && t.carry_dom;
+  const bool middle_out = DOM && p.val_strategy == VAL_MIDDLE_OUT;
   int32_t* scan = smem + fixlane::smem_words(t);
   int32_t* wsum = scan + THREADS;
   int32_t* sc = wsum + 32;
@@ -233,8 +250,27 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         s.lb(0)[v] = lo;
         s.ub(0)[v] = hi;
       }
+      const int W = t.W;
+      const size_t dw0 = (size_t)l * V * W;
+      if (carry) {                     // a loaded lane's root words
+        for (int i = tid; i < V * W; i += THREADS) {
+          const int v = i / W;
+          uint32_t word;
+          if (load) {
+            word = __ldg(t.dom_track + v)
+                       ? fixlane::range_word(p.subs_lb[srow + v],
+                                             p.subs_ub[srow + v],
+                                             __ldg(t.dom_off + v), i - v * W)
+                       : 0xffffffffu;
+            st.root_dom[dw0 + i] = word;
+          } else {
+            word = st.dom[dw0 + i];
+          }
+          s.dom(0)[i] = word;
+        }
+      }
       const fixlane::LaneResult r =
-          fixlane::fixpoint_lane<AD_SPARSE, CU_SPARSE>(t, s, p.cap);
+          fixlane::fixpoint_lane<AD_SPARSE, CU_SPARSE, DOM>(t, s, p.cap);
       int32_t* flb = s.lb(r.cur);
       int32_t* fub = s.ub(r.cur);
 
@@ -289,6 +325,7 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
       int overflow = 0;
       const int32_t* out_lb = flb;
       const int32_t* out_ub = fub;
+      const uint32_t* out_dom = carry ? s.dom(r.cur) : nullptr;
       const int btl = sc[SC_BTL];
       if (active && bt && btl < 0) {
         fresh = 1;                                  // exhausted
@@ -297,22 +334,46 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         for (int i = btl + tid; i < MD; i += THREADS)
           st.dec_flip[drow + i] = (i == btl);
         // recompute from the root over the decisions up to btl, in the
-        // spare buffer: left x ≤ m, right x ≥ m + 1 (min/max commute)
+        // spare buffers: left x ≤ m, right x ≥ m + 1 (min/max commute);
+        // under middle_out, on a tracked variable, left x = m and right
+        // x ≠ m (a bit summed into the spare words, then cleared)
         int32_t* nlb = s.lb(r.cur ^ 1);
         int32_t* nub = s.ub(r.cur ^ 1);
+        uint32_t* nd = carry ? s.dom(r.cur ^ 1) : nullptr;
         for (int v = tid; v < V; v += THREADS) {
           nlb[v] = st.root_lb[row + v];
           nub[v] = st.root_ub[row + v];
         }
+        if (carry)
+          for (int i = tid; i < V * W; i += THREADS) nd[i] = 0;
         __syncthreads();
         for (int i = tid; i <= btl; i += THREADS) {
           const int v = st.dec_var[drow + i];
           const int32_t m = st.dec_val[drow + i];
-          if (i == btl || st.dec_flip[drow + i]) atomicMax(&nlb[v], m + 1);
-          else atomicMin(&nub[v], m);
+          const bool flip = i == btl || st.dec_flip[drow + i];
+          if (middle_out && __ldg(t.dom_track + v)) {
+            if (!flip) {
+              atomicMin(&nub[v], m);
+              atomicMax(&nlb[v], m);
+            } else {
+              const int32_t bit = m - __ldg(t.dom_off + v);
+              if (bit >= 0 && bit < 32 * W)
+                atomicAdd(&nd[v * W + (bit >> 5)], 1u << (bit & 31));
+            }
+          } else if (flip) {
+            atomicMax(&nlb[v], m + 1);
+          } else {
+            atomicMin(&nub[v], m);
+          }
+        }
+        if (carry) {
+          __syncthreads();
+          for (int i = tid; i < V * W; i += THREADS)
+            nd[i] = st.root_dom[dw0 + i] & ~nd[i];
         }
         out_lb = nlb;
         out_ub = nub;
+        out_dom = nd;
         new_depth = btl + 1;
       } else if (active && r.conv) {
         // select_branch: min over (key, position) breaks ties by position
@@ -349,12 +410,34 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
             if (tid == 0) {
               const int var = p.branch_vars[sc[SC_POS]];
               const int32_t vlb = flb[var], vub = fub[var];
-              const int32_t m = p.val_strategy == VAL_MIN
-                                    ? vlb : fixlane::fdiv(vlb + vub, 2);
+              const int32_t mid = fixlane::fdiv(vlb + vub, 2);
+              int32_t m = p.val_strategy == VAL_MIN ? vlb : mid;
+              const bool tracked = middle_out && __ldg(t.dom_track + var);
+              if (tracked) {
+                // the live value nearest mid: score 2·|v − mid| + (v > mid),
+                // the first (lowest) of equal scores; none live: bit 0
+                const uint32_t* dw = s.dom(r.cur) + var * W;
+                const int32_t off = __ldg(t.dom_off + var);
+                int32_t best = BIG;
+                int pos = 0;
+                for (int k = 0; k < 32 * W; ++k) {
+                  const int32_t v = off + k;
+                  if (((dw[k >> 5] >> (k & 31)) & 1u) && v >= vlb &&
+                      v <= vub) {
+                    const int32_t sc_ = 2 * abs(v - mid) + (v > mid);
+                    if (sc_ < best) {
+                      best = sc_;
+                      pos = k;
+                    }
+                  }
+                }
+                m = off + pos;
+              }
               st.dec_var[drow + depth] = var;
               st.dec_val[drow + depth] = m;
               st.dec_flip[drow + depth] = 0;
               fub[var] = min(fub[var], m);          // left branch: x ≤ m
+              if (tracked) flb[var] = max(flb[var], m);   // (x = m)
             }
             new_depth = depth + 1;
           }
@@ -365,6 +448,8 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         st.lb[row + v] = out_lb[v];
         st.ub[row + v] = out_ub[v];
       }
+      if (carry)
+        for (int i = tid; i < V * W; i += THREADS) st.dom[dw0 + i] = out_dom[i];
       if (tid == 0) {
         st.depth[l] = new_depth;
         st.fresh[l] = fresh || overflow;
@@ -399,9 +484,9 @@ size_t search_smem_bytes(const fixlane::Tables& t) {
 }
 
 // Grid size: min(L, co-resident CTAs), or a negative cudaError_t.
-template <bool AD_SPARSE, bool CU_SPARSE>
+template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 int grid_for(int L, size_t smem) {
-  const auto kernel = search_kernel<AD_SPARSE, CU_SPARSE>;
+  const auto kernel = search_kernel<AD_SPARSE, CU_SPARSE, DOM>;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
@@ -421,25 +506,40 @@ int grid_for(int L, size_t smem) {
   return L < per_sm * sms ? L : per_sm * sms;
 }
 
-// grid_for for the instance of the model's layouts.
-int grid_of(const fixlane::Tables& t, int L, size_t smem) {
+template <bool DOM>
+int grid_dom(const fixlane::Tables& t, int L, size_t smem) {
   if (t.ad_sparse)
-    return t.cu_sparse ? grid_for<true, true>(L, smem)
-                       : grid_for<true, false>(L, smem);
-  return t.cu_sparse ? grid_for<false, true>(L, smem)
-                     : grid_for<false, false>(L, smem);
+    return t.cu_sparse ? grid_for<true, true, DOM>(L, smem)
+                       : grid_for<true, false, DOM>(L, smem);
+  return t.cu_sparse ? grid_for<false, true, DOM>(L, smem)
+                     : grid_for<false, false, DOM>(L, smem);
 }
 
-template <bool AD_SPARSE, bool CU_SPARSE>
+// grid_for for the instance of the model's layouts and bitset code.
+int grid_of(const fixlane::Tables& t, int L, size_t smem) {
+  return fixlane::uses_dom(t) ? grid_dom<true>(t, L, smem)
+                              : grid_dom<false>(t, L, smem);
+}
+
+template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 int launch(Params& p, size_t smem, cudaStream_t stream) {
-  const int grid = grid_for<AD_SPARSE, CU_SPARSE>(p.L, smem);
+  const int grid = grid_for<AD_SPARSE, CU_SPARSE, DOM>(p.L, smem);
   if (grid < 0) return -grid;
   void* args[] = {&p};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)search_kernel<AD_SPARSE, CU_SPARSE>, dim3(grid),
+      (const void*)search_kernel<AD_SPARSE, CU_SPARSE, DOM>, dim3(grid),
       dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <bool DOM>
+int launch_dom(Params& p, size_t smem, cudaStream_t st) {
+  if (p.t.ad_sparse)
+    return p.t.cu_sparse ? launch<true, true, DOM>(p, smem, st)
+                         : launch<true, false, DOM>(p, smem, st);
+  return p.t.cu_sparse ? launch<false, true, DOM>(p, smem, st)
+                       : launch<false, false, DOM>(p, smem, st);
 }
 
 }  // namespace
@@ -448,27 +548,30 @@ extern "C" {
 
 // CTAs of a launch over L lanes, or a negative cudaError_t (no
 // cooperative launch on this device, the kernel does not fit an SM).
-// `tables`, `dims`: as search_launch.
-int search_grid(int L, const void* const* tables, const int* dims) {
-  const fixlane::Tables t = fixlane::tables_from(tables, dims);
+// `tables`, `dims`: as search_launch; `carry_dom`: a bitset store rides.
+int search_grid(int L, const void* const* tables, const int* dims,
+                int carry_dom) {
+  const fixlane::Tables t = fixlane::tables_from(tables, dims, carry_dom);
   return grid_of(t, L, search_smem_bytes(t));
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // `tables`: the fixlane::N_TABLES fixpoint tables and `dims`: the
-// fixlane::N_DIMS sizes, both in fixlane::Tables order; `state`: the 19
-// LaneState fields in State order; `io`: branch_vars, subs_lb, subs_ub,
+// fixlane::N_DIMS sizes, both in fixlane::Tables order; `state`: the 21
+// LaneState fields in State order (dom and root_dom null when no bitset
+// store is carried); `io`: branch_vars, subs_lb, subs_ub,
 // gbest_in, head_in, want, cells, out; `ints`: L, B, S, MD, obj_var,
 // supersteps, cap, var_strategy, val_strategy, stop_on_first, it_in.
 int search_launch(const void* const* tables, const int* dims,
                   void* const* state, void* const* io, const int* ints,
                   void* stream) {
   Params p;
-  p.t = fixlane::tables_from(tables, dims);
+  p.t = fixlane::tables_from(tables, dims, state[19] != nullptr);
   int32_t* const* sf = (int32_t* const*)state;
-  p.st = State{sf[0], sf[1], sf[2], sf[3], sf[4], sf[5], sf[6],
-               sf[7], sf[8], sf[9], sf[10], sf[11], sf[12], sf[13],
-               sf[14], sf[15], sf[16], sf[17], sf[18]};
+  p.st = State{sf[0],  sf[1],  sf[2],  sf[3],  sf[4],  sf[5],  sf[6],
+               sf[7],  sf[8],  sf[9],  sf[10], sf[11], sf[12], sf[13],
+               sf[14], sf[15], sf[16], sf[17], sf[18],
+               (uint32_t*)state[19], (uint32_t*)state[20]};
   p.branch_vars = (const int32_t*)io[0];
   p.subs_lb = (const int32_t*)io[1];
   p.subs_ub = (const int32_t*)io[2];
@@ -490,11 +593,8 @@ int search_launch(const void* const* tables, const int* dims,
   p.it_in = ints[10];
   const size_t smem = search_smem_bytes(p.t);
   cudaStream_t st = (cudaStream_t)stream;
-  if (p.t.ad_sparse)
-    return p.t.cu_sparse ? launch<true, true>(p, smem, st)
-                         : launch<true, false>(p, smem, st);
-  return p.t.cu_sparse ? launch<false, true>(p, smem, st)
-                       : launch<false, false>(p, smem, st);
+  return fixlane::uses_dom(p.t) ? launch_dom<true>(p, smem, st)
+                                : launch_dom<false>(p, smem, st);
 }
 
 const char* search_error_string(int err) {

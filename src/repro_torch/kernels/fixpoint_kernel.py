@@ -12,14 +12,14 @@ their wrappers.
   same per-lane fixpoint (``csrc/fixpoint_lane.cuh``) and meet at two
   grid barriers per superstep.  Its plain version is `search_plain`.
 
-Both cover the ReifLinLe bank and the AllDifferent and Cumulative
-banks in both layouts, dense and sparse (``csrc/fixpoint_lane.cuh``) —
-what RCPSP (J30 to J120 classes), N-queens, graph coloring, knapsack and
-jobshop lower to at every tier.  Compact-Table raises.  On a CPU tensor
-a wrapper runs its plain version; on a CUDA tensor it launches the
-kernel or raises (unsupported bank, int64 model, wrong
-dtype/shape/device, failed build, refused launch).  It never falls
-back.
+Both cover every bank (``csrc/fixpoint_lane.cuh``): ReifLinLe, the
+AllDifferent and Cumulative banks in both layouts, dense and sparse, and
+Compact-Table, with or without a carried ``[L, V, W]`` bitset store
+(int32 bit patterns; `search_cuda` also under ``middle_out``) — all
+seven zoo models at every tier.  On a CPU tensor a wrapper runs its
+plain version; on a CUDA tensor it launches the kernel or raises (int64
+model, wrong dtype/shape/device, failed build, refused launch).  It
+never falls back.
 
 ``fixpoint_cuda.launches`` and ``search_cuda.launches`` count kernel
 launches (and nothing else), so a run can show that the main path went
@@ -53,12 +53,14 @@ def sort_size(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def bank_words(cm) -> dict:
+def bank_words(cm, dom: bool = False) -> dict:
     """The 32-bit words of shared memory each bank of one lane's fixpoint
     uses, by part, for the layout the model compiled to
-    (``fixlane::alldiff_words``/``cumulative_words``): a bank counts
-    only what its layout uses, and a model without AllDifferent rows
-    gets no AllDifferent part."""
+    (``fixlane::alldiff_words``/``cumulative_words``/``table_words``/
+    ``dom_words``): a bank counts only what its layout uses, a model
+    without AllDifferent rows gets no AllDifferent part, one without
+    tables no Compact-Table part, and the bitset store counts only when
+    it is carried (`dom`)."""
     A1, N = cm.ad_vars.shape
     C1, T = cm.cu_svar.shape
     if not cm.n_alldiff:
@@ -79,12 +81,18 @@ def bank_words(cm) -> dict:
     else:
         cu = {"profile": C1 * cm.horizon, "candidates": 2 * C1 * T,
               "task table": 3 * C1 * T, "row flags": 2 * C1}
-    return {"alldiff": ad, "cumulative": cu}
+    T1, R, K32, TW = cm.ct_supp.shape
+    TR, W = T1 * R, cm.n_words
+    table = ({"member supports": TR * TW, "current tables": T1 * TW,
+              "candidates": 2 * TR, "candidate words": TR * W}
+             if cm.n_table else {})
+    words = {"stores": 2 * cm.n_vars * W} if dom else {}
+    return {"alldiff": ad, "cumulative": cu, "table": table, "dom": words}
 
 
-def smem_budget(cm, resident: bool = False) -> dict:
+def smem_budget(cm, resident: bool = False, dom: bool = False) -> dict:
     """Shared-memory bytes of one CTA, by part — the formula of
-    ``fixpoint_smem_bytes`` in ``csrc/fixpoint.cu`` or, with
+    ``fixlane::smem_words`` in ``csrc/fixpoint_lane.cuh`` or, with
     ``resident=True``, of ``search_smem_bytes`` in ``csrc/search.cu``
     (the counterpart of the reference's ``vmem_budget(resident=True)``;
     the LaneState stays in device memory, so only one lane's fixpoint
@@ -104,31 +112,40 @@ def smem_budget(cm, resident: bool = False) -> dict:
       deltas, then the profile, over the next power of two of 2·Mcu,
       the staged task table and candidate pair over Mcu, per-row flags
       and the prefix sum's warp sums;
+    * ``table``      — with tables: each member's OR of supports
+      ``[T+1, R, TW]``, the current tables ``[T+1, TW]``, the hull
+      candidate pair ``[T+1, R]`` and the domain-word candidates
+      ``[T+1, R, W]`` (the counterpart of the reference's
+      ``ct_tile_bytes``); nothing for a model without tables;
+    * ``dom``        — with a carried bitset store (`dom`): the current
+      and next words, ``2·V·W``;
     * ``search``     — resident only: the dispatch scan and the lane
       scalars.
     """
     P1, K = cm.vidx.shape
-    words = bank_words(cm)
+    words = bank_words(cm, dom)
     parts = dict(
         stores=4 * cm.n_vars * 4,
         linear=2 * P1 * (K + 1) * 4,
         alldiff=4 * sum(words["alldiff"].values()),
         cumulative=4 * sum(words["cumulative"].values()),
+        table=4 * sum(words["table"].values()),
+        dom=4 * sum(words["dom"].values()),
         search=SEARCH_EXTRA_WORDS * 4 if resident else 0)
     parts["total"] = sum(parts.values())
     return parts
 
 
 def fit_smem(cm, limit_bytes: int = SMEM_LIMIT_BYTES,
-             resident: bool = False) -> dict:
+             resident: bool = False, dom: bool = False) -> dict:
     """The budget of `smem_budget`, or a clear ``ValueError`` when one
     lane does not fit a block.  (The reference halves its lane tile
     before it gives up; a CTA here holds one lane at a time, so there is
     nothing to halve.)"""
-    b = smem_budget(cm, resident=resident)
+    b = smem_budget(cm, resident=resident, dom=dom)
     if b["total"] > limit_bytes:
         kernel = "search_cuda" if resident else "fixpoint_cuda"
-        words = bank_words(cm)
+        words = bank_words(cm, dom)
 
         def bank(name, layout):
             inner = ", ".join(f"{k} {4 * w:,}"
@@ -139,7 +156,9 @@ def fit_smem(cm, limit_bytes: int = SMEM_LIMIT_BYTES,
             f"{b['total']:,} bytes of shared memory per lane (stores "
             f"{b['stores']:,}, linear candidates {b['linear']:,}, "
             f"{bank('alldiff', cm.ad_layout)}, "
-            f"{bank('cumulative', cm.cu_layout)}, search {b['search']:,})"
+            f"{bank('cumulative', cm.cu_layout)}, "
+            f"{bank('table', 'Compact-Table')}, "
+            f"{bank('dom', 'bitset store')}, search {b['search']:,})"
             f" > {limit_bytes:,} per H100 block; shrink the horizon or "
             "the banks, or use the gather backend")
     return b
@@ -147,29 +166,27 @@ def fit_smem(cm, limit_bytes: int = SMEM_LIMIT_BYTES,
 
 def kernel_tables(cm) -> tuple:
     """The model tables the kernels read, in ``fixlane::Tables`` order
-    (``csrc/fixpoint_lane.cuh``)."""
-    return (cm.vidx, cm.coef, cm.rhs, cm.bidx, cm.occ_prop, cm.occ_slot,
-            cm.ad_vars, cm.ad_offs, cm.ad_mask, cm.ad_occ_inst,
-            cm.ad_occ_pos, cm.ad_ptr, cm.ad_pk_var, cm.ad_pk_off,
-            cm.ad_pk_seg, cm.cu_svar, cm.cu_dur, cm.cu_dem, cm.cu_cap,
-            cm.cu_occ_inst, cm.cu_occ_pos, cm.cu_ptr, cm.cu_pk_svar,
-            cm.cu_pk_dur, cm.cu_pk_dem, cm.cu_pk_seg, cm.box_lo, cm.box_hi)
+    (``csrc/fixpoint_lane.cuh``): the 35 of `fixpoint.model_tables`, the
+    ``uint32`` ones (`ct_supp`, `dom_track`) as their int32 views."""
+    return F.model_tables(cm)
 
 
 def _c_tables(cm):
     """`kernel_tables` and their sizes (in ``fixlane::Tables`` order: V,
     P1, K, D, A1, N, Dad, n_alldiff, C1, T, Dcu, horizon, n_cumulative,
-    Mad, Mcu and the two layouts, 1 for sparse) as the C arrays the
-    launch functions take."""
+    Mad, Mcu, the two layouts (1 for sparse), n_table, T1, R, W, TW and
+    Dct) as the C arrays the launch functions take."""
     tables = kernel_tables(cm)
     P1, K = cm.vidx.shape
     A1, N = cm.ad_vars.shape
     C1, T = cm.cu_svar.shape
+    T1, R, _, TW = cm.ct_supp.shape
     dims = (cm.n_vars, P1, K, cm.occ_prop.shape[1], A1, N,
             cm.ad_occ_inst.shape[1], cm.n_alldiff, C1, T,
             cm.cu_occ_inst.shape[1], cm.horizon, cm.n_cumulative,
             cm.ad_packed, cm.cu_packed, int(cm.ad_layout == "sparse"),
-            int(cm.cu_layout == "sparse"))
+            int(cm.cu_layout == "sparse"), cm.n_table, T1, R, cm.n_words,
+            TW, cm.ct_occ_inst.shape[1])
     return ((ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables)),
             (ctypes.c_int * len(dims))(*dims))
 
@@ -179,7 +196,7 @@ def _lib():
     lib = load("fixpoint")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fixpoint_launch.argtypes = [ptr] * 8 + [i32] * 2 + [ptr]
+        lib.fixpoint_launch.argtypes = [ptr] * 10 + [i32] * 2 + [ptr]
         lib.fixpoint_launch.restype = i32
         lib.fixpoint_error_string.argtypes = [i32]
         lib.fixpoint_error_string.restype = ctypes.c_char_p
@@ -187,8 +204,7 @@ def _lib():
     return lib
 
 
-def _check(cm, lb, ub):
-    F.check_supported(**F.model_statics(cm))
+def _check(cm, lb, ub, dom=None):
     if cm.dtype != "int32":
         raise NotImplementedError(
             f"fixpoint_cuda: model {cm.name or '<unnamed>'} compiled to "
@@ -204,41 +220,56 @@ def _check(cm, lb, ub):
     if lb.device != ub.device or cm.device != lb.device:
         raise ValueError(f"fixpoint_cuda: stores on {lb.device}/{ub.device}"
                          f", model tables on {cm.device}")
+    if dom is not None:
+        want = (lb.shape[0], cm.n_vars, cm.n_words)
+        if dom.dtype != torch.int32 or tuple(dom.shape) != want:
+            raise ValueError(f"fixpoint_cuda: the bitset store must be "
+                             f"int32 {want}, got {dom.dtype} "
+                             f"{tuple(dom.shape)}")
+        if not dom.is_contiguous() or dom.device != lb.device:
+            raise ValueError(f"fixpoint_cuda: the bitset store must be "
+                             f"contiguous on {lb.device}")
 
 
-def fixpoint_cuda(cm, lb, ub, *, max_sweeps=None):
-    """Run every lane of ``[L, V]`` stores to its fixed point.
+def fixpoint_cuda(cm, lb, ub, dom=None, *, max_sweeps=None):
+    """Run every lane of ``[L, V]`` stores (and, given, their ``[L, V,
+    W]`` int32 bitset store) to its fixed point.
 
-    Returns (lb', ub', sweeps i32[L], converged bool[L]), equal to
-    `fixpoint_batch(cm, lb, ub, max_iters=max_sweeps)`.  ``max_sweeps``
-    None is uncapped.
+    Returns (lb', ub', sweeps i32[L], converged bool[L]), with dom'
+    before the counters when `dom` is given, equal to
+    `fixpoint_batch(cm, lb, ub, dom, max_iters=max_sweeps)`.
+    ``max_sweeps`` None is uncapped.
     """
     if lb.device.type == "cpu":
-        return F.fixpoint_batch(cm, lb, ub, max_iters=max_sweeps)
+        return F.fixpoint_batch(cm, lb, ub, dom, max_iters=max_sweeps)
     if lb.device.type != "cuda":
         raise ValueError(f"fixpoint_cuda: unsupported device {lb.device}")
-    _check(cm, lb, ub)
-    fit_smem(cm)
+    _check(cm, lb, ub, dom)
+    fit_smem(cm, dom=dom is not None)
     L = lb.shape[0]
     lb_out, ub_out = torch.empty_like(lb), torch.empty_like(ub)
+    dom_out = None if dom is None else torch.empty_like(dom)
     sweeps = torch.empty(L, dtype=torch.int32, device=lb.device)
     conv = torch.empty(L, dtype=torch.int32, device=lb.device)
+    out = (lb_out, ub_out) + (() if dom is None else (dom_out,))
     if L == 0:
-        return lb_out, ub_out, sweeps, conv.bool()
+        return out + (sweeps, conv.bool())
     cap = UNCAPPED if max_sweeps is None else int(max_sweeps)
     if cap < 0:
         raise ValueError(f"fixpoint_cuda: max_sweeps must be >= 0, got {cap}")
     lib = _lib()
     err = lib.fixpoint_launch(
         *_c_tables(cm), lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
-        ub_out.data_ptr(), sweeps.data_ptr(), conv.data_ptr(), L, cap,
+        ub_out.data_ptr(), sweeps.data_ptr(), conv.data_ptr(),
+        None if dom is None else dom.data_ptr(),
+        None if dom is None else dom_out.data_ptr(), L, cap,
         torch.cuda.current_stream(lb.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             "fixpoint_cuda: launch failed: "
             + lib.fixpoint_error_string(err).decode())
     fixpoint_cuda.launches += 1
-    return lb_out, ub_out, sweeps, conv.bool()
+    return out + (sweeps, conv.bool())
 
 
 fixpoint_cuda.launches = 0
@@ -249,11 +280,11 @@ fixpoint_cuda.launches = 0
 # --------------------------------------------------------------------------
 
 _VAR_CODES = {S.INPUT_ORDER: 0, S.MIN_DOM: 1, S.MIN_LB: 2}
-_VAL_CODES = {S.VAL_MIN: 0, S.VAL_SPLIT: 1}
+_VAL_CODES = {S.VAL_MIN: 0, S.VAL_SPLIT: 1, S.VAL_MIDDLE_OUT: 2}
 _BOOL_FIELDS = ("dec_flip", "fresh", "done", "incomplete", "has_sol")
+_DOM_FIELDS = ("dom", "root_dom")
 # the LaneState fields the kernel carries, in csrc/search.cu State order
-_STATE_FIELDS = tuple(f for f in S.LaneState._fields
-                      if f not in ("dom", "root_dom"))
+_STATE_FIELDS = S.LaneState._fields
 
 
 def _gdone(st: S.LaneState, stop_on_first: bool) -> bool:
@@ -307,7 +338,7 @@ def _search_lib():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.search_launch.argtypes = [ptr] * 6
         lib.search_launch.restype = i32
-        lib.search_grid.argtypes = [i32, ptr, ptr]
+        lib.search_grid.argtypes = [i32, ptr, ptr, i32]
         lib.search_grid.restype = i32
         lib.search_error_string.argtypes = [i32]
         lib.search_error_string.restype = ctypes.c_char_p
@@ -317,16 +348,18 @@ def _search_lib():
 
 def _check_search(cm, subs_lb, subs_ub, st, var_strategy, val_strategy):
     _check(cm, st.lb, st.ub)
-    if st.dom is not None or st.root_dom is not None:
-        raise NotImplementedError("search_cuda: bitset stores come with "
-                                  "the Compact-Table slice of the port")
     if var_strategy not in _VAR_CODES:
         raise ValueError(f"search_cuda: var_strategy {var_strategy!r} not "
                          f"in {tuple(_VAR_CODES)}")
-    S._no_middle_out(val_strategy)
     if val_strategy not in _VAL_CODES:
         raise ValueError(f"search_cuda: val_strategy {val_strategy!r} not "
                          f"in {tuple(_VAL_CODES)}")
+    if (st.dom is None) != (st.root_dom is None):
+        raise ValueError("search_cuda: LaneState.dom and root_dom must be "
+                         "both given or both None")
+    if val_strategy == S.VAL_MIDDLE_OUT and st.dom is None:
+        raise ValueError("search_cuda: middle_out needs the bitset store "
+                         "(LaneState.dom); init_lanes carries it")
     L, V = st.lb.shape
     MD = st.dec_var.shape[1]
     if L == 0:
@@ -334,8 +367,11 @@ def _check_search(cm, subs_lb, subs_ub, st, var_strategy, val_strategy):
     shapes = {f: (L, V) for f in ("lb", "ub", "root_lb", "root_ub",
                                   "best_sol")}
     shapes.update({f: (L, MD) for f in ("dec_var", "dec_val", "dec_flip")})
+    shapes.update({f: (L, V, cm.n_words) for f in _DOM_FIELDS})
     for f in _STATE_FIELDS:
         a = getattr(st, f)
+        if a is None and f in _DOM_FIELDS:
+            continue
         dt = torch.bool if f in _BOOL_FIELDS else torch.int32
         if a.dtype != dt or tuple(a.shape) != shapes.get(f, (L,)):
             raise ValueError(
@@ -390,14 +426,15 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
     if dev.type != "cuda":
         raise ValueError(f"search_cuda: unsupported device {dev}")
     _check_search(cm, subs_lb, subs_ub, st, var_strategy, val_strategy)
-    fit_smem(cm, resident=True)
+    fit_smem(cm, resident=True, dom=st.dom is not None)
     cap = max_sweeps if max_fixpoint_iters is None else max_fixpoint_iters
     if cap < 0:
         raise ValueError(f"search_cuda: the sweep cap must be >= 0, got "
                          f"{cap}")
     L = st.lb.shape[0]
     # the kernel updates copies in place; bools travel as int32 0/1
-    out = {f: (getattr(st, f).to(torch.int32) if f in _BOOL_FIELDS
+    out = {f: (None if getattr(st, f) is None
+               else getattr(st, f).to(torch.int32) if f in _BOOL_FIELDS
                else getattr(st, f).clone(memory_format=torch.contiguous_format))
            for f in _STATE_FIELDS}
     gbest_in = torch.as_tensor(gbest, device=dev).to(torch.int32).reshape(1)
@@ -413,7 +450,8 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
             _VAL_CODES[val_strategy], int(stop_on_first), int(it))
 
     def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+        return (ctypes.c_void_p * len(ts))(
+            *(None if t is None else t.data_ptr() for t in ts))
 
     lib = _search_lib()
     err = lib.search_launch(
@@ -432,11 +470,12 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
 search_cuda.launches = 0
 
 
-def search_grid(cm, n_lanes: int) -> int:
+def search_grid(cm, n_lanes: int, dom: bool = False) -> int:
     """CTAs one `search_cuda` launch over `n_lanes` lanes uses on this
-    card: min(lanes, co-resident CTAs).  Builds the kernel."""
+    card (with a carried bitset store if `dom`): min(lanes, co-resident
+    CTAs).  Builds the kernel."""
     lib = _search_lib()
-    g = lib.search_grid(n_lanes, *_c_tables(cm))
+    g = lib.search_grid(n_lanes, *_c_tables(cm), int(dom))
     if g < 0:
         raise RuntimeError("search_cuda: no grid: "
                            + lib.search_error_string(-g).decode())

@@ -8,7 +8,10 @@
 one launch per superstep; ``--backend cuda_resident`` runs K whole
 supersteps per launch of the resident search kernel (K from
 ``--supersteps-per-launch``, default 16); ``--backend gather`` propagates
-with the plain PyTorch sweep.  ``--device cpu``
+with the plain PyTorch sweep.  ``--branch-value`` picks the value
+branching: ``min`` (x ≤ lb), ``split`` (bisect at the midpoint) or
+``middle_out`` (x = m | x ≠ m on the remaining value nearest the
+midpoint; search then carries the bitset store).  ``--device cpu``
 runs everything on the CPU (where the ``cuda`` backend's wrapper takes
 the plain version).  Without a GPU and without ``--device cpu`` the
 command fails instead of moving to the CPU.  ``--file`` reads a PSPLIB
@@ -43,6 +46,12 @@ def main(argv=None):
     ap.add_argument("--supersteps-per-launch", type=int, default=None,
                     help="supersteps per resident kernel launch "
                          "(--backend cuda_resident only; default 16)")
+    ap.add_argument("--branch-value", default=None,
+                    choices=("min", "split", "middle_out"),
+                    help="value branching: min = x≤lb, split = bisect at "
+                         "the midpoint, middle_out = x=m | x≠m on the "
+                         "bitset-domain value nearest the midpoint "
+                         "(default: the preset's, min)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--file", default=None)
     ap.add_argument("--profile", action="store_true",
@@ -62,11 +71,13 @@ def main(argv=None):
                               seed=args.seed)
     m, handles = rcpsp.build_model(inst)
     cm = m.compile(device=args.device)
+    value = ({} if args.branch_value is None
+             else dict(val_strategy=args.branch_value))
     cfg = solver.SolveConfig.preset(
         _PRESETS[args.preset], n_lanes=args.lanes,
         eps_target=args.eps_target, timeout_s=args.timeout,
         backend=args.backend, device=args.device,
-        supersteps_per_launch=args.supersteps_per_launch)
+        supersteps_per_launch=args.supersteps_per_launch, **value)
 
     launches0 = fixpoint_cuda.launches
     search0 = search_cuda.launches

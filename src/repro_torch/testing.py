@@ -53,6 +53,126 @@ def pigeonhole_stores(rng: np.random.Generator, cm, lbs, ubs, n: int):
     return lbs, ubs
 
 
+# Compact-Table hand cases (the reference's tests/test_compact_table.py
+# models), built with a `Model` class given by the caller: the port's, or
+# the JAX package's in the tests that hold one against the other.
+
+def chain_model(cls):
+    """x, y, z in [0, 4], table(x, y) and table(y, z), x >= 1: chain
+    filtering to x in [1, 3], y in [2, 4], z in [1, 2]."""
+    m = cls("ct-chain")
+    x, y, z = (m.int_var(0, 4, n) for n in "xyz")
+    m.table([x, y], [(0, 1), (1, 2), (3, 4), (4, 0)])
+    m.table([y, z], [(1, 3), (2, 2), (4, 1)])
+    m.add(x >= 1)
+    m.minimize(x)
+    m.branch_on([x, y, z])
+    return m
+
+
+def holes_model(cls):
+    """x restricted to {1, 3} by a unary table: a hole bounds cannot see,
+    which the second table turns into y in {0, 7}."""
+    m = cls("ct-holes")
+    x = m.int_var(0, 4, "x")
+    y = m.int_var(0, 9, "y")
+    m.table([x], [(1,), (3,)])
+    m.table([x, y], [(1, 0), (2, 5), (3, 7)])
+    m.minimize(y)
+    m.branch_on([x, y])
+    return m
+
+
+def wipeout_model(cls):
+    """Two tables over (x, y) with no tuple in common: the root fails."""
+    m = cls("ct-wipe")
+    x = m.int_var(0, 3, "x")
+    y = m.int_var(0, 3, "y")
+    m.table([x, y], [(0, 1), (1, 2)])
+    m.table([x, y], [(2, 3), (3, 0)])
+    m.branch_on([x, y])
+    return m
+
+
+def mixed_ct_model(cls):
+    """Two tables and a linear objective coupling: every kind of bank
+    a table model compiles to in one model."""
+    m = cls("ct-mixed")
+    xs = [m.int_var(0, 5, f"x{i}") for i in range(4)]
+    m.table(xs, [(0, 1, 2, 3), (1, 2, 3, 4), (2, 3, 4, 5),
+                 (5, 4, 3, 2), (0, 2, 4, 1)])
+    m.table([xs[0], xs[3]], [(0, 3), (2, 3), (5, 2), (1, 4)])
+    obj = m.int_var(0, 30, "obj")
+    for c in (xs[0] * 3 + xs[1]).eq(obj):
+        m.add(c)
+    m.minimize(obj)
+    m.branch_on(xs)
+    return m
+
+
+def wide_table_model(cls, seed: int = 0):
+    """Tables of more than 32 tuples (``ct_words`` = 2): 48 and 40
+    distinct random tuples over two overlapping triples of x0..x4 in
+    [0, 9], and a linear objective x0 + x4."""
+    rng = np.random.default_rng(seed)
+    m = cls("ct-wide")
+    xs = [m.int_var(0, 9, f"x{i}") for i in range(5)]
+
+    def tuples(n):
+        out = set()
+        while len(out) < n:
+            out.add(tuple(int(v) for v in rng.integers(0, 10, size=3)))
+        return sorted(out)
+
+    m.table(xs[:3], tuples(48))
+    m.table(xs[2:], tuples(40))
+    obj = m.int_var(0, 18, "obj")
+    for c in (xs[0] + xs[4]).eq(obj):
+        m.add(c)
+    m.minimize(obj)
+    m.branch_on(xs)
+    return m
+
+
+CT_HAND_MODELS = {"chain": chain_model, "holes": holes_model,
+                  "wipeout": wipeout_model, "mixed": mixed_ct_model,
+                  "wide": wide_table_model}
+
+
+def random_dom_stores(rng: np.random.Generator, cm, lbs, ubs,
+                      n_wipe: int = 0):
+    """Bitset stores ``[n, V, W]`` (``uint32``) for the host stores
+    ``lbs``/``ubs``: the range words of each store (`np_from_bounds`,
+    untracked variables all-ones) with about a quarter of the values
+    strictly inside each tracked variable's interval cleared at random.
+    In the first `n_wipe` stores of a table model, every member of one
+    table row (picked at random) loses all of its interior values
+    instead, so the hull is intact and only the words show what is gone
+    (the table's interior is wiped out).  Hand them to torch as
+    ``.view(np.int32)``."""
+    from repro_torch.core.bitset import WORD_BITS, np_from_bounds
+    off = cm.dom_off.cpu().numpy()
+    track = cm.dom_track.cpu().numpy() != 0
+    W = cm.n_words
+    dom = np_from_bounds(lbs, ubs, off, W, track=track)
+    n, V = lbs.shape
+    vals = off[None, :, None] + np.arange(WORD_BITS * W)[None, None, :]
+    interior = ((vals > lbs[:, :, None]) & (vals < ubs[:, :, None])
+                & track[None, :, None])                     # [n, V, 32W]
+    clear = interior & (rng.random(interior.shape) < 0.25)
+    if cm.n_table:
+        ct_vars = cm.ct_vars.cpu().numpy()
+        ct_mask = cm.ct_mask.cpu().numpy() != 0
+        for i in range(min(n_wipe, n)):
+            t = int(rng.integers(0, cm.n_table))
+            members = ct_vars[t][ct_mask[t]]
+            clear[i, members] = interior[i, members]
+    weights = np.uint64(1) << np.arange(WORD_BITS, dtype=np.uint64)
+    bits = (clear.reshape(n, V, W, WORD_BITS).astype(np.uint64)
+            * weights).sum(-1).astype(np.uint32)
+    return dom & ~bits
+
+
 def search_inputs(cm, n_lanes: int, eps_target, opts, pool=None):
     """The inputs of one resident launch at the start of a solve, as
     `Solver` makes them: the EPS pool (`pool`, or decomposed to

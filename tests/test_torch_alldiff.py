@@ -15,9 +15,9 @@ are an integer lattice):
 * `search_plain` against JAX `search_pallas(..., lane_tile=0,
   interpret=True)` on N-queens small and coloring small;
 * the sparse AllDifferent (N-queens 36) and sparse Cumulative (jobshop
-  20 x 15) layouts propagate through every entry point and equal the
-  JAX package; Compact-Table, still to port, raises naming its ROADMAP
-  sub-item (1f).
+  20 x 15) layouts and the Compact-Table bank (crossword and
+  configuration small) propagate through every entry point and equal
+  the JAX package.
 """
 
 import jax.numpy as jnp
@@ -202,14 +202,6 @@ def _port_model(name, inst, **compile_kw):
                                                        **compile_kw)
 
 
-def _assert_raises_everywhere(cm, match):
-    lb, ub = cm.lb0[None], cm.ub0[None]
-    for fn in (TF.fixpoint_batch, get_backend("cuda").fixpoint_batch,
-               lambda c, l, u: TFK._check(c, l, u)):
-        with pytest.raises(NotImplementedError, match=match):
-            fn(cm, lb, ub)
-
-
 def _assert_propagates_like_jax(name, make):
     """The port's own compile of an instance propagates through every
     entry point, equal to the JAX package's gather fixpoint of the JAX
@@ -228,8 +220,9 @@ def _assert_propagates_like_jax(name, make):
 
 
 def test_banks_still_to_port_raise():
-    """The sparse layouts (1d, 1e) propagate now, equal to the reference;
-    Compact-Table (1f) still raises."""
+    """No bank is left to raise: the sparse layouts (1d, 1e) and
+    Compact-Table (1f) propagate through every entry point, equal to the
+    reference."""
     q36 = _assert_propagates_like_jax(
         "nqueens", lambda zoo: zoo.nqueens.generate(36))
     assert q36.ad_layout == "sparse" and q36.n_alldiff == 3
@@ -237,9 +230,9 @@ def test_banks_still_to_port_raise():
         "jobshop", lambda zoo: zoo.large_instance("jobshop"))
     assert js.cu_layout == "sparse" and js.ad_layout == "dense"
     for name in ("crossword", "configuration"):
-        cm = _port_model(name, tzoo.small_instance(name))
+        cm = _assert_propagates_like_jax(
+            name, lambda zoo: zoo.small_instance(name))
         assert cm.n_table > 0
-        _assert_raises_everywhere(cm, r"Compact-Table .*1f")
     # the largest dense N-queens propagates
     q32 = _port_model("nqueens", tzoo.nqueens.generate(32))
     assert q32.ad_layout == "dense"

@@ -7,9 +7,10 @@ sweep counts and convergence flags, capped or not, against JAX's gather
 The stores are an integer lattice: equality is exact.
 
 Also: the ``cuda`` backend takes the plain version on CPU tensors (and
-counts no launch), the sparse layouts propagate, and the banks still to
-port raise.  The kernel itself is
-held against the plain version in ``test_torch_kernel.py``.
+counts no launch), and the sparse layouts, a Compact-Table model and a
+carried bitset store propagate through both backends, equal to the
+reference.  The kernel itself is held against the plain version in
+``test_torch_kernel.py``; the Compact-Table bank in ``test_torch_table.py``.
 """
 
 import numpy as np
@@ -17,9 +18,12 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from repro.core import bitset as JB
 from repro.core.fixpoint import fixpoint_batch as jfixpoint_batch
+from repro.core.model import Model as JModel
 from repro.core.models import rcpsp as jrcpsp
 from repro.kernels.fixpoint_kernel import fixpoint_pallas
+from repro_torch.core import bitset as TB
 from repro_torch.core import fixpoint as TF
 from repro_torch.core.backend import get_backend
 from repro_torch.core.model import Model
@@ -137,9 +141,10 @@ def _alldiff_model():
 
 
 def test_unsupported_banks_raise():
-    """The banks still to port raise; the AllDifferent bank in both
-    layouts and the sparse Cumulative layout (ported since) propagate
-    instead, on both backends, equal to the reference."""
+    """Every bank propagates now (none is left to raise): the AllDifferent
+    bank in both layouts, the sparse Cumulative layout, a Compact-Table
+    model and a carried bitset store, on both backends, equal to the
+    reference."""
     for layout in ("dense", "sparse"):
         cm = _alldiff_model().compile(device="cpu", bank_layout=layout)
         lb, ub = cm.lb0[None], cm.ub0[None]
@@ -156,14 +161,31 @@ def test_unsupported_banks_raise():
     for fn in (TF.fixpoint_batch, get_backend("cuda").fixpoint_batch):
         got = fn(sparse, torch.from_numpy(lbs), torch.from_numpy(ubs))
         _assert_equal_runs(ref, [o.numpy() for o in got])
-    tm = Model("tab")
-    ys = [tm.int_var(0, 3) for _ in range(2)]
-    tm.table(ys, [(0, 1), (2, 3)])
-    tcm = tm.compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="Compact-Table"):
-        TF.fixpoint_batch(tcm, tcm.lb0[None], tcm.ub0[None])
-    rc = port_from_jax(m.compile())
-    with pytest.raises(NotImplementedError, match="bitset"):
-        get_backend("cuda").fixpoint_batch(
-            rc, rc.lb0[None], rc.ub0[None],
-            dom=torch.zeros((1, rc.n_vars, 1), dtype=torch.int32))
+
+    def table_model(cls):
+        tm = cls("tab")
+        ys = [tm.int_var(0, 3) for _ in range(2)]
+        tm.table(ys, [(0, 1), (2, 3)])
+        return tm
+
+    jtab = table_model(JModel).compile()
+    tcm = table_model(Model).compile(device="cpu")
+    ref = jfixpoint_batch(jtab, jtab.lb0[None], jtab.ub0[None])
+    for fn in (TF.fixpoint_batch, get_backend("cuda").fixpoint_batch):
+        got = fn(tcm, tcm.lb0[None], tcm.ub0[None])
+        _assert_equal_runs(ref, [o.numpy() for o in got])
+    # a carried bitset store on a bounds-only model: normalize only
+    jrc = m.compile()
+    rc = port_from_jax(jrc)
+    jdom = JB.from_bounds(jrc.lb0[None], jrc.ub0[None], jrc.dom_off,
+                          jrc.n_words, track=jrc.dom_track)
+    dom = TB.from_bounds(rc.lb0[None], rc.ub0[None], rc.dom_off, rc.n_words,
+                         track=rc.dom_track.view(torch.int32))
+    ref = jfixpoint_batch(jrc, jrc.lb0[None], jrc.ub0[None], dom=jdom)
+    for fn in (TF.fixpoint_batch, get_backend("cuda").fixpoint_batch):
+        got = fn(rc, rc.lb0[None], rc.ub0[None], dom=dom)
+        assert len(got) == 5
+        for r, g in zip(ref, got):
+            r = np.asarray(r)
+            np.testing.assert_array_equal(
+                g.numpy(), r.view(np.int32) if r.dtype == np.uint32 else r)

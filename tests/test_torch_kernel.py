@@ -2,6 +2,11 @@
 with a CUDA GPU — each kernel against its plain version: `fixpoint_cuda`
 against `fixpoint_batch`, `search_cuda` against `search_plain`.
 
+Both kernels are also held to their plain versions on the Compact-Table
+models (crossword, configuration, the hand cases of
+`repro_torch.testing`) with and without a carried bitset store, and the
+search kernel under ``middle_out``.
+
 This file imports neither JAX nor the JAX package, so it also runs on the
 GPU machine, where the kernel tests run instead of skipping:
 
@@ -21,11 +26,14 @@ from repro_torch.core import fixpoint as F
 from repro_torch.core import search as S
 from repro_torch.core.backend import get_backend
 from repro_torch.core.model import Model
-from repro_torch.core.models import (coloring, jobshop, nqueens, rcpsp,
+from repro_torch.core.models import (ZOO, bench_instance, coloring, jobshop,
+                                     large_instance, nqueens, rcpsp,
                                      small_instance)
 from repro_torch.kernels import build
 from repro_torch.kernels import fixpoint_kernel as K
-from repro_torch.testing import random_substores, search_diff, search_inputs
+from repro_torch.testing import (CT_HAND_MODELS, random_dom_stores,
+                                 random_substores, search_diff,
+                                 search_inputs)
 
 torch.set_num_threads(1)      # tiny tensors: thread hand-offs cost more
 
@@ -119,16 +127,18 @@ def test_sparse_shared_memory_budget():
     assert (j120.cu_packed, q256.ad_packed) == (408, 776)
     assert K.sort_size(2 * 408) == K.sort_size(776) == 1024
     assert K.smem_budget(j60) == dict(stores=992, linear=23328, alldiff=0,
-                                      cumulative=11000, search=0,
-                                      total=35320)
+                                      cumulative=11000, table=0, dom=0,
+                                      search=0, total=35320)
     # 3·1024 + 6·408 + 2·5 + 32 words
     assert K.smem_budget(j120) == dict(stores=1952, linear=89352,
                                        alldiff=0, cumulative=22248,
-                                       search=0, total=113552)
+                                       table=0, dom=0, search=0,
+                                       total=113552)
     # 3·1024 + 6·776 + 4 words; the dense Cumulative dummy stays
     assert K.smem_budget(q256) == dict(stores=4112, linear=72,
                                        alldiff=30928, cumulative=52,
-                                       search=0, total=35164)
+                                       table=0, dom=0, search=0,
+                                       total=35164)
     assert K.fit_smem(j120, resident=True)["total"] == 113552 + 4 * 304
     with pytest.raises(ValueError, match=r"cumulative 22,248 \(sparse: "
                        r"event keys 8,192, profile 4,096, task table"):
@@ -136,6 +146,47 @@ def test_sparse_shared_memory_budget():
     with pytest.raises(ValueError, match=r"alldiff 30,928 \(sparse: "
                        r"sort keys 8,192, member indices 4,096"):
         K.fit_smem(q256, limit_bytes=30_000)
+
+
+def _zoo(name, tier, device="cpu"):
+    inst = tier(name, seed=0)
+    return ZOO[name].build_model(inst)[0].compile(device=device)
+
+
+def test_table_shared_memory_budget():
+    """The Compact-Table part (``table_words`` in
+    ``csrc/fixpoint_lane.cuh``: the members' support words ``[T+1, R,
+    TW]``, the current tables ``[T+1, TW]``, the hull pair ``[T+1, R]``
+    and the word candidates ``[T+1, R, W]``) and the carried store's
+    ``2·V·W`` words (``dom_words``), pinned at the large tiers:
+    crossword n=8 (T+1 17, R 8, W 1) and configuration k=24 (T+1 97, R
+    2, W 6); a bounds-only model carrying a store pays only the store."""
+    cw = _zoo("crossword", large_instance)
+    cf = _zoo("configuration", large_instance)
+    assert tuple(cw.ct_supp.shape) == (17, 8, 32, 1)
+    assert tuple(cf.ct_supp.shape) == (97, 2, 192, 1)
+    for cm in (cw, cf):
+        T1, R, _, TW = cm.ct_supp.shape
+        W = cm.n_words
+        b = K.smem_budget(cm)
+        assert b["table"] == 4 * (T1 * R * TW + T1 * TW + 2 * T1 * R
+                                  + T1 * R * W)
+        assert b["dom"] == 0
+        assert K.smem_budget(cm, dom=True)["dom"] == 4 * 2 * cm.n_vars * W
+    assert K.smem_budget(cw, dom=True) == dict(
+        stores=1040, linear=72, alldiff=0, cumulative=52, table=2244,
+        dom=520, search=0, total=3928)
+    # 194 + 97 + 388 + 1164 words; 2·50·6 words carried
+    assert K.smem_budget(cf, dom=True) == dict(
+        stores=800, linear=792, alldiff=0, cumulative=52, table=7372,
+        dom=2400, search=0, total=11416)
+    assert K.fit_smem(cf, resident=True, dom=True)["total"] == 11416 + 1216
+    with pytest.raises(ValueError, match=r"table 7,372 \(Compact-Table: "
+                       r"member supports 776, current tables 388"):
+        K.fit_smem(cf, limit_bytes=10_000, dom=True)
+    q32 = _nqueens(32)
+    assert K.smem_budget(q32, dom=True)["table"] == 0
+    assert K.smem_budget(q32, dom=True)["dom"] == 4 * 2 * 33
 
 
 def test_search_shared_memory_budget():
@@ -183,8 +234,17 @@ def test_search_wrapper_checks():
         K._check_search(cm, slb.long(), sub.long(), st, "min_lb", "min")
     with pytest.raises(ValueError, match="var_strategy"):
         K._check_search(cm, slb, sub, st, "first_fail", "min")
-    with pytest.raises(NotImplementedError, match="middle_out"):
+    with pytest.raises(ValueError, match="middle_out needs the bitset"):
         K._check_search(cm, slb, sub, st, "min_lb", "middle_out")
+    mo = S.init_lanes(cm, 4, S.SearchOptions(val_strategy="middle_out",
+                                             max_depth=64))
+    K._check_search(cm, slb, sub, mo, "min_lb", "middle_out")  # accepted
+    with pytest.raises(ValueError, match="both given or both None"):
+        K._check_search(cm, slb, sub, mo._replace(root_dom=None), "min_lb",
+                        "middle_out")
+    with pytest.raises(ValueError, match="LaneState.dom must be"):
+        K._check_search(cm, slb, sub, mo._replace(dom=mo.dom.long()),
+                        "min_lb", "middle_out")
     with pytest.raises(ValueError, match="no lanes"):
         K._check_search(cm, slb, sub, S.LaneState(
             *(None if a is None else a[:0] for a in st)), "min_lb", "min")
@@ -225,8 +285,13 @@ def test_wrapper_checks():
         ad = _alldiff_model().compile(device="cpu", bank_layout=layout)
         K._check(ad, ad.lb0[None], ad.ub0[None])
     tab = _table_model().compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="Compact-Table"):
-        K._check(tab, tab.lb0[None], tab.ub0[None])
+    K._check(tab, tab.lb0[None], tab.ub0[None])        # tables accepted
+    dom = torch.zeros((1, tab.n_vars, tab.n_words), dtype=torch.int32)
+    K._check(tab, tab.lb0[None], tab.ub0[None], dom)    # and a store
+    with pytest.raises(ValueError, match="bitset store must be int32"):
+        K._check(tab, tab.lb0[None], tab.ub0[None], dom.long())
+    with pytest.raises(ValueError, match="bitset store must be int32"):
+        K._check(tab, tab.lb0[None], tab.ub0[None], dom[:, :-1])
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -311,8 +376,10 @@ def test_kernel_matches_plain_on_gpu(cuda, max_sweeps):
 
 def test_kernel_raises_on_unsupported_input_on_gpu(cuda):
     tab = _table_model().compile(device=cuda)
-    with pytest.raises(NotImplementedError):
-        K.fixpoint_cuda(tab, tab.lb0[None], tab.ub0[None])
+    with pytest.raises(ValueError):
+        K.fixpoint_cuda(tab, tab.lb0[None], tab.ub0[None],
+                        torch.zeros((1, tab.n_vars, tab.n_words + 1),
+                                    dtype=torch.int32, device=cuda))
     wide = _int64_model().compile(device=cuda)
     with pytest.raises(NotImplementedError):
         K.fixpoint_cuda(wide, wide.lb0[None], wide.ub0[None])
@@ -378,3 +445,92 @@ def test_search_kernel_raises_on_unsupported_input_on_gpu(cuda):
                       torch.zeros((), dtype=torch.int64, device=cuda), 0,
                       head)
     assert K.search_grid(cm, 4) == 4
+
+
+def _table_models(device):
+    """(what, model, seed) of the card-only Compact-Table tests: the zoo's
+    table models at the small and bench tiers, crossword large, and the
+    hand cases (a chain, a hole bounds cannot see, a wipeout, a mixed
+    model, tables of more than 32 tuples)."""
+    for name in ("crossword", "configuration"):
+        for tag, tier in (("small", small_instance),
+                          ("bench", bench_instance)):
+            yield f"{name} {tag}", _zoo(name, tier, device), 11
+    yield "crossword large", _zoo("crossword", large_instance, device), 12
+    for name, make in CT_HAND_MODELS.items():
+        yield name, make(Model).compile(device=device), 13
+
+
+def _dom_stores(cm, n, seed):
+    """n random stores and their random bitset stores (the first quarter
+    wiping out a table's interior), on the model's device."""
+    rng = np.random.default_rng(seed)
+    lbs, ubs = random_substores(rng, cm, n)
+    doms = random_dom_stores(rng, cm, lbs, ubs, n_wipe=n // 4)
+    dev = cm.device
+    return (torch.from_numpy(lbs).to(dev), torch.from_numpy(ubs).to(dev),
+            torch.from_numpy(doms.view(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("max_sweeps", [1, 4, None])
+def test_table_kernel_matches_plain_on_gpu(cuda, max_sweeps):
+    """Both modes: the carried store (5-tuple) and the transient range
+    words (no `dom`), on random stores with random words."""
+    for what, cm, seed in _table_models(cuda):
+        lb, ub, dom = _dom_stores(cm, 256, seed)
+        for d in (dom, None):
+            before = K.fixpoint_cuda.launches
+            got = K.fixpoint_cuda(cm, lb, ub, d, max_sweeps=max_sweeps)
+            torch.cuda.synchronize()
+            assert K.fixpoint_cuda.launches == before + 1
+            ref = F.fixpoint_batch(cm, lb, ub, d, max_iters=max_sweeps)
+            assert len(got) == len(ref) == (4 if d is None else 5)
+            for r, g in zip(ref, got):
+                assert torch.equal(r, g), (what, d is None)
+
+
+def test_dom_on_bounds_only_models_matches_plain_on_gpu(cuda):
+    """A carried store on models without tables (middle_out's case):
+    the kernel normalizes only, equal to the plain version."""
+    for cm, seed in ((_nqueens(8, device=cuda), 3),
+                     (_rcpsp(SMALL, device=cuda), 4),
+                     (_nqueens(36, device=cuda), 5)):
+        lb, ub, dom = _dom_stores(cm, 128, seed)
+        for cap in (1, None):
+            got = K.fixpoint_cuda(cm, lb, ub, dom, max_sweeps=cap)
+            ref = F.fixpoint_batch(cm, lb, ub, dom, max_iters=cap)
+            for r, g in zip(ref, got):
+                assert torch.equal(r, g)
+
+
+def _dom_search_cases(device):
+    """(what, cm, inputs, kwargs) with the bitset store: crossword and
+    configuration bench (prove), N-queens 8 and coloring small under
+    middle_out, from fresh lanes and after 5 plain supersteps."""
+    cases = [("crossword bench", _zoo("crossword", bench_instance, device),
+              "min"),
+             ("configuration bench",
+              _zoo("configuration", bench_instance, device), "middle_out"),
+             ("nqueens8", _nqueens(8, device=device), "middle_out"),
+             ("coloring", _coloring_small(device=device), "middle_out")]
+    for what, cm, val in cases:
+        opts = S.SearchOptions(var_strategy="min_dom", val_strategy=val,
+                               max_depth=64)
+        slb, sub, st, gbest, head = search_inputs(cm, 64, 128, opts)
+        assert st.dom is not None
+        kw = dict(var_strategy="min_dom", val_strategy=val)
+        yield f"{what} fresh", cm, (slb, sub, st, gbest, 0, head), kw
+        st5, g5, it5, h5, _ = K.search_plain(cm, slb, sub, st, gbest, 0,
+                                             head, supersteps=5, **kw)
+        yield f"{what} after 5", cm, (slb, sub, st5, g5, it5, h5), kw
+
+
+@pytest.mark.parametrize("supersteps", [1, 16])
+def test_search_kernel_with_dom_matches_plain_on_gpu(cuda, supersteps):
+    for what, cm, args, kw in _dom_search_cases(cuda):
+        ref = K.search_plain(cm, *args, supersteps=supersteps, **kw)
+        before = K.search_cuda.launches
+        got = K.search_cuda(cm, *args, supersteps=supersteps, **kw)
+        torch.cuda.synchronize()
+        assert K.search_cuda.launches == before + 1
+        assert search_diff(ref, got) == [], what

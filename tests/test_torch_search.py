@@ -2,9 +2,11 @@
 
 Identical tables (carried across with `from_arrays`) → identical EPS
 pools from `eps.decompose`, and — from the same pool — a `LaneState`
-equal field for field (values and dtypes) after k `lanes_step`
-supersteps, under the ``min`` and ``split`` value strategies, capped and
-uncapped sweeps, on RCPSP and on random linear models.
+equal field for field (values and dtypes; the bitset words as int32
+bit patterns) after k `lanes_step` supersteps, under the ``min`` and
+``split`` value strategies, capped and uncapped sweeps, on RCPSP and on
+random linear models.  ``middle_out`` and the bitset store are held in
+``test_torch_table.py``.
 """
 
 import jax.numpy as jnp
@@ -82,12 +84,16 @@ def _jax_state_arrays(st):
 
 
 def _assert_state_equal(jst, tst, where):
+    """Every field equal in values and dtypes; the reference's ``uint32``
+    bitset words against the port's int32 bit patterns."""
     for f in JS.LaneState._fields:
         r, g = getattr(jst, f), getattr(tst, f)
         if r is None:
             assert g is None, f"{where}: {f}"
             continue
         r, g = np.asarray(r), g.numpy()
+        if r.dtype == np.uint32:
+            r = r.view(np.int32)
         assert g.dtype == r.dtype, f"{where}: {f} {g.dtype} vs {r.dtype}"
         np.testing.assert_array_equal(g, r, err_msg=f"{where}: {f}")
 
@@ -187,9 +193,19 @@ def test_lane_state_from_arrays_round_trip():
 
 
 def test_middle_out_raises_until_the_bitset_slice():
-    tcm = port_from_jax(_jax_rcpsp(small(0)))
-    opts = TS.SearchOptions(val_strategy="middle_out", backend="gather")
-    with pytest.raises(NotImplementedError, match="middle_out"):
-        TS.init_lanes(tcm, 2, opts)
-    with pytest.raises(NotImplementedError, match="middle_out"):
-        teps.decompose(tcm, 4, opts)
+    """``middle_out`` raises no more: its lanes carry the bitset store,
+    equal to the reference's from `init_lanes` on, and its EPS pool (an
+    interval split at the midpoint) equals the reference's."""
+    jcm = _jax_rcpsp(small(0))
+    tcm = port_from_jax(jcm)
+    kw = dict(val_strategy="middle_out", max_depth=8)
+    jst = JS.init_lanes(jcm, 2, _opts(JS, "gather", **kw))
+    tst = TS.init_lanes(tcm, 2, _opts(TS, "gather", **kw))
+    assert tst.dom.shape == (2, tcm.n_vars, tcm.n_words)
+    _assert_state_equal(jst, tst, "init middle_out")
+    assert TS.use_dom(tcm, _opts(TS, "gather", **kw))
+    assert not TS.use_dom(tcm, _opts(TS, "gather"))
+    ref = jeps.decompose(jcm, 16, _opts(JS, "gather", **kw))
+    got = teps.decompose(tcm, 16, _opts(TS, "gather", **kw))
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g, r)

@@ -90,8 +90,10 @@ def test_config_validation():
         tsolver.SolveConfig(backend="pallas", device="cpu")
     with pytest.raises(ValueError, match="n_lanes"):
         tsolver.SolveConfig(n_lanes=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="middle_out"):
-        tsolver.SolveConfig(val_strategy="middle_out", device="cpu")
+    cfg = tsolver.SolveConfig(val_strategy="middle_out", device="cpu")
+    assert cfg.search_options().val_strategy == "middle_out"
+    with pytest.raises(ValueError, match="val_strategy"):
+        tsolver.SolveConfig(val_strategy="middle", device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         tsolver.SolveConfig(device="mps")
     cfg = tsolver.SolveConfig.preset("fast", n_lanes=4, device="cpu")
