@@ -8,7 +8,8 @@ exit code and no result line:
 
 1. card and build: the card line of ``nvidia-smi``, torch and CUDA
    versions; ``nvcc`` builds ``kernels/csrc/fixpoint.cu`` and
-   ``kernels/csrc/search.cu`` for sm_90a, both at once, and their
+   ``kernels/csrc/search.cu`` for sm_90a, each at int32 and int64 and
+   ``search.cu`` also in its lane-tiled mode, all six at once, and their
    ``-Xptxas -v`` reports (registers, shared memory) are printed;
 2. kernel against plain version: ``fixpoint_cuda`` against the plain
    PyTorch ``fixpoint_batch``, on the card, on RCPSP J30- and J60-class
@@ -91,7 +92,7 @@ exit code and no result line:
    (K=16), which must prove the JAX package's optima 157, 88 and 55 with
    equal counters; N-queens 256 (``min_dom``/``split``) through both
    under 256 supersteps (equal counters), then ``cuda_resident`` under
-   100,000 supersteps or a 30 s timeout, whichever comes first;
+   100,000 supersteps or a 10 s timeout, whichever comes first;
 16. times of both kernels at the J120 (``[1024, 122]``) and N-queens-256
    (``[1024, 257]``) shapes of phases 13 and 14, beside their plain
    versions, their bounds and the sparse banks' own work (sort compares
@@ -131,6 +132,35 @@ exit code and no result line:
    on N-queens 32 under ``min_dom``/``middle_out``), beside their plain
    versions and bounds; the Compact-Table work of a bound is counted from
    the member values of the stores each sweep reads.
+
+21. int64 models, ``fixpoint_cuda`` against its plain version (the int64
+   library): the J120 class with every duration × 10⁷ (V=122, sparse
+   Cumulative), the J60 class compiled ``force_dtype="int64"`` in the
+   dense layout and a two-term row whose products pass 2³¹, 1024 random
+   stores each and the first 1024 subproblems of the EPS pools, at
+   ``max_sweeps`` 1, 4 and uncapped;
+22. int64 in the resident kernel: phase 5's comparison on J120 × 10⁷ and
+   J60 int64 (1024 lanes, ``prove``, K = 1, 4, 16), from fresh lanes and
+   after 5 supersteps, and on J120 × 10⁷ 8 before and after the first
+   solution (the compared states must hold failed nodes and backtracks);
+23. the int64 main path (launch counters read around each solve,
+   solutions ground-checked): J120 × 10⁷ through ``cuda`` and
+   ``cuda_resident`` with equal counters, proving 157 × 10⁷; J60 int64
+   through both, every counter equal to phase 3's int32 J60 solve;
+24. lane tiles: phase 5's comparison in lane tiles of 256 (4 tiles) and
+   384 (3, the last one short) on J60 (``prove``, in tiles of 256 also
+   around its first solution) and N-queens 32 (``min_dom``/``split``),
+   and of 256 on J60 int64, 1024 lanes, K = 1 and 16, from fresh lanes
+   and after 5 supersteps (every field, the per-tile cursors included);
+   then J60 through ``cuda_resident`` in tiles of 256, which must prove
+   82 with a launch per K supersteps (its nodes and supersteps printed
+   beside phase 6's one-queue solve), and J30 at 16 lanes in tiles of 4,
+   whose counters must equal the plain version's on the CPU and differ
+   from one queue's;
+25. times: both kernels at int64 (J120 × 10⁷) against int32 (J120) at
+   ``[1024, 122]``, and ``search_cuda`` at J60 in tiles of 256 against
+   one queue, beside their plain versions and bounds (int64 bytes
+   counted at 8, int64 operations against the int32 peak).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -175,10 +205,11 @@ MIDDLE_OUT = ("min_dom", "middle_out")
 # phase 15's N-queens 256 strategy pair (first-fail, bisection), the
 # superstep cap of its cuda vs cuda_resident solves and the timeout of its
 # long solve: no pair of four tried on the card found a solution within
-# 20 s, and 2048 supersteps took 92 s and 161 s (PERF.md section 6)
+# 20 s, and 2048 supersteps took 92 s and 161 s (PERF.md section 6); 10 s
+# leaves room for phases 21-25 (the long solve found none in 30 s either)
 NQ256_STRATEGY = ("min_dom", "split")
 NQ256_CAP = 256
-NQ256_LONG_TIMEOUT_S = 30.0
+NQ256_LONG_TIMEOUT_S = 10.0
 # rcpsp.generate(30, n_resources=4, seed=0), preset "prove", 32 lanes,
 # default eps_target: the JAX package's SolveResult counters.
 J30_LANES = 32
@@ -192,6 +223,22 @@ J30_REFERENCE = dict(status="OPTIMAL", objective=34, n_nodes=2038,
 # per lane per clock (phase 1 reads both from the card).
 PEAK_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
+# every library the run launches, built at once in phase 1: both
+# sources at int32 and int64, and search.cu's lane-tiled mode at both
+BUILDS = (("fixpoint", ""), ("fixpoint", "i64"), ("search", ""),
+          ("search", "i64"), ("search", "tiles"), ("search", "tiles_i64"))
+# phases 21-25: every duration of an RCPSP class × INT64_SCALE compiles to
+# int64 (sums pass the int32 headroom); scaling every duration scales the
+# optimum, so J120 × 10⁷ must prove SPARSE_OPTIMUM["J120"] × 10⁷
+INT64_SCALE = 10 ** 7
+# phase 24's lane tiles on 1024 lanes: 4 tiles, and 3 with a short last
+# one; the lane-tiled main path runs MAIN_TILE
+TILES = (256, 384)
+MAIN_TILE = 256
+# (lanes, eps_target, lane tile) of phase 24's small tiled J30 solve, whose
+# counters the tiles change (16 lanes: one queue 1680 nodes, tiles of 4
+# 1654 in the plain version on the CPU)
+J30_TILED = (16, 64, 4)
 FIXPOINT_SOURCE = "src/repro_torch/kernels/csrc/fixpoint.cu"
 FIXPOINT_REPLACES = "src/repro/kernels/fixpoint_kernel.py:285"
 SEARCH_SOURCE = "src/repro_torch/kernels/csrc/search.cu"
@@ -278,13 +325,13 @@ def nvidia_smi(query):
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def load(name, inst):
+def load(name, inst, **compile_kw):
     """The Case of one zoo instance, compiled onto the card."""
     from repro_torch.core.models import ZOO
     mod = ZOO[name]
     m, handles = mod.build_model(inst)
-    return Case(mod, inst, handles, m.compile(device="cuda"), None, None,
-                None)
+    return Case(mod, inst, handles, m.compile(device="cuda", **compile_kw),
+                None, None, None)
 
 
 def describe(cm):
@@ -365,7 +412,7 @@ def phase_card_and_build():
     peak_int32 = sms * INT32_LANES_PER_SM * mhz * 1e6
     print(f"[1] {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x {mhz:.0f} "
           f"MHz (max SM clock) = {peak_int32 / 1e12:.2f} T int32 op/s")
-    for built in build.build_all(["fixpoint", "search"]):
+    for built in build.build_all(BUILDS):
         print(f"[1] built {os.path.relpath(built.path, ROOT)} in "
               f"{built.seconds:.1f} s")
         for line in built.log.splitlines():
@@ -418,9 +465,10 @@ def compare(cm, lb, ub, cap, what, dom=None):
     return err, whole, rsw, rfail
 
 
-def phase_kernel_vs_plain(phase, cases):
+def phase_kernel_vs_plain(phase, cases, pool_batches=None):
     """`fixpoint_cuda` against `fixpoint_batch` on each case's random
-    stores and EPS pool at every cap of CAPS; the overfull stores of an
+    stores and EPS pool (its first `pool_batches` batches of N_RANDOM
+    stores, or all) at every cap of CAPS; the overfull stores of an
     AllDifferent model must fail uncapped.  Returns the max |err|."""
     import torch
     max_err = 0
@@ -430,7 +478,8 @@ def phase_kernel_vs_plain(phase, cases):
             plb, pub = c.pool
             batches += [(f"pool[{i}:{i + N_RANDOM}]", plb[i:i + N_RANDOM],
                          pub[i:i + N_RANDOM])
-                        for i in range(0, plb.shape[0], N_RANDOM)]
+                        for i in range(0, plb.shape[0], N_RANDOM)
+                        ][:pool_batches]
         n_over = N_PIGEONHOLE if c.cm.n_alldiff else 0
         for cap in CAPS:
             lanes = whole = over_failed = 0
@@ -460,10 +509,10 @@ def phase_kernel_vs_plain(phase, cases):
     return max_err
 
 
-def checked_cases(phase, make):
+def checked_cases(phase, make, pool_batches=None):
     """The cases `make()` returns, held by `phase_kernel_vs_plain`."""
     cases = make()
-    return cases, phase_kernel_vs_plain(phase, cases)
+    return cases, phase_kernel_vs_plain(phase, cases, pool_batches)
 
 
 # --------------------------------------------------------------------------
@@ -572,7 +621,7 @@ def phase_resident_path(cases, ref):
     res, (_, launches) = solve_case(6, "J60", cases["J60"],
                                     main_config("cuda_resident"))
     same_counters(6, "J60", {"cuda": ref, "cuda_resident": res})
-    return launches
+    return launches, res
 
 
 def phase_zoo_main_path(cases):
@@ -655,18 +704,21 @@ def row_sizes(cm):
 
 
 def ops_per_sweep(cm, dom=False):
-    """The int32 work one fixpoint sweep of one lane needs, apart from
+    """The integer work one fixpoint sweep of one lane needs (at int64
+    counted against the int32 peak, so a lower bound), apart from
     the Compact-Table bank's per-value work (`ct_ops_per_value`): 8·P1·K
     for the linear bank and 2·V·D for its join; with a Cumulative bank,
-    4·C1·T + 2·C1·H for the time-table (each task adds its compulsory
-    part's two ends to a difference array, a prefix sum and a capacity
-    compare per time point build the profile, and each task's first and
-    last start take at least one operation each) and 2·V·Dcu for its
-    join; with an AllDifferent bank, on each row of n members the lesser
-    of two algorithms' work: a sorted Hall pass, 2·n·⌈log2 n⌉ compares to
-    sort the members by lower and by upper bound and ALLDIFF_OPS per
-    (upper endpoint, member) for the counts, the width tests and the
-    pushes, or the endpoint-pair pass, PAIR_OPS·n³ (cheaper for n = 2);
+    4·C1·T for the tasks (each adds its compulsory part's two ends, and
+    each task's first and last start take at least one operation each),
+    per row of n tasks the lesser of two ways to build the profile — a
+    prefix sum and a capacity compare per time point of the horizon
+    (2·H), or a sort of its 2·n events and a sum and a compare per event
+    (2·2n·⌈log2 2n⌉ + 4·n; the lesser at durations × 10⁷) — and
+    2·V·Dcu for its join; with an AllDifferent bank, on each row of n
+    members the lesser of two algorithms' work: a sorted Hall pass,
+    2·n·⌈log2 n⌉ compares to sort the members by lower and by upper
+    bound and ALLDIFF_OPS per (upper endpoint, member) for the counts,
+    the width tests and the pushes, or the endpoint-pair pass, PAIR_OPS·n³ (cheaper for n = 2);
     and 2·V·Dad for its join; with a Compact-Table bank, r·TW per table
     row of r members to AND their support ORs into the current table and
     2·V·Dct for its join; with a carried bitset store (`dom`) also
@@ -676,7 +728,12 @@ def ops_per_sweep(cm, dom=False):
     ops = 8 * P1 * K + 2 * V * cm.d_occ
     if cm.n_cumulative:
         C1, T = cm.cu_svar.shape
-        ops += 4 * C1 * T + 2 * C1 * cm.horizon + 2 * V * cm.cu_docc
+        C = cm.n_cumulative
+        rows = (cm.cu_ptr[1:C + 1] - cm.cu_ptr[:C]).tolist()
+        ops += (4 * C1 * T + 2 * V * cm.cu_docc
+                + sum(min(2 * cm.horizon,
+                          4 * n * math.ceil(math.log2(2 * n)) + 4 * n)
+                      for n in rows if n))
     if cm.n_alldiff:
         ops += sum(min(2 * n * math.ceil(math.log2(n)) + ALLDIFF_OPS * n * n,
                        PAIR_OPS * n ** 3)
@@ -839,8 +896,8 @@ def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what, plain_reps=5,
     lane_sweeps = F.fixpoint_batch(cm, lb, ub, dom)[-2]
     sweeps = int(lane_sweeps.sum())
     carried = dom is not None
-    nbytes = (table_bytes(cm, carried) + 4 * L * V * 4 + 2 * L * 4
-              + (2 * dom.numel() * 4 if carried else 0))
+    nbytes = (table_bytes(cm, carried) + 4 * L * V * lb.element_size()
+              + 2 * L * 4 + (2 * dom.numel() * 4 if carried else 0))
     ops = sweeps * ops_per_sweep(cm, carried)
     live = ""
     if cm.n_table:
@@ -853,9 +910,10 @@ def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what, plain_reps=5,
     if cm.n_alldiff and cm.ad_layout == "dense":
         live = (f"; {live_pair_share(cm, lb, ub):.1%} of the endpoint "
                 f"pairs live in the input stores")
-    print(f"[{tag}] fixpoint at [{L}, {V}] ({what}, uncapped, {sweeps} "
-          f"lane-sweeps): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} int32 "
+    print(f"[{tag}] fixpoint at [{L}, {V}] {cm.dtype} ({what}, uncapped, "
+          f"{sweeps} lane-sweeps): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, "
+          f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} "
           f"ops at {peak_int32 / 1e12:.2f} T/s; kernel {ms / bound_ms:.0f}x "
           f"the bound){pair_note(cm, sweeps, peak_int32)}{live} on {card}")
     return ms, plain_ms, bound_ms, bound_by
@@ -912,12 +970,15 @@ def time_search(card, peak_int32, timing_state, tag, what, plain_reps=2,
         note = (f"; {ct_vals / max(sweeps, 1):.1f} table-member values per "
                 f"lane-sweep")
     L = start[0].lb.shape[0]
-    print(f"[{tag}] search at {L} lanes, K={MAIN_K} ({what}, from the state "
+    tile = kw.get("lane_tile") or 0
+    mode = f"lane tiles of {tile}" if tile else "one queue"
+    print(f"[{tag}] search at {L} lanes, {cm.dtype}, {mode}, K={MAIN_K} "
+          f"({what}, from the state "
           f"after {int(start[2])}; {steps} live supersteps, {sweeps} "
           f"lane-sweeps): kernel {ms:.4f} ms per launch "
           f"({ms / max(steps, 1):.4f} ms per superstep), plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{nbytes} B, {ops} int32 ops at {peak_int32 / 1e12:.2f} T/s; "
+          f"{nbytes} B, {ops} ops at {peak_int32 / 1e12:.2f} T/s; "
           f"kernel {ms / bound_ms:.0f}x the bound)"
           f"{pair_note(cm, sweeps, peak_int32)}{note}; library: none "
           f"(no PyTorch call computes a superstep) on {card}")
@@ -1044,16 +1105,19 @@ def max_abs_diff(ref, got):
         if a is not None and a.numel():
             err = max(err, int((a.long() - b.long()).abs().max()))
     for a, b in zip(ref[1:], got[1:]):
-        err = max(err, abs(int(a) - int(b)))
+        err = max(err, int((a.long() - b.long()).abs().max()))
     return err
 
 
 def phase_search_vs_plain(phase, cases, lanes, variants, around_first,
-                          ks=SEARCH_K, must_search=False, warm=WARM_STEPS):
+                          ks=SEARCH_K, must_search=False, warm=WARM_STEPS,
+                          lane_tile=0):
     """`search_cuda` against `search_plain` on each case (`lanes[tag]`
     lanes, its EPS pool) under each variant, at every K of `ks`,
     from fresh lanes, after `warm` plain supersteps and, with
-    `around_first`, 8 supersteps before and after the first solution.
+    `around_first`, 8 supersteps before and after the first solution;
+    with `lane_tile`, in lane tiles of that many lanes (the cursors, one
+    per tile, compared too).
     With `must_search`, each variant must have failed nodes and lanes
     in a right branch (a backtrack) in the states it compared.
     Returns the starts after `warm` supersteps by (tag, variant name),
@@ -1085,12 +1149,17 @@ def phase_search_vs_plain(phase, cases, lanes, variants, around_first,
               f"supersteps")
         for name, preset, strategy in variants:
             opts, kw = search_kwargs(preset, strategy)
+            if lane_tile:
+                kw["lane_tile"] = lane_tile
             slb, sub, st, gbest, head = search_inputs(cm, L, None, opts,
                                                       pool=c.pool)
             carried = st.dom is not None
-            print(f"[{phase}] {tag} {name}: {search_grid(cm, L, carried)} "
+            print(f"[{phase}] {tag} {name}: "
+                  f"{search_grid(cm, L, carried, lane_tile)} "
                   f"CTAs (cooperative grid), bitset store "
-                  f"{'carried' if carried else 'none'}")
+                  f"{'carried' if carried else 'none'}, {cm.dtype}, "
+                  + (f"lane tiles of {lane_tile}" if lane_tile
+                     else "one queue"))
             cur, done_steps = (st, gbest, 0, head), 0
             fails = flipped = 0
             for n in starts:
@@ -1125,7 +1194,7 @@ def phase_search_vs_plain(phase, cases, lanes, variants, around_first,
                       f"nodes={int(stk.n_nodes.sum())} "
                       f"fails={int(stk.n_fails.sum())} "
                       f"sols={int(stk.n_sols.sum())} gbest={int(ref[1])} "
-                      f"head={int(ref[3])} stopped={bool(ref[4])} "
+                      f"head={ref[3].tolist()} stopped={bool(ref[4])} "
                       f"lanes in a right branch={right}")
             if must_search and not (fails and flipped):
                 fail(f"{tag} {name}: the compared states hold {fails} "
@@ -1417,6 +1486,166 @@ def phase_table_times(card, peak_int32, tcases, states):
                 "20", "N-queens 32, min_dom/middle_out")
 
 
+# --------------------------------------------------------------------------
+# phases 21-25: int64 models in both kernels, and lane tiles
+# --------------------------------------------------------------------------
+
+def int64_cases():
+    """The int64 models of phases 21-25: the J120 class with every
+    duration × INT64_SCALE (sparse Cumulative by the crossover), the J60
+    class compiled with force_dtype="int64" in the dense layout (the
+    values of the int32 J60, so its search must be the same), and a
+    two-term row whose products pass 2³¹; each with its random stores
+    and, the first two, their EPS pools."""
+    import dataclasses
+    from repro_torch.core.model import Model
+    from repro_torch.core.models import rcpsp
+    inst = rcpsp.generate(120, n_resources=4, seed=SEED)
+    wide = Model("wide")
+    x, y = wide.int_var(0, 10 ** 8), wide.int_var(0, 10 ** 8)
+    wide.add(1000 * x + 1000 * y <= 10 ** 9)
+    made = {
+        "J120x1e7": (load("rcpsp", dataclasses.replace(
+            inst, durations=inst.durations * INT64_SCALE)), MAIN_EPS),
+        "J60int64": (load("rcpsp", rcpsp.generate(60, n_resources=4,
+                                                  seed=SEED),
+                          force_dtype="int64", bank_layout="dense"),
+                     MAIN_EPS),
+        "wide": (Case(None, None, None, wide.compile(device="cuda"), None,
+                      None, None), None)}
+    out = {}
+    for tag, (c, target) in made.items():
+        if c.cm.dtype != "int64":
+            fail(f"{tag}: compiled to {c.cm.dtype}, not int64")
+        out[tag] = prepare(21, tag, c, target)
+    return out
+
+
+def phase_int64_search(cases):
+    """Phase 22: `search_cuda` against `search_plain` at int64 on J120 ×
+    10⁷ and J60 int64 (1024 lanes, prove, K = 1, 4, 16), from fresh lanes
+    and after 5 supersteps, and on J120 × 10⁷ also 8 before and after the
+    first solution (failed nodes and backtracks required).  Returns the
+    starts and the max |err|."""
+    prove = (("prove", "prove", None),)
+    states, err = phase_search_vs_plain(
+        22, {"J120x1e7": cases["J120x1e7"]}, {"J120x1e7": MAIN_LANES}, prove,
+        True, must_search=True)
+    st, e = phase_search_vs_plain(22, {"J60int64": cases["J60int64"]},
+                                  {"J60int64": MAIN_LANES}, prove, False)
+    states.update(st)
+    return states, max(err, e)
+
+
+def phase_int64_main_path(cases, j60):
+    """Phase 23: J120 × 10⁷ and J60 int64 through `cuda` and
+    `cuda_resident`: equal counters on both, J120 × 10⁷ at the scaled
+    optimum, J60 int64 with every counter of the int32 J60 (`j60`, phase
+    3).  Returns the launches by (tag, backend)."""
+    launches = {}
+    want = {"J120x1e7": SPARSE_OPTIMUM["J120"] * INT64_SCALE,
+            "J60int64": J60_OPTIMUM}
+    for tag in ("J120x1e7", "J60int64"):
+        got = {}
+        for backend in ("cuda", "cuda_resident"):
+            got[backend], launches[(tag, backend)] = solve_case(
+                23, tag, cases[tag], main_config(backend), want[tag])
+        same_counters(23, tag, got, {k: getattr(j60, k) for k in COUNTERS}
+                      if tag == "J60int64" else None)
+    return launches
+
+
+def phase_lane_tiles(rcpsp, zoo, int64, j60_resident):
+    """Phase 24: `search_cuda` against `search_plain` in lane tiles of
+    TILES on J60 (prove; in tiles of MAIN_TILE also 8 supersteps before
+    and after the first solution, failed nodes and backtracks required)
+    and N-queens 32
+    (min_dom/split), 1024 lanes, K = 1 and 16, from fresh lanes and after
+    5 supersteps, and in tiles of MAIN_TILE on J60 int64; then the J60 `cuda_resident` solve in tiles of
+    MAIN_TILE, which must prove 82 with a launch per K supersteps.
+    Returns the starts by (tag, variant, tile), the max |err| and the
+    tiled solve's search_cuda launches."""
+    states, err = {}, 0
+    split = (("min_dom/split", "prove", ("min_dom", "split")),)
+    prove = (("prove", "prove", None),)
+    runs = [(t, "J60", rcpsp["J60"], prove, t == MAIN_TILE) for t in TILES]
+    runs += [(t, "nqueens32", zoo["nqueens32"], split, False) for t in TILES]
+    runs += [(MAIN_TILE, "J60int64", int64["J60int64"], prove, False)]
+    for tile, tag, c, variants, around_first in runs:
+        st, e = phase_search_vs_plain(24, {tag: c}, {tag: MAIN_LANES},
+                                      variants, around_first,
+                                      ks=(1, MAIN_K),
+                                      must_search=around_first,
+                                      lane_tile=tile)
+        states.update({k + (tile,): v for k, v in st.items()})
+        err = max(err, e)
+    res, (_, launches) = solve_case(
+        24, "J60", rcpsp["J60"], main_config("cuda_resident",
+                                             lane_tile=MAIN_TILE),
+        J60_OPTIMUM)
+    print(f"[24] J60 cuda_resident, lane tiles of {MAIN_TILE}: "
+          f"nodes={res.n_nodes} supersteps={res.n_supersteps} "
+          f"launches={launches}; one queue (phase 6): "
+          f"nodes={j60_resident.n_nodes} "
+          f"supersteps={j60_resident.n_supersteps}")
+    # a small solve whose trajectory the tiles change: the card's tiled
+    # solve equals the plain one on the CPU and differs from one queue
+    from repro_torch.solver import SolveConfig, Solver
+    cfg = SolveConfig.preset("prove", backend="cuda_resident",
+                             n_lanes=J30_TILED[0], eps_target=J30_TILED[1],
+                             lane_tile=J30_TILED[2])
+    c = rcpsp["J30"]
+    card = solve_case(24, "J30", c, cfg, J30_REFERENCE["objective"])[0]
+    cpu = Solver(cfg.replace(device="cpu")).solve(c.cm.to("cpu"))
+    queue = solve_case(24, "J30", c, cfg.replace(lane_tile=None))[0]
+    same_counters(24, f"J30 in lane tiles of {J30_TILED[2]}",
+                  {"card": card, "plain on the CPU": cpu})
+    if all(getattr(card, k) == getattr(queue, k) for k in COUNTERS):
+        fail("J30: the lane-tiled solve's counters equal one queue's")
+    print(f"[24] J30 one queue: nodes={queue.n_nodes} "
+          f"supersteps={queue.n_supersteps}; tiles: nodes={card.n_nodes} "
+          f"supersteps={card.n_supersteps}")
+    return states, err, launches
+
+
+def phase_int64_times(card, peak_int32, sparse, sp_states, int64,
+                      i64_states, states, tile_states):
+    """Phase 25: both kernels at int64 against int32 at the J120 shape
+    ([1024, 122]: random stores of phases 13 and 21; K=16 after 5
+    supersteps), and `search_cuda` at J60 in lane tiles of MAIN_TILE
+    against one queue.  Returns the times of the int64 and lane-tile
+    modes: (fixpoint int64, search int64, search tiles), each (ms, plain
+    ms, bound ms, bound_by)."""
+    c = sparse["J120"]
+    time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "25",
+                  "J120 random stores", plain_reps=1)
+    c = int64["J120x1e7"]
+    fix64 = time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "25",
+                          "J120 x 1e7 random stores", plain_reps=1)
+    time_search(card, peak_int32, sp_states[("J120", "prove")], "25",
+                "J120, prove", plain_reps=1, plain_warmup=0)
+    srch64 = time_search(card, peak_int32, i64_states[("J120x1e7", "prove")],
+                         "25", "J120 x 1e7, prove", plain_reps=1,
+                         plain_warmup=0)
+    time_search(card, peak_int32, states[("J60", "prove")], "25",
+                "J60, prove")
+    tiles = time_search(card, peak_int32,
+                        tile_states[("J60", "prove", MAIN_TILE)], "25",
+                        "J60, prove")
+    return fix64, srch64, tiles
+
+
+def mode_entry(base, mode, launches, err, times):
+    """A {"kernels": [...]} entry of one kernel mode: `base`'s name,
+    route, source and bank list, this mode's launches, max |err| and
+    times."""
+    ms, plain_ms, bound_ms, bound_by = times
+    return dict(base, name=f"{base['name']} ({mode})", mode=mode,
+                launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
 def main():
     try:
         import repro_torch  # noqa: F401
@@ -1445,7 +1674,8 @@ def main():
     states, search_err = timed(5, phase_search_vs_plain, 5, rcpsp,
                                {"J30": 256, "J60": MAIN_LANES},
                                RCPSP_VARIANTS, True)
-    search_launches = timed(6, phase_resident_path, rcpsp, cuda_res)
+    search_launches, resident_res = timed(6, phase_resident_path, rcpsp,
+                                          cuda_res)
     kernels.append(timed(7, phase_search_times, card, peak_int32,
                          states[("J60", "prove")], search_launches,
                          search_err))
@@ -1467,6 +1697,14 @@ def main():
     ct_states, ct_search_err = timed(18, phase_table_search, tables, zoo)
     ct_launches = timed(19, phase_table_main_path, tables, zoo, rcpsp)
     timed(20, phase_table_times, card, peak_int32, tables, ct_states)
+    int64, i64_err = timed(21, checked_cases, 21, int64_cases, 1)
+    i64_states, i64_search_err = timed(22, phase_int64_search, int64)
+    i64_launches = timed(23, phase_int64_main_path, int64, cuda_res)
+    tile_states, tile_err, tile_launches = timed(
+        24, phase_lane_tiles, rcpsp, zoo, int64, resident_res)
+    fix64, srch64, tiled = timed(25, phase_int64_times, card, peak_int32,
+                                 sparse, sp_states, int64, i64_states,
+                                 states, tile_states)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
                                     sp_err, ct_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
@@ -1474,6 +1712,19 @@ def main():
                                     ct_search_err)
     for k in kernels:
         k["banks"] = list(BANKS)
+    kernels[0]["mode"] = "int32"
+    kernels[1]["mode"] = "int32, one queue"
+    kernels += [
+        mode_entry(kernels[0], "int64", i64_launches[("J120x1e7", "cuda")][0],
+                   i64_err, fix64),
+        mode_entry(kernels[1], "int64, one queue",
+                   i64_launches[("J120x1e7", "cuda_resident")][1],
+                   i64_search_err, srch64),
+        mode_entry(kernels[1], f"int32, lane tiles of {MAIN_TILE}",
+                   tile_launches, tile_err, tiled)]
+    print("kernels: int64 main-path launches (fixpoint_cuda, search_cuda): "
+          + ", ".join(f"{t} {b} {n}" for (t, b), n in i64_launches.items())
+          + f"; lane-tiled J60 search_cuda launches {tile_launches}")
     print("kernels: zoo main-path launches (fixpoint_cuda, search_cuda): "
           + ", ".join(f"{t} {b} {n}" for (t, b), n in zoo_launches.items()))
     print("kernels: sparse main-path launches (fixpoint_cuda, "

@@ -15,7 +15,9 @@ reference's ``while_loop`` stops:
   (one device synchronisation per superstep);
 * ``cuda_resident``: one launch of the resident search kernel covering
   ``supersteps_per_launch`` supersteps (default 16), after which the
-  host reads the superstep count and the stop flag once.
+  host reads the superstep count and the stop flag once; with
+  ``lane_tile`` the lanes run in tiles, each with its own pool cursor
+  (the carry holds ``[n_tiles]`` cursors).
 
 Timeouts and ``max_supersteps`` are checked once per quantum.  PyTorch
 runs eagerly, so there is no compiled-runner cache.
@@ -116,6 +118,9 @@ class SolveConfig:
     backend: str = "cuda"
     # cuda_resident only: supersteps per kernel launch (None → 16)
     supersteps_per_launch: Optional[int] = None
+    # cuda_resident only: lanes per tile, each tile with its own strided
+    # pool shard, cursor, bound and done flag (None → one pool queue)
+    lane_tile: Optional[int] = None
     # search strategy (core/search.py)
     var_strategy: str = S.INPUT_ORDER
     val_strategy: str = S.VAL_MIN
@@ -138,14 +143,15 @@ class SolveConfig:
             if not isinstance(v, int) or v < 1:
                 bad(f"{name} must be a positive int, got {v!r}")
         for name in ("eps_target", "max_supersteps", "max_fixpoint_iters",
-                     "supersteps_per_launch"):
+                     "supersteps_per_launch", "lane_tile"):
             v = getattr(self, name)
             if v is not None and (not isinstance(v, int) or v < 1):
                 bad(f"{name} must be None or a positive int, got {v!r}")
-        if (self.supersteps_per_launch is not None
-                and self.backend != "cuda_resident"):
-            bad("supersteps_per_launch is only meaningful with "
-                "backend='cuda_resident'")
+        for name in ("supersteps_per_launch", "lane_tile"):
+            if (getattr(self, name) is not None
+                    and self.backend != "cuda_resident"):
+                bad(f"{name} is only meaningful with "
+                    "backend='cuda_resident'")
         if self.timeout_s is not None and not self.timeout_s > 0:
             bad(f"timeout_s must be None or > 0, got {self.timeout_s!r}")
         if self.backend not in available_backends():
@@ -221,7 +227,7 @@ class Carry(NamedTuple):
     """Host-loop carry: lane state (its bitset store `dom`/`root_dom`
     included when search carries one), global bound (0-d device tensor),
     global done flag and superstep counter (host values), pool cursor
-    (0-d int32 device tensor)."""
+    (0-d int32 device tensor, or one per lane tile, ``[n_tiles]``)."""
     st: S.LaneState
     gbest: torch.Tensor
     gdone: bool
@@ -229,25 +235,35 @@ class Carry(NamedTuple):
     pool_head: torch.Tensor
 
 
-def _init_carry(cm: CompiledModel, n_lanes: int,
-                opts: S.SearchOptions) -> Carry:
+def _carry_heads(cfg: SolveConfig, cm: CompiledModel):
+    """The shape of the carry's pool cursor: ``()`` for one pool queue,
+    ``(n_tiles,)`` for a lane-tiled ``cuda_resident`` solve."""
+    if cfg.lane_tile is None:
+        return ()
+    return (get_backend(cfg.backend, lane_tile=cfg.lane_tile)
+            .n_tiles(cm, cfg.n_lanes),)
+
+
+def _init_carry(cm: CompiledModel, n_lanes: int, opts: S.SearchOptions,
+                heads=()) -> Carry:
     big = torch.iinfo(cm.tdtype).max // 4
     return Carry(S.init_lanes(cm, n_lanes, opts),
                  torch.tensor(big, dtype=cm.tdtype, device=cm.device),
                  False, 0,
-                 torch.zeros((), dtype=torch.int32, device=cm.device))
+                 torch.zeros(heads, dtype=torch.int32, device=cm.device))
 
 
 def _run_chunk(opts: S.SearchOptions, stop_on_first: bool, chunk: int,
                cm: CompiledModel, subs_lb, subs_ub, carry: Carry, *,
-               supersteps: int = 16) -> Carry:
+               supersteps: int = 16, lane_tile: int = 0) -> Carry:
     """One scheduler quantum.
 
     * ``cuda_resident``: ONE launch of the resident search kernel
-      covering `supersteps` supersteps (`chunk` is not consulted); the
-      kernel derives the global done flag each superstep and runs
-      identity steps once it is set, and the host reads the superstep
-      count and the stop flag once per launch;
+      covering `supersteps` supersteps (`chunk` is not consulted), over
+      lane tiles of `lane_tile` lanes when it is positive; the kernel
+      derives the global (or each tile's) done flag each superstep and
+      runs identity steps once it is set, and the host reads the
+      superstep count and the stop flag once per launch;
     * otherwise up to `chunk` `lanes_step` supersteps, stopping after
       the superstep that sets the global done flag (the reference's
       ``while_loop`` condition).
@@ -255,7 +271,7 @@ def _run_chunk(opts: S.SearchOptions, stop_on_first: bool, chunk: int,
     st, gbest, gdone, it, pool_head = carry
     if opts.backend == "cuda_resident":
         st, gbest, it_t, pool_head, stopped = get_backend(
-            opts.backend).superstep_launch(
+            opts.backend, lane_tile=lane_tile).superstep_launch(
                 cm, subs_lb, subs_ub, st, gbest, it, pool_head, opts=opts,
                 supersteps=supersteps)
         it, stop = torch.stack((it_t.to(torch.int32),
@@ -369,14 +385,15 @@ class Solver:
         t0 = time.time()
         subs_lb, subs_ub = self._pool_for(cm, cfg, subs, opts)
         eps_s = time.time() - t0
-        carry = _init_carry(cm, cfg.n_lanes, opts)
+        carry = _init_carry(cm, cfg.n_lanes, opts, _carry_heads(cfg, cm))
 
         improvements: List[Improvement] = []
         best_seen = torch.iinfo(cm.tdtype).max // 4
         while True:
             carry = _run_chunk(opts, cfg.stop_on_first, cfg.chunk, cm,
                                subs_lb, subs_ub, carry,
-                               supersteps=cfg.resolved_supersteps())
+                               supersteps=cfg.resolved_supersteps(),
+                               lane_tile=cfg.lane_tile or 0)
             st = carry.st
             wall = time.time() - t0
             superstep = carry.it

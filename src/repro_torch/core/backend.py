@@ -73,10 +73,26 @@ class CudaResidentBackend(CudaBackend):
     (`core/api._run_chunk`) calls `superstep_launch` once per K
     supersteps instead of driving `search.lanes_step` per superstep.
     As a plain `PropagationBackend` (EPS `decompose`) it is ``cuda``.
-    Only the one-queue mode of the reference (``lane_tile=0``) is
-    ported, so the dispatch trajectory equals the unfused loop's."""
+
+    ``lane_tile=0`` (default) keeps every lane in one pool queue, the
+    mode whose dispatch trajectory equals the unfused loop's; a positive
+    tile splits the lanes into `n_tiles` tiles with the pool strided
+    across them (the reference's ``pallas_resident`` lane tile: sound
+    and complete, a different dispatch trajectory)."""
 
     name = "cuda_resident"
+
+    def __init__(self, lane_tile: int = 0):
+        self.lane_tile = lane_tile or 0
+
+    def n_tiles(self, cm, n_lanes: int) -> int:
+        """Tiles of a launch over `n_lanes` lanes: 1 in the one-queue
+        mode, else ceil(n_lanes / tile).  The host scheduler sizes the
+        carry's pool cursors with it (`api._init_carry`)."""
+        if not self.lane_tile:
+            return 1
+        from repro_torch.kernels.fixpoint_kernel import lane_tiles
+        return lane_tiles(n_lanes, self.lane_tile)[1]
 
     def superstep_launch(self, cm, subs_lb, subs_ub, st, gbest, it,
                          pool_head, *, opts, supersteps: int):
@@ -85,7 +101,7 @@ class CudaResidentBackend(CudaBackend):
         from repro_torch.kernels.fixpoint_kernel import search_cuda
         return search_cuda(
             cm, subs_lb, subs_ub, st, gbest, it, pool_head,
-            supersteps=supersteps,
+            supersteps=supersteps, lane_tile=self.lane_tile,
             max_fixpoint_iters=opts.max_fixpoint_iters,
             var_strategy=opts.var_strategy,
             val_strategy=opts.val_strategy,
@@ -105,15 +121,16 @@ def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def get_backend(name: str) -> PropagationBackend:
-    """Instantiate a registered backend."""
+def get_backend(name: str, **opts) -> PropagationBackend:
+    """Instantiate a registered backend (``cuda_resident`` takes
+    ``lane_tile``)."""
     try:
         factory = _REGISTRY[name]
     except KeyError:
         raise ValueError(
             f"unknown propagation backend {name!r}; "
             f"available: {', '.join(available_backends())}") from None
-    return factory()
+    return factory(**opts)
 
 
 register_backend("gather", GatherBackend)

@@ -7,7 +7,7 @@ on it; lanes are the leading axis of every tensor.  Two stores per lane
 root with the whole decision path (full recomputation, no trail);
 branch & bound prunes against a shared best objective.
 
-`lanes_step` is one superstep in four phases: `dispatch_pool` (idle
+`lanes_step` is one superstep in four phases: `dispatch_pool_tile` (idle
 lanes pop the next EPS subproblems), `lane_load_tile` (load + B&B tell),
 **one** lane-batched backend fixpoint over the whole ``[n_lanes, V]``
 store tensor, and `lane_commit_tile` (record, backtrack or branch).  All
@@ -169,11 +169,6 @@ def dispatch_pool_tile(st: LaneState, pool_head, n_subs: int,
              else -((n_subs - tile_id) // -n_tiles))     # ceil shard size
     new_head = torch.clamp(pool_head + want.sum(dtype=I32), max=shard)
     return st._replace(next_sub=next_sub, done=done), new_head
-
-
-def dispatch_pool(st: LaneState, pool_head, n_subs: int):
-    """Single-queue view of `dispatch_pool_tile` (the unfused path)."""
-    return dispatch_pool_tile(st, pool_head, n_subs)
 
 
 def apply_path_tile(root_lb, root_ub, dec_var, dec_val, dec_flip, depth, *,
@@ -460,12 +455,16 @@ def lane_commit_tile(st: LaneState, pre: LanePrep, lb, ub, sweeps,
 
 
 def lanes_step(cm: CompiledModel, subs_lb, subs_ub, opts: SearchOptions,
-               st: LaneState, gbest, pool_head):
+               st: LaneState, gbest, pool_head, *, tile_id: int = 0,
+               n_tiles: int = 1):
     """One superstep over all lanes: pool dispatch → tile load → **one**
     lane-batched backend fixpoint over the whole ``[n_lanes, V]`` store
     tensor (one kernel launch under the ``cuda`` backend) → tile commit.
-    Returns (state', pool_head')."""
-    st, pool_head = dispatch_pool(st, pool_head, subs_lb.shape[0])
+    ``tile_id``/``n_tiles``: the lanes are tile ``tile_id`` of a
+    lane-tiled launch and draw from its pool shard
+    (`dispatch_pool_tile`).  Returns (state', pool_head')."""
+    st, pool_head = dispatch_pool_tile(st, pool_head, subs_lb.shape[0],
+                                       tile_id=tile_id, n_tiles=n_tiles)
     dom_track = cm.dom_track.view(torch.int32)
     pre = lane_load_tile(subs_lb, subs_ub, st, gbest, obj_var=cm.obj_var,
                          dom_off=cm.dom_off, dom_track=dom_track,

@@ -30,6 +30,9 @@
 // configuration) a sweep ORs the supports of each member's live values
 // and tests every value's support against the current table, from the
 // support table in L2: int32 (bitwise) operations.
+// An int64 model runs the same code at 64 bits (the library built with
+// -DFIXLANE_VAL=int64_t): the stores, candidates and value tables double
+// in width, and the sparse banks sort 128-bit keys.
 // The kernel allocates nothing and launches on the caller's stream.
 
 #include <cuda_runtime.h>
@@ -40,13 +43,14 @@
 namespace {
 
 using fixlane::THREADS;
+using Val = FIXLANE_VAL;
 
 struct Params {
-  fixlane::Tables t;
-  const int32_t* lb_in;       // [L, V]
-  const int32_t* ub_in;       // [L, V]
-  int32_t* lb_out;            // [L, V]
-  int32_t* ub_out;            // [L, V]
+  fixlane::Tables<Val> t;
+  const Val* lb_in;           // [L, V]
+  const Val* ub_in;           // [L, V]
+  Val* lb_out;                // [L, V]
+  Val* ub_out;                // [L, V]
   int32_t* sweeps;            // [L]
   int32_t* conv;              // [L]
   const uint32_t* dom_in;     // [L, V, W] when p.t.carry_dom
@@ -56,9 +60,9 @@ struct Params {
 
 template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 __global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
-  extern __shared__ int32_t smem[];
-  const fixlane::Smem s =
-      fixlane::carve<AD_SPARSE, CU_SPARSE, DOM>(p.t, smem);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const fixlane::Smem<Val> s =
+      fixlane::carve<Val, AD_SPARSE, CU_SPARSE, DOM>(p.t, smem);
   const int V = p.t.V;
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
@@ -73,10 +77,10 @@ __global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
   if (carry)
     for (int i = tid; i < VW; i += THREADS)
       s.dom(0)[i] = p.dom_in[(size_t)lane * VW + i];
-  fixlane::stage_tables<CU_SPARSE>(p.t, s);
+  fixlane::stage_tables<Val, CU_SPARSE>(p.t, s);
   const fixlane::LaneResult r =
-      fixlane::fixpoint_lane<AD_SPARSE, CU_SPARSE, DOM>(p.t, s,
-                                                       p.max_sweeps);
+      fixlane::fixpoint_lane<Val, AD_SPARSE, CU_SPARSE, DOM>(p.t, s,
+                                                            p.max_sweeps);
 
   for (int v = tid; v < V; v += THREADS) {
     p.lb_out[row + v] = s.lb(r.cur)[v];
@@ -119,19 +123,20 @@ extern "C" {
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // `tables`: the fixlane::N_TABLES tables and `dims`: the fixlane::N_DIMS
 // sizes, both in fixlane::Tables order; `dom_in`/`dom_out`: the [L, V, W]
-// bitset store in and out, or both null when none is carried.
+// bitset store in and out, or both null when none is carried.  The
+// stores and the value tables are of the library's width (Val).
 int fixpoint_launch(const void* const* tables, const int* dims,
-                    const int32_t* lb_in, const int32_t* ub_in,
-                    int32_t* lb_out, int32_t* ub_out, int32_t* sweeps,
+                    const Val* lb_in, const Val* ub_in,
+                    Val* lb_out, Val* ub_out, int32_t* sweeps,
                     int32_t* conv, const uint32_t* dom_in,
                     uint32_t* dom_out, int L, int max_sweeps,
                     void* stream) {
-  Params p{fixlane::tables_from(tables, dims, dom_in != nullptr),
+  Params p{fixlane::tables_from<Val>(tables, dims, dom_in != nullptr),
            lb_in, ub_in, lb_out, ub_out, sweeps, conv, dom_in, dom_out,
            max_sweeps};
   // shared-memory bytes of one CTA (kernels/fixpoint_kernel.py::
   // smem_budget uses the same formula)
-  const size_t smem = sizeof(int32_t) * fixlane::smem_words(p.t);
+  const size_t smem = fixlane::smem_bytes(p.t);
   cudaStream_t st = (cudaStream_t)stream;
   return fixlane::uses_dom(p.t) ? launch_dom<true>(p, L, smem, st)
                                 : launch_dom<false>(p, L, smem, st);

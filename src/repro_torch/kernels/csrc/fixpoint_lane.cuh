@@ -97,72 +97,110 @@
 // domain candidates are dropped and nothing is normalized.  Tables stay
 // in global memory (L2), as the other banks'.
 //
-// Arithmetic: int32 only (the wrappers reject int64 models).  Floor and
-// ceil division follow `_fdiv`/`_cdiv` (C++ `/` truncates toward zero).
-// The compile-time headroom (compile.py) keeps every intermediate the
-// reference computes in range; this code computes no others.
+// Arithmetic: every value of the store, every candidate and every value
+// table is of the model's width, `Val` (int32_t, or int64_t for a model
+// compiled to int64); index tables are int32 (the wrappers narrow an
+// int64 model's index tables once).  Each kernel source is built once
+// per width (FIXLANE_VAL, kernels/build.py).  Floor and ceil division
+// follow `_fdiv`/`_cdiv` (C++ `/` truncates toward zero).  The
+// compile-time headroom (compile.py) keeps every intermediate the
+// reference computes in range, linear products included; this code
+// computes no others.  The sparse banks' keys pack (segment, biased
+// value, kind) into 64 bits at int32 and into 128 bits at int64
+// (`SortKey`), so the key order is the reference's lexsort at both
+// widths.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The value width a library is built for: -DFIXLANE_VAL=int64_t gives the
+// int64 instances (kernels/build.py), int32_t is the default.
+#ifndef FIXLANE_VAL
+#define FIXLANE_VAL int32_t
+#endif
+
 namespace fixlane {
 
 constexpr int THREADS = 256;              // threads per CTA (one lane at a time)
-constexpr int32_t BIG = 0x7fffffff / 4;   // iinfo(int32).max // 4
-constexpr int32_t NEU_UB = BIG;
-constexpr int32_t NEU_LB = -BIG;
 
-__device__ __forceinline__ int32_t fdiv(int32_t p, int32_t q) {
-  int32_t r = p / q;
+// iinfo(Val).max // 4 and the neutral candidates of the model's width
+template <typename Val> struct Lim;
+template <> struct Lim<int32_t> {
+  static constexpr int32_t BIG = 0x7fffffff / 4;
+};
+template <> struct Lim<int64_t> {
+  static constexpr int64_t BIG = 0x7fffffffffffffffLL / 4;
+};
+
+template <typename Val>
+__device__ __forceinline__ Val fdiv(Val p, Val q) {
+  Val r = p / q;
   if ((p % q != 0) && ((p < 0) != (q < 0))) r -= 1;
   return r;
 }
 
-__device__ __forceinline__ int32_t cdiv(int32_t p, int32_t q) {
-  return -fdiv(-p, q);
+template <typename Val>
+__device__ __forceinline__ Val cdiv(Val p, Val q) {
+  return -fdiv<Val>(-p, q);
+}
+
+// Shared-memory atomics at the value's width (sm_90 has the 64-bit ones).
+__device__ __forceinline__ void atomic_max(int32_t* a, int32_t v) {
+  atomicMax(a, v);
+}
+__device__ __forceinline__ void atomic_min(int32_t* a, int32_t v) {
+  atomicMin(a, v);
+}
+__device__ __forceinline__ void atomic_max(int64_t* a, int64_t v) {
+  atomicMax((long long*)a, (long long)v);
+}
+__device__ __forceinline__ void atomic_min(int64_t* a, int64_t v) {
+  atomicMin((long long*)a, (long long)v);
 }
 
 // The model's propagator tables (global memory, read-only) and shapes.
 // The wrappers pass the N_TABLES pointers and N_DIMS sizes in this order
-// (kernels/fixpoint_kernel.py::kernel_tables, _c_tables).
+// (kernels/fixpoint_kernel.py::kernel_tables, _c_tables).  Value tables
+// are `const Val*`; index tables int32.
+template <typename Val>
 struct Tables {
   const int32_t* vidx;        // [P1, K]
-  const int32_t* coef;        // [P1, K]
-  const int32_t* rhs;         // [P1]
+  const Val* coef;            // [P1, K]
+  const Val* rhs;             // [P1]
   const int32_t* bidx;        // [P1]
   const int32_t* occ_prop;    // [V, D]
   const int32_t* occ_slot;    // [V, D]
   const int32_t* ad_vars;     // [A1, N]
-  const int32_t* ad_offs;     // [A1, N]
+  const Val* ad_offs;         // [A1, N]
   const int32_t* ad_mask;     // [A1, N]
   const int32_t* ad_occ_inst; // [V, Dad]
   const int32_t* ad_occ_pos;  // [V, Dad]
   const int32_t* ad_ptr;      // [A+2] packed row starts (CSR)
   const int32_t* ad_pk_var;   // [Mad]
-  const int32_t* ad_pk_off;   // [Mad]
+  const Val* ad_pk_off;       // [Mad]
   const int32_t* ad_pk_seg;   // [Mad] row of each slot, A for padding
   const int32_t* cu_svar;     // [C1, T]
-  const int32_t* cu_dur;      // [C1, T]
-  const int32_t* cu_dem;      // [C1, T]
-  const int32_t* cu_cap;      // [C1]
+  const Val* cu_dur;          // [C1, T]
+  const Val* cu_dem;          // [C1, T]
+  const Val* cu_cap;          // [C1]
   const int32_t* cu_occ_inst; // [V, Dcu]
   const int32_t* cu_occ_pos;  // [V, Dcu]
   const int32_t* cu_ptr;      // [C+2] packed row starts (CSR)
   const int32_t* cu_pk_svar;  // [Mcu]
-  const int32_t* cu_pk_dur;   // [Mcu]
-  const int32_t* cu_pk_dem;   // [Mcu]
+  const Val* cu_pk_dur;       // [Mcu]
+  const Val* cu_pk_dem;       // [Mcu]
   const int32_t* cu_pk_seg;   // [Mcu] row of each slot, C for padding
   const int32_t* ct_vars;     // [T1, R]
   const int32_t* ct_mask;     // [T1, R]
   const uint32_t* ct_supp;    // [T1, R, 32·W, TW] support bitsets
   const int32_t* ct_occ_inst; // [V, Dct]
   const int32_t* ct_occ_pos;  // [V, Dct]
-  const int32_t* dom_off;     // [V] value of bit 0 (the initial lb)
+  const Val* dom_off;         // [V] value of bit 0 (the initial lb)
   const uint32_t* dom_track;  // [V] nonzero: the var has domain words
-  const int32_t* box_lo;      // [V]
-  const int32_t* box_hi;      // [V]
+  const Val* box_lo;          // [V]
+  const Val* box_hi;          // [V]
   int V, P1, K, D, A1, N, Dad, n_alldiff, C1, T, Dcu, H, n_cumulative;
   int Mad, Mcu;               // packed slots
   int ad_sparse, cu_sparse;   // layouts: 1 = packed (sparse), 0 = dense
@@ -173,23 +211,26 @@ struct Tables {
 constexpr int N_TABLES = 35;
 constexpr int N_DIMS = 23;
 
-inline Tables tables_from(const void* const* tb, const int* d,
-                          int carry_dom) {
+template <typename Val>
+inline Tables<Val> tables_from(const void* const* tb, const int* d,
+                               int carry_dom) {
   const int32_t* const* t = (const int32_t* const*)tb;
-  return Tables{t[0],  t[1],  t[2],  t[3],  t[4],  t[5],  t[6],
-                t[7],  t[8],  t[9],  t[10], t[11], t[12], t[13],
-                t[14], t[15], t[16], t[17], t[18], t[19], t[20],
-                t[21], t[22], t[23], t[24], t[25], t[26], t[27],
-                (const uint32_t*)t[28], t[29], t[30], t[31],
-                (const uint32_t*)t[32], t[33], t[34],
-                d[0],  d[1],  d[2],  d[3],  d[4],  d[5],  d[6],
-                d[7],  d[8],  d[9],  d[10], d[11], d[12], d[13],
-                d[14], d[15], d[16], d[17], d[18], d[19], d[20],
-                d[21], d[22], carry_dom};
+  const Val* const* v = (const Val* const*)tb;
+  return Tables<Val>{t[0],  v[1],  v[2],  t[3],  t[4],  t[5],  t[6],
+                     v[7],  t[8],  t[9],  t[10], t[11], t[12], v[13],
+                     t[14], t[15], v[16], v[17], v[18], t[19], t[20],
+                     t[21], t[22], v[23], v[24], t[25], t[26], t[27],
+                     (const uint32_t*)t[28], t[29], t[30], v[31],
+                     (const uint32_t*)t[32], v[33], v[34],
+                     d[0],  d[1],  d[2],  d[3],  d[4],  d[5],  d[6],
+                     d[7],  d[8],  d[9],  d[10], d[11], d[12], d[13],
+                     d[14], d[15], d[16], d[17], d[18], d[19], d[20],
+                     d[21], d[22], carry_dom};
 }
 
 // The kernel instance of a model: Compact-Table or a carried store.
-__host__ __device__ inline bool uses_dom(const Tables& p) {
+template <typename Val>
+__host__ __device__ inline bool uses_dom(const Tables<Val>& p) {
   return p.n_table > 0 || p.carry_dom;
 }
 
@@ -199,112 +240,233 @@ __host__ __device__ inline int pow2_at_least(int n) {
   while (q < n) q <<= 1;
   return q;
 }
-__host__ __device__ inline int ad_sort_n(const Tables& p) {
+template <typename Val>
+__host__ __device__ inline int ad_sort_n(const Tables<Val>& p) {
   return pow2_at_least(p.Mad);
 }
-__host__ __device__ inline int cu_sort_n(const Tables& p) {
+template <typename Val>
+__host__ __device__ inline int cu_sort_n(const Tables<Val>& p) {
   return pow2_at_least(2 * p.Mcu);
 }
 
 constexpr int SCAN_WORDS = 32;   // a block scan's per-warp sums
 
-// 32-bit words of shared memory one lane's fixpoint needs, by bank; the
+// ---- sort keys ------------------------------------------------------------
+
+// Signed values in unsigned order (the bias that makes packed keys sort
+// as lexsort does), and back.
+__device__ __forceinline__ uint32_t biased(int32_t x) {
+  return (uint32_t)x ^ 0x80000000u;
+}
+__device__ __forceinline__ int32_t unbiased(uint32_t x) {
+  return (int32_t)(x ^ 0x80000000u);
+}
+__device__ __forceinline__ uint64_t biased(int64_t x) {
+  return (uint64_t)x ^ 0x8000000000000000ull;
+}
+__device__ __forceinline__ int64_t unbiased(uint64_t x) {
+  return (int64_t)(x ^ 0x8000000000000000ull);
+}
+
+// A 128-bit key, compared as (hi, lo).
+struct Key128 {
+  uint64_t hi, lo;
+};
+__device__ __forceinline__ bool operator>(const Key128& a, const Key128& b) {
+  return a.hi != b.hi ? a.hi > b.hi : a.lo > b.lo;
+}
+__device__ __forceinline__ bool operator<(const Key128& a, const Key128& b) {
+  return b > a;
+}
+
+// The sparse banks' packed keys at the model's width.  Cumulative event:
+// (segment, time, kind), kind 0 = end at ect, 1 = start at lst, so ends
+// sort before starts at equal times.  AllDifferent member: (segment, yl).
+// The last key sorts after every real one.
+template <typename Val> struct SortKey;
+template <> struct SortKey<int32_t> {
+  using T = uint64_t;
+  static __device__ __forceinline__ T last() { return ~0ull; }
+  static __device__ __forceinline__ T event(int seg, int32_t t, int kind) {
+    return ((uint64_t)(uint32_t)seg << 33) | ((uint64_t)biased(t) << 1) |
+           (uint64_t)kind;
+  }
+  static __device__ __forceinline__ int event_seg(T k) {
+    return (int)(k >> 33);
+  }
+  static __device__ __forceinline__ int32_t event_time(T k) {
+    return unbiased((uint32_t)(k >> 1));
+  }
+  static __device__ __forceinline__ T member(int seg, int32_t y) {
+    return ((uint64_t)(uint32_t)seg << 32) | (uint64_t)biased(y);
+  }
+  static __device__ __forceinline__ int member_seg(T k) {
+    return (int)(k >> 32);
+  }
+  static __device__ __forceinline__ int32_t member_value(T k) {
+    return unbiased((uint32_t)k);
+  }
+};
+// int64: the 65-bit (biased time, kind) spills one bit into hi.
+template <> struct SortKey<int64_t> {
+  using T = Key128;
+  static __device__ __forceinline__ T last() { return Key128{~0ull, ~0ull}; }
+  static __device__ __forceinline__ T event(int seg, int64_t t, int kind) {
+    const uint64_t b = biased(t);
+    return Key128{((uint64_t)(uint32_t)seg << 1) | (b >> 63),
+                  (b << 1) | (uint64_t)kind};
+  }
+  static __device__ __forceinline__ int event_seg(T k) {
+    return (int)(k.hi >> 1);
+  }
+  static __device__ __forceinline__ int64_t event_time(T k) {
+    return unbiased((uint64_t)(((k.hi & 1ull) << 63) | (k.lo >> 1)));
+  }
+  static __device__ __forceinline__ T member(int seg, int64_t y) {
+    return Key128{(uint64_t)(uint32_t)seg, biased(y)};
+  }
+  static __device__ __forceinline__ int member_seg(T k) {
+    return (int)k.hi;
+  }
+  static __device__ __forceinline__ int64_t member_value(T k) {
+    return unbiased(k.lo);
+  }
+};
+
+// ---- the shared-memory budget ----------------------------------------------
+
+// Bytes of a region of n items of T, rounded up to the value width, so
+// that every region starts aligned for a value (a no-op at int32).
+template <typename Val, typename T>
+__host__ __device__ inline size_t region(size_t n) {
+  if constexpr (sizeof(T) % sizeof(Val) == 0) return n * sizeof(T);
+  return (n * sizeof(T) + sizeof(Val) - 1) / sizeof(Val) * sizeof(Val);
+}
+
+// Bytes of shared memory one lane's fixpoint needs, by bank; the
 // wrappers' budget (kernels/fixpoint_kernel.py::smem_budget) uses the
 // same formula.  A bank counts only what its layout uses; a model
-// without AllDifferent rows gets no AllDifferent part.
-//   AllDifferent, dense:  yl, yu, candidate pair [A1, N] and a fail flag
-//     per row: 4·A1·N + A1;
-//   AllDifferent, sparse: sort keys (two words each) and payloads over
+// without AllDifferent rows gets no AllDifferent part.  V = value width,
+// K = key width (8 at int32, 16 at int64), I = an int32 region, each
+// region rounded up to V bytes:
+//   AllDifferent, dense:  yl, yu, candidate pair [A1, N] (V) and a fail
+//     flag per row (I);
+//   AllDifferent, sparse: sort keys (K) and member indices (I) over
 //     ad_sort_n, then syl, syu, min_inf, max_sup and the candidate pair
-//     over Mad, and a fail flag per row: 3·ad_sort_n + 6·Mad + A1;
-//   Cumulative, dense:  profile [C1, H], candidate pair and task table
-//     [C1, T], capacity and overload per row: C1·H + 5·C1·T + 2·C1;
-//   Cumulative, sparse: event keys and deltas (then the profile) over
-//     cu_sort_n, task table (svar, dur, dem, seg) and candidate pair over
-//     Mcu, capacity and overload per row, the scan's warp sums:
-//     3·cu_sort_n + 6·Mcu + 2·C1 + 32.
-__host__ __device__ inline size_t alldiff_words(const Tables& p) {
+//     over Mad (V), and a fail flag per row (I);
+//   Cumulative, dense:  profile [C1, H], candidate pair, durations and
+//     demands [C1, T] (V), start vars [C1, T] (I), capacity (V) and
+//     overload (I) per row;
+//   Cumulative, sparse: event keys (K) and deltas, then the profile (V),
+//     over cu_sort_n; the task table: start vars (I), durations and
+//     demands (V), segments (I); the candidate pair over Mcu (V);
+//     capacity (V) and overload (I) per row; the scan's warp sums (V).
+template <typename Val>
+__host__ __device__ inline size_t alldiff_bytes(const Tables<Val>& p) {
+  using Key = typename SortKey<Val>::T;
   if (p.n_alldiff <= 0) return 0;
-  if (p.ad_sparse)
-    return (size_t)3 * ad_sort_n(p) + (size_t)6 * p.Mad + (size_t)p.A1;
-  return (size_t)4 * p.A1 * p.N + (size_t)p.A1;
+  if (p.ad_sparse) {
+    const size_t n = ad_sort_n(p);
+    return region<Val, Key>(n) + region<Val, int32_t>(n) +
+           6 * region<Val, Val>(p.Mad) + region<Val, int32_t>(p.A1);
+  }
+  return 4 * region<Val, Val>((size_t)p.A1 * p.N) +
+         region<Val, int32_t>(p.A1);
 }
 
-__host__ __device__ inline size_t cumulative_words(const Tables& p) {
-  if (p.cu_sparse)
-    return (size_t)3 * cu_sort_n(p) + (size_t)6 * p.Mcu + (size_t)2 * p.C1 +
-           SCAN_WORDS;
-  return (size_t)p.C1 * p.H + (size_t)5 * p.C1 * p.T + (size_t)2 * p.C1;
+template <typename Val>
+__host__ __device__ inline size_t cumulative_bytes(const Tables<Val>& p) {
+  using Key = typename SortKey<Val>::T;
+  if (p.cu_sparse) {
+    const size_t n = cu_sort_n(p), M = p.Mcu;
+    return region<Val, Key>(n) + region<Val, Val>(n) +
+           2 * region<Val, int32_t>(M) + 4 * region<Val, Val>(M) +
+           region<Val, Val>(p.C1) + region<Val, int32_t>(p.C1) +
+           region<Val, Val>(SCAN_WORDS);
+  }
+  const size_t CT = (size_t)p.C1 * p.T;
+  return region<Val, Val>((size_t)p.C1 * p.H) + 4 * region<Val, Val>(CT) +
+         region<Val, int32_t>(CT) + region<Val, Val>(p.C1) +
+         region<Val, int32_t>(p.C1);
 }
 
-//   Compact-Table (tables only): the members' support words [T1, R, TW],
-//     the current tables [T1, TW], the hull candidate pair [T1, R] and
-//     the domain-word candidates [T1, R, W];
-//   bitset store (carried only): current and next words, 2·V·W.
-__host__ __device__ inline size_t table_words(const Tables& p) {
+//   Compact-Table (tables only): the members' support words [T1, R, TW]
+//     and the current tables [T1, TW] (I), the hull candidate pair
+//     [T1, R] (V) and the domain-word candidates [T1, R, W] (I);
+//   bitset store (carried only): current and next words, 2·V·W (I).
+template <typename Val>
+__host__ __device__ inline size_t table_bytes(const Tables<Val>& p) {
   if (p.n_table <= 0) return 0;
   const size_t TR = (size_t)p.T1 * p.R;
-  return TR * p.TW + (size_t)p.T1 * p.TW + 2 * TR + TR * p.W;
+  return region<Val, uint32_t>(TR * p.TW) +
+         region<Val, uint32_t>((size_t)p.T1 * p.TW) +
+         2 * region<Val, Val>(TR) + region<Val, uint32_t>(TR * p.W);
 }
 
-__host__ __device__ inline size_t dom_words(const Tables& p) {
-  return p.carry_dom ? (size_t)2 * p.V * p.W : 0;
+template <typename Val>
+__host__ __device__ inline size_t dom_bytes(const Tables<Val>& p) {
+  return p.carry_dom ? region<Val, uint32_t>((size_t)2 * p.V * p.W) : 0;
 }
 
-__host__ __device__ inline size_t smem_words(const Tables& p) {
-  return (size_t)4 * p.V + (size_t)2 * p.P1 * (p.K + 1) +
-         cumulative_words(p) + alldiff_words(p) + table_words(p) +
-         dom_words(p);
+// Stores (current and next lb/ub, 4·V values), the linear candidate pair
+// [P1, K+1] and the banks.
+template <typename Val>
+__host__ __device__ inline size_t smem_bytes(const Tables<Val>& p) {
+  return sizeof(Val) * ((size_t)4 * p.V + (size_t)2 * p.P1 * (p.K + 1)) +
+         cumulative_bytes(p) + alldiff_bytes(p) + table_bytes(p) +
+         dom_bytes(p);
 }
 
 // The fixpoint's view of a CTA's shared memory.  Store buffer c (0 or
-// 1) is lb(c), ub(c): [lb0 | ub0 | lb1 | ub1], V words each (computed
+// 1) is lb(c), ub(c): [lb0 | ub0 | lb1 | ub1], V values each (computed
 // addresses, so no pointer array lands on the stack).
+template <typename Val>
 struct Smem {
-  int32_t* store;
+  using Key = typename SortKey<Val>::T;
+  Val* store;
   int V;
-  __device__ __forceinline__ int32_t* lb(int c) const {
+  __device__ __forceinline__ Val* lb(int c) const {
     return store + 2 * c * V;
   }
-  __device__ __forceinline__ int32_t* ub(int c) const {
+  __device__ __forceinline__ Val* ub(int c) const {
     return store + 2 * c * V + V;
   }
-  int32_t* clb;     // [P1, K+1]
-  int32_t* cub;     // [P1, K+1]
+  Val* clb;         // [P1, K+1]
+  Val* cub;         // [P1, K+1]
   // Cumulative; dense: [C1, H] profile, [C1, T] pair and task table;
   // sparse: [Mcu] pair and task table, [cu_sort_n] keys and deltas
-  int32_t* prof;    // dense only
-  int32_t* ulb;
-  int32_t* uub;
+  Val* prof;        // dense only
+  Val* ulb;
+  Val* uub;
   int32_t* t_svar;
-  int32_t* t_dur;
-  int32_t* t_dem;
+  Val* t_dur;
+  Val* t_dem;
   int32_t* t_seg;   // sparse only
-  int32_t* t_cap;   // [C1]
+  Val* t_cap;       // [C1]
   int32_t* ovl;     // [C1]
-  uint64_t* ckey;   // sparse: event keys (seg, time, kind)
-  int32_t* cval;    // sparse: event deltas, then the profile
-  int32_t* wsum;    // sparse: the prefix sum's per-warp sums
+  Key* ckey;        // sparse: event keys (seg, time, kind)
+  Val* cval;        // sparse: event deltas, then the profile
+  Val* wsum;        // sparse: the prefix sum's per-warp sums
   // AllDifferent; dense: [A1, N] shifted member bounds and pair (shifted);
   // sparse: [Mad] sorted bounds, Hall folds and the pair in packed order
   // (unshifted), [ad_sort_n] keys (seg, yl) and member indices
-  int32_t* yl;      // dense only
-  int32_t* yu;      // dense only
-  int32_t* syl;     // sparse only
-  int32_t* syu;     // sparse only
-  int32_t* minf;    // sparse only
-  int32_t* msup;    // sparse only
-  int32_t* alb;
-  int32_t* aub;
+  Val* yl;          // dense only
+  Val* yu;          // dense only
+  Val* syl;         // sparse only
+  Val* syu;         // sparse only
+  Val* minf;        // sparse only
+  Val* msup;        // sparse only
+  Val* alb;
+  Val* aub;
   int32_t* afail;   // [A1] pigeonhole failure per row
-  uint64_t* akey;   // sparse only
+  Key* akey;        // sparse only
   int32_t* aval;    // sparse only
   // Compact-Table and the bitset store (DOM instances only)
   uint32_t* domst;  // [dom0 | dom1], V·W words each (carried only)
   uint32_t* ctor;   // [T1, R, TW] OR of each member's supports
   uint32_t* ctcur;  // [T1, TW] current tables
-  int32_t* ctlb;    // [T1, R]
-  int32_t* ctub;    // [T1, R]
+  Val* ctlb;        // [T1, R]
+  Val* ctub;        // [T1, R]
   uint32_t* ctdom;  // [T1, R, W]
   __device__ __forceinline__ uint32_t* dom(int c) const {
     return domst + (size_t)c * V * W;
@@ -312,95 +474,92 @@ struct Smem {
   int W;
 };
 
-// The 64-bit sort keys come right after the stores and the linear pair
-// (4·V + 2·P1·(K+1) words, an even number), so they are 8-byte aligned;
-// the other regions follow, the Compact-Table and bitset regions (32-bit
-// words) last.  The total is smem_words'.  The layouts and DOM are
-// template parameters (equal to p.ad_sparse, p.cu_sparse, uses_dom(p)),
-// so each kernel instance computes its own layout's addresses only.
-template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
-__device__ __forceinline__ Smem carve(const Tables& p, int32_t* base) {
+// Hands out the regions of a CTA's shared memory in order, each rounded
+// up to the value width (`region`).
+template <typename Val>
+struct Carver {
+  unsigned char* at;
+  template <typename T>
+  __device__ __forceinline__ T* take(size_t n) {
+    T* r = (T*)at;
+    at += region<Val, T>(n);
+    return r;
+  }
+};
+
+// The sort keys come right after the stores and the linear pair (at
+// int32 an even number of words, so they are 8-byte aligned; at int64
+// every region is), the other regions follow, the Compact-Table and
+// bitset regions last.  The total is smem_bytes'.  The layouts and DOM
+// are template parameters (equal to p.ad_sparse, p.cu_sparse,
+// uses_dom(p)), so each kernel instance computes its own layout's
+// addresses only.
+template <typename Val, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+__device__ __forceinline__ Smem<Val> carve(const Tables<Val>& p,
+                                           unsigned char* base) {
+  using Key = typename SortKey<Val>::T;
   const int V = p.V, K1 = p.K + 1, C1 = p.C1;
-  Smem s = {};
-  s.store = base;
+  Smem<Val> s = {};
+  Carver<Val> c{base};
+  s.store = c.template take<Val>(4 * V);
   s.V = V;
-  s.clb = base + 4 * V;
-  s.cub = s.clb + p.P1 * K1;
-  int32_t* w = s.cub + p.P1 * K1;
+  s.clb = c.template take<Val>(p.P1 * K1);
+  s.cub = c.template take<Val>(p.P1 * K1);
   const bool ad_sparse = AD_SPARSE && p.n_alldiff > 0;
-  if (ad_sparse) {
-    s.akey = (uint64_t*)w;
-    w += 2 * ad_sort_n(p);
-  }
+  if (ad_sparse) s.akey = c.template take<Key>(ad_sort_n(p));
+  if (CU_SPARSE) s.ckey = c.template take<Key>(cu_sort_n(p));
   if (CU_SPARSE) {
-    s.ckey = (uint64_t*)w;
-    w += 2 * cu_sort_n(p);
-  }
-  if (CU_SPARSE) {
-    const int n = cu_sort_n(p), M = p.Mcu;
-    s.cval = w;
-    w += n;
-    s.t_svar = w;
-    s.t_dur = w + M;
-    s.t_dem = w + 2 * M;
-    s.t_seg = w + 3 * M;
-    s.ulb = w + 4 * M;
-    s.uub = w + 5 * M;
-    w += 6 * M;
-    s.t_cap = w;
-    s.ovl = w + C1;
-    s.wsum = w + 2 * C1;
-    w += 2 * C1 + SCAN_WORDS;
+    const int M = p.Mcu;
+    s.cval = c.template take<Val>(cu_sort_n(p));
+    s.t_svar = c.template take<int32_t>(M);
+    s.t_dur = c.template take<Val>(M);
+    s.t_dem = c.template take<Val>(M);
+    s.t_seg = c.template take<int32_t>(M);
+    s.ulb = c.template take<Val>(M);
+    s.uub = c.template take<Val>(M);
+    s.t_cap = c.template take<Val>(C1);
+    s.ovl = c.template take<int32_t>(C1);
+    s.wsum = c.template take<Val>(SCAN_WORDS);
   } else {
     const int CT = C1 * p.T;
-    s.prof = w;
-    w += C1 * p.H;
-    s.ulb = w;
-    s.uub = w + CT;
-    s.t_svar = w + 2 * CT;
-    s.t_dur = w + 3 * CT;
-    s.t_dem = w + 4 * CT;
-    w += 5 * CT;
-    s.t_cap = w;
-    s.ovl = w + C1;
-    w += 2 * C1;
+    s.prof = c.template take<Val>(C1 * p.H);
+    s.ulb = c.template take<Val>(CT);
+    s.uub = c.template take<Val>(CT);
+    s.t_svar = c.template take<int32_t>(CT);
+    s.t_dur = c.template take<Val>(CT);
+    s.t_dem = c.template take<Val>(CT);
+    s.t_cap = c.template take<Val>(C1);
+    s.ovl = c.template take<int32_t>(C1);
   }
   if (ad_sparse) {
-    const int n = ad_sort_n(p), M = p.Mad;
-    s.aval = w;
-    w += n;
-    s.syl = w;
-    s.syu = w + M;
-    s.minf = w + 2 * M;
-    s.msup = w + 3 * M;
-    s.alb = w + 4 * M;
-    s.aub = w + 5 * M;
-    s.afail = w + 6 * M;
-    w += 6 * M + p.A1;
+    const int M = p.Mad;
+    s.aval = c.template take<int32_t>(ad_sort_n(p));
+    s.syl = c.template take<Val>(M);
+    s.syu = c.template take<Val>(M);
+    s.minf = c.template take<Val>(M);
+    s.msup = c.template take<Val>(M);
+    s.alb = c.template take<Val>(M);
+    s.aub = c.template take<Val>(M);
+    s.afail = c.template take<int32_t>(p.A1);
   } else if (p.n_alldiff > 0) {
     const int AN = p.A1 * p.N;
-    s.yl = w;
-    s.yu = w + AN;
-    s.alb = w + 2 * AN;
-    s.aub = w + 3 * AN;
-    s.afail = w + 4 * AN;
-    w += 4 * AN + p.A1;
+    s.yl = c.template take<Val>(AN);
+    s.yu = c.template take<Val>(AN);
+    s.alb = c.template take<Val>(AN);
+    s.aub = c.template take<Val>(AN);
+    s.afail = c.template take<int32_t>(p.A1);
   }
   if (DOM) {
     s.W = p.W;
     if (p.n_table > 0) {
       const int TR = p.T1 * p.R;
-      s.ctor = (uint32_t*)w;
-      w += TR * p.TW;
-      s.ctcur = (uint32_t*)w;
-      w += p.T1 * p.TW;
-      s.ctlb = w;
-      s.ctub = w + TR;
-      w += 2 * TR;
-      s.ctdom = (uint32_t*)w;
-      w += TR * p.W;
+      s.ctor = c.template take<uint32_t>(TR * p.TW);
+      s.ctcur = c.template take<uint32_t>(p.T1 * p.TW);
+      s.ctlb = c.template take<Val>(TR);
+      s.ctub = c.template take<Val>(TR);
+      s.ctdom = c.template take<uint32_t>(TR * p.W);
     }
-    if (p.carry_dom) s.domst = (uint32_t*)w;
+    if (p.carry_dom) s.domst = c.template take<uint32_t>(2 * V * p.W);
   }
   return s;
 }
@@ -408,8 +567,9 @@ __device__ __forceinline__ Smem carve(const Tables& p, int32_t* base) {
 // Stage the cumulative task table in shared memory and clear the
 // overload flags; once per CTA, before its first fixpoint.  The caller
 // synchronises (fixpoint_lane starts with a barrier).
-template <bool CU_SPARSE>
-__device__ __forceinline__ void stage_tables(const Tables& p, const Smem& s) {
+template <typename Val, bool CU_SPARSE>
+__device__ __forceinline__ void stage_tables(const Tables<Val>& p,
+                                             const Smem<Val>& s) {
   if (p.n_cumulative <= 0) return;
   const int tid = threadIdx.x;
   if (CU_SPARSE) {
@@ -436,27 +596,35 @@ __device__ __forceinline__ void stage_tables(const Tables& p, const Smem& s) {
 
 constexpr int WARPS = THREADS / 32;
 
+__device__ __forceinline__ int32_t shfl_up(int32_t x, int o) {
+  return __shfl_up_sync(0xffffffffu, x, o);
+}
+__device__ __forceinline__ int64_t shfl_up(int64_t x, int o) {
+  return (int64_t)__shfl_up_sync(0xffffffffu, (long long)x, o);
+}
+
 // Exclusive prefix sum of one value per thread over the CTA; `wsum` holds
-// 32 words.  Returns the thread's prefix and writes the total.
-__device__ int block_exclusive_scan(int v, int32_t* wsum, int* total) {
+// 32 values.  Returns the thread's prefix and writes the total.
+template <typename T>
+__device__ T block_exclusive_scan(T v, T* wsum, T* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
+  T x = v;
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    const T y = shfl_up(x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) wsum[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int w = lane < WARPS ? wsum[lane] : 0;
+    T w = lane < WARPS ? wsum[lane] : 0;
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      const T y = shfl_up(w, o);
       if (lane >= o) w += y;
     }
     if (lane < WARPS) wsum[lane] = w;
   }
   __syncthreads();
-  const int before = warp ? wsum[warp - 1] : 0;
+  const T before = warp ? wsum[warp - 1] : 0;
   *total = wsum[WARPS - 1];
   __syncthreads();                       // wsum may be reused
   return before + x - v;
@@ -464,13 +632,14 @@ __device__ int block_exclusive_scan(int v, int32_t* wsum, int* total) {
 
 // In-place inclusive prefix sum of x[0, n): a run per thread, the runs'
 // offsets by block_exclusive_scan.  Ends with a barrier.
-__device__ void block_inclusive_scan(int32_t* x, int n, int32_t* wsum) {
+template <typename Val>
+__device__ void block_inclusive_scan(Val* x, int n, Val* wsum) {
   const int per = (n + THREADS - 1) / THREADS;
   const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
-  int32_t sum = 0;
+  Val sum = 0;
   for (int i = lo; i < hi; ++i) sum += x[i];
-  int total;
-  int32_t run = block_exclusive_scan(sum, wsum, &total);
+  Val total;
+  Val run = block_exclusive_scan<Val>(sum, wsum, &total);
   for (int i = lo; i < hi; ++i) {
     run += x[i];
     x[i] = run;
@@ -478,21 +647,22 @@ __device__ void block_inclusive_scan(int32_t* x, int n, int32_t* wsum) {
   __syncthreads();
 }
 
-// Sort n (a power of two) 64-bit keys ascending in shared memory, each
-// with its payload: a bitonic network, n/2 compare-exchanges per step
-// spread over the CTA.  Equal keys are never swapped.  The caller
-// synchronises before (the keys are written); it ends with a barrier.
-__device__ void block_sort(uint64_t* key, int32_t* val, int n) {
+// Sort n (a power of two) keys ascending in shared memory, each with its
+// payload: a bitonic network, n/2 compare-exchanges per step spread over
+// the CTA.  Equal keys are never swapped.  The caller synchronises before
+// (the keys are written); it ends with a barrier.
+template <typename Key, typename P>
+__device__ void block_sort(Key* key, P* val, int n) {
   for (int k = 2; k <= n; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int t = threadIdx.x; t < (n >> 1); t += THREADS) {
         const int i = 2 * j * (t / j) + (t % j);   // bit j of i is clear
         const int l = i + j;
-        const uint64_t a = key[i], b = key[l];
+        const Key a = key[i], b = key[l];
         if ((i & k) == 0 ? a > b : a < b) {
           key[i] = b;
           key[l] = a;
-          const int32_t x = val[i];
+          const P x = val[i];
           val[i] = val[l];
           val[l] = x;
         }
@@ -502,43 +672,30 @@ __device__ void block_sort(uint64_t* key, int32_t* val, int n) {
   }
 }
 
-// Signed int32 in unsigned order (the bias that makes packed keys sort
-// as lexsort does), and back.
-__device__ __forceinline__ uint32_t biased(int32_t x) {
-  return (uint32_t)x ^ 0x80000000u;
-}
-__device__ __forceinline__ int32_t unbiased(uint32_t x) {
-  return (int32_t)(x ^ 0x80000000u);
-}
-
 // ---- the sparse Cumulative bank ------------------------------------------
 
-// Event key: segment, biased time, kind (0 = end at ect, 1 = start at
-// lst), so ends sort before starts at equal times.
-__device__ __forceinline__ int32_t ev_time(uint64_t k) {
-  return unbiased((uint32_t)(k >> 1));
-}
-
-// Step (1): one thread per event slot writes its key and delta; the
-// power-of-two tail gets keys that sort last.
-__device__ void cu_sparse_events(const Tables& p, const Smem& s,
-                                 const int32_t* lb, const int32_t* ub) {
+// Step (1): one thread per event slot writes its key (segment, time,
+// kind) and delta; the power-of-two tail gets keys that sort last.
+template <typename Val>
+__device__ void cu_sparse_events(const Tables<Val>& p, const Smem<Val>& s,
+                                 const Val* lb, const Val* ub) {
+  using SK = SortKey<Val>;
   const int M = p.Mcu, n = cu_sort_n(p);
   for (int e = threadIdx.x; e < n; e += THREADS) {
     if (e >= 2 * M) {
-      s.ckey[e] = ~0ull;
+      s.ckey[e] = SK::last();
       s.cval[e] = 0;
       continue;
     }
     const bool start = e < M;
     const int m = start ? e : e - M;
-    const int32_t d = s.t_dur[m], q = s.t_dem[m], c = s.t_seg[m];
+    const Val d = s.t_dur[m], q = s.t_dem[m];
+    const int c = s.t_seg[m];
     const int v = s.t_svar[m];
-    const int32_t est = lb[v], lst = ub[v];
+    const Val est = lb[v], lst = ub[v];
     const bool cp = c < p.n_cumulative && d > 0 && q > 0 && lst < est + d;
-    const int32_t t = start ? lst : est + d;
-    s.ckey[e] = ((uint64_t)(uint32_t)c << 33) | ((uint64_t)biased(t) << 1) |
-                (uint64_t)start;
+    const Val t = start ? lst : est + d;
+    s.ckey[e] = SK::event(c, t, start);
     s.cval[e] = cp ? (start ? q : -q) : 0;
   }
 }
@@ -546,44 +703,47 @@ __device__ void cu_sparse_events(const Tables& p, const Smem& s,
 // Step (2): sort, profile, per-row overload, then one thread per task
 // finds its first and last feasible start.  Barriers separate its
 // passes; the caller synchronises after the last.
-__device__ void cu_sparse_scan(const Tables& p, const Smem& s,
-                               const int32_t* lb, const int32_t* ub) {
+template <typename Val>
+__device__ void cu_sparse_scan(const Tables<Val>& p, const Smem<Val>& s,
+                               const Val* lb, const Val* ub) {
+  using SK = SortKey<Val>;
+  constexpr Val NEU_UB = Lim<Val>::BIG, NEU_LB = -Lim<Val>::BIG;
   const int M = p.Mcu, E = 2 * M;
   block_sort(s.ckey, s.cval, cu_sort_n(p));
-  block_inclusive_scan(s.cval, cu_sort_n(p), s.wsum);
+  block_inclusive_scan<Val>(s.cval, cu_sort_n(p), s.wsum);
   // an overloaded non-empty interval [u, v) fails its row
   for (int e = threadIdx.x; e < E; e += THREADS) {
-    const uint64_t k = s.ckey[e];
-    const int c = (int)(k >> 33);
-    const int32_t u = ev_time(k);
-    const int32_t v = (e + 1 < E && (int)(s.ckey[e + 1] >> 33) == c)
-                          ? ev_time(s.ckey[e + 1]) : u;
+    const auto k = s.ckey[e];
+    const int c = SK::event_seg(k);
+    const Val u = SK::event_time(k);
+    const Val v = (e + 1 < E && SK::event_seg(s.ckey[e + 1]) == c)
+                      ? SK::event_time(s.ckey[e + 1]) : u;
     if (u < v && s.cval[e] > s.t_cap[c]) s.ovl[c] = 1;  // benign race
   }
   __syncthreads();
   for (int m = threadIdx.x; m < M; m += THREADS) {
-    const int32_t d = s.t_dur[m], q = s.t_dem[m];
+    const Val d = s.t_dur[m], q = s.t_dem[m];
     const int c = s.t_seg[m];
     if (!(c < p.n_cumulative && d > 0 && q > 0)) {
       s.ulb[m] = NEU_LB;
       s.uub[m] = NEU_UB;
       continue;
     }
-    const int32_t cap = s.t_cap[c];
+    const Val cap = s.t_cap[c];
     if (q > cap) {                 // a lone task over capacity
       s.ulb[m] = -NEU_LB;
       s.uub[m] = -NEU_UB;
       continue;
     }
     const int v = s.t_svar[m];
-    const int32_t est = lb[v], lst = ub[v], ect = est + d;
+    const Val est = lb[v], lst = ub[v], ect = est + d;
     const bool cp = lst < ect;
     const int e0 = 2 * __ldg(p.cu_ptr + c), e1 = 2 * __ldg(p.cu_ptr + c + 1);
     // first feasible start >= est: jump past each forbidden interval
-    int32_t st = est;
-    int32_t u = e0 < e1 ? ev_time(s.ckey[e0]) : 0;
+    Val st = est;
+    Val u = e0 < e1 ? SK::event_time(s.ckey[e0]) : 0;
     for (int e = e0; e < e1; ++e) {
-      const int32_t v_ = e + 1 < e1 ? ev_time(s.ckey[e + 1]) : u;
+      const Val v_ = e + 1 < e1 ? SK::event_time(s.ckey[e + 1]) : u;
       if (u < v_) {
         const bool own = cp && u >= lst && u < ect;
         if (s.cval[e] + (own ? 0 : q) > cap && st < v_ && st + d > u)
@@ -592,10 +752,10 @@ __device__ void cu_sparse_scan(const Tables& p, const Smem& s,
       u = v_;
     }
     // last feasible start <= lst: jump before each forbidden interval
-    int32_t sl = lst;
-    int32_t v_ = e1 > e0 ? ev_time(s.ckey[e1 - 1]) : 0;
+    Val sl = lst;
+    Val v_ = e1 > e0 ? SK::event_time(s.ckey[e1 - 1]) : 0;
     for (int e = e1 - 1; e >= e0; --e) {
-      const int32_t u_ = ev_time(s.ckey[e]);
+      const Val u_ = SK::event_time(s.ckey[e]);
       if (u_ < v_) {
         const bool own = cp && u_ >= lst && u_ < ect;
         if (s.cval[e] + (own ? 0 : q) > cap && sl < v_ && sl + d > u_)
@@ -612,20 +772,21 @@ __device__ void cu_sparse_scan(const Tables& p, const Smem& s,
 
 // Step (1): one thread per key slot writes (seg, yl) and the member
 // index; the Hall folds and fail flags are cleared.
-__device__ void ad_sparse_keys(const Tables& p, const Smem& s,
-                               const int32_t* lb) {
+template <typename Val>
+__device__ void ad_sparse_keys(const Tables<Val>& p, const Smem<Val>& s,
+                               const Val* lb) {
+  using SK = SortKey<Val>;
   const int M = p.Mad, n = ad_sort_n(p);
   for (int i = threadIdx.x; i < n; i += THREADS) {
     if (i >= M) {
-      s.akey[i] = ~0ull;
+      s.akey[i] = SK::last();
       s.aval[i] = 0;
       continue;
     }
-    const int32_t yl = lb[__ldg(p.ad_pk_var + i)] + __ldg(p.ad_pk_off + i);
-    s.akey[i] = ((uint64_t)(uint32_t)__ldg(p.ad_pk_seg + i) << 32) |
-                (uint64_t)biased(yl);
+    const Val yl = lb[__ldg(p.ad_pk_var + i)] + __ldg(p.ad_pk_off + i);
+    s.akey[i] = SK::member(__ldg(p.ad_pk_seg + i), yl);
     s.aval[i] = i;
-    s.msup[i] = NEU_LB;
+    s.msup[i] = -Lim<Val>::BIG;
   }
   for (int a = threadIdx.x; a < p.A1; a += THREADS) s.afail[a] = 0;
 }
@@ -633,34 +794,37 @@ __device__ void ad_sparse_keys(const Tables& p, const Smem& s,
 // Step (2): sort, Hall counts and folds, pushes.  Writes the candidate
 // pair in packed order, unshifted (a failed row's lb at -NEU_LB - off).
 // Barriers separate its passes; the caller synchronises after the last.
-__device__ void ad_sparse_hall(const Tables& p, const Smem& s,
-                               const int32_t* ub) {
+template <typename Val>
+__device__ void ad_sparse_hall(const Tables<Val>& p, const Smem<Val>& s,
+                               const Val* ub) {
+  using SK = SortKey<Val>;
+  constexpr Val NEU_UB = Lim<Val>::BIG, NEU_LB = -Lim<Val>::BIG;
   const int M = p.Mad, A = p.n_alldiff;
   block_sort(s.akey, s.aval, ad_sort_n(p));
   for (int i = threadIdx.x; i < M; i += THREADS) {
     const int m = s.aval[i];
-    s.syl[i] = unbiased((uint32_t)s.akey[i]);
+    s.syl[i] = SK::member_value(s.akey[i]);
     s.syu[i] = ub[__ldg(p.ad_pk_var + m)] + __ldg(p.ad_pk_off + m);
   }
   __syncthreads();
   // one thread per upper endpoint j: cnt(i, j) by the suffix count
   for (int j = threadIdx.x; j < M; j += THREADS) {
-    const int c = (int)(s.akey[j] >> 32);
+    const int c = SK::member_seg(s.akey[j]);
     if (c >= A) continue;                       // padding
     const int s0 = __ldg(p.ad_ptr + c), s1 = __ldg(p.ad_ptr + c + 1);
-    const int32_t b = s.syu[j];
-    int32_t cnt = 0, mi = NEU_UB;
+    const Val b = s.syu[j];
+    Val cnt = 0, mi = NEU_UB;
     bool fail = false;
     for (int x = s1 - 1; x >= s0; --x) {
       cnt += s.syu[x] <= b;
-      const int32_t a = s.syl[x];
+      const Val a = s.syl[x];
       if ((x == s0 || s.syl[x - 1] != a) && a <= b) {  // first of its key
-        const int32_t width = b - a + 1;
+        const Val width = b - a + 1;
         if (cnt > width) {
           fail = true;
         } else if (cnt == width) {              // Hall interval [a, b]
           mi = min(mi, a);
-          atomicMax(s.msup + x, b);
+          atomic_max(s.msup + x, b);
         }
       }
     }
@@ -670,15 +834,15 @@ __device__ void ad_sparse_hall(const Tables& p, const Smem& s,
   __syncthreads();
   // one thread per member k: push out of the Hall intervals of its row
   for (int k = threadIdx.x; k < M; k += THREADS) {
-    const int c = (int)(s.akey[k] >> 32);
+    const int c = SK::member_seg(s.akey[k]);
     const int m = s.aval[k];
-    const int32_t off = __ldg(p.ad_pk_off + m);
-    int32_t slb = NEU_LB, sub = NEU_UB;
+    const Val off = __ldg(p.ad_pk_off + m);
+    Val slb = NEU_LB, sub = NEU_UB;
     if (c < A) {
       const int s0 = __ldg(p.ad_ptr + c), s1 = __ldg(p.ad_ptr + c + 1);
-      const int32_t yl = s.syl[k], yu = s.syu[k];
+      const Val yl = s.syl[k], yu = s.syu[k];
       for (int x = s0; x < s1; ++x) {
-        const int32_t b = s.syu[x], a = s.syl[x];
+        const Val b = s.syu[x], a = s.syl[x];
         if (s.minf[x] <= yl && yl <= b && b < yu) slb = max(slb, b + 1);
         if (yl < a && a <= yu && yu <= s.msup[x]) sub = min(sub, a - 1);
       }
@@ -691,34 +855,37 @@ __device__ void ad_sparse_hall(const Tables& p, const Smem& s,
 
 // Is time point tau forbidden for task (c, t)?  The profile without the
 // task's own compulsory part, plus its demand, exceeds the capacity.
-__device__ __forceinline__ bool bad_at(const int32_t* prof_c, int tau,
-                                       int32_t est, int32_t lst, int32_t d,
-                                       int32_t q, int32_t cap) {
-  int32_t own = (lst <= tau && tau < est + d) ? q : 0;
+template <typename Val>
+__device__ __forceinline__ bool bad_at(const Val* prof_c, Val tau, Val est,
+                                       Val lst, Val d, Val q, Val cap) {
+  Val own = (lst <= tau && tau < est + d) ? q : 0;
   return prof_c[tau] - own + q > cap;
 }
 
 // ---- Compact-Table and the bitset store -----------------------------------
 
 // Word with bits [0, n) set, n clipped into [0, 32] (bitset.low_mask).
-__device__ __forceinline__ uint32_t low_mask(int32_t n) {
+template <typename Val>
+__device__ __forceinline__ uint32_t low_mask(Val n) {
   return n >= 32 ? 0xffffffffu : (n <= 0 ? 0u : (1u << n) - 1u);
 }
 
 // Word w of the interval [lo, hi] as domain bits from `off`
 // (bitset.from_bounds).
-__device__ __forceinline__ uint32_t range_word(int32_t lo, int32_t hi,
-                                               int32_t off, int w) {
-  const int32_t base = 32 * w;
-  return low_mask(hi - off + 1 - base) & ~low_mask(lo - off - base);
+template <typename Val>
+__device__ __forceinline__ uint32_t range_word(Val lo, Val hi, Val off,
+                                               int w) {
+  const Val base = 32 * w;
+  return low_mask<Val>(hi - off + 1 - base) & ~low_mask<Val>(lo - off - base);
 }
 
 // Step (1): one thread per (row, member, support word) ORs the supports of
 // the member's live values; a padded slot gets all-ones.  The member's
 // words are the carried store's or, without one, the range words of the
 // current bounds (all-ones for an untracked variable).
-__device__ void ct_supports(const Tables& p, const Smem& s, int cur,
-                            const int32_t* lb, const int32_t* ub) {
+template <typename Val>
+__device__ void ct_supports(const Tables<Val>& p, const Smem<Val>& s,
+                            int cur, const Val* lb, const Val* ub) {
   const int TW = p.TW, W = p.W, K32 = 32 * p.W;
   for (int i = threadIdx.x; i < p.T1 * p.R * TW; i += THREADS) {
     const int tr = i / TW, tw = i - tr * TW;
@@ -727,11 +894,11 @@ __device__ void ct_supports(const Tables& p, const Smem& s, int cur,
       const int v = __ldg(p.ct_vars + tr);
       const uint32_t* sp = p.ct_supp + (size_t)tr * K32 * TW + tw;
       const bool trk = __ldg(p.dom_track + v) != 0;
-      const int32_t off = __ldg(p.dom_off + v);
+      const Val off = __ldg(p.dom_off + v);
       acc = 0;
       for (int w = 0; w < W; ++w) {
         uint32_t word = p.carry_dom ? s.dom(cur)[v * W + w]
-                        : trk       ? range_word(lb[v], ub[v], off, w)
+                        : trk       ? range_word<Val>(lb[v], ub[v], off, w)
                                     : 0xffffffffu;
         while (word) {
           const int b = __ffs(word) - 1;
@@ -746,7 +913,8 @@ __device__ void ct_supports(const Tables& p, const Smem& s, int cur,
 
 // Step (2): one thread per (row, support word) ANDs the members' words
 // into the current table.
-__device__ void ct_current(const Tables& p, const Smem& s) {
+template <typename Val>
+__device__ void ct_current(const Tables<Val>& p, const Smem<Val>& s) {
   const int R = p.R, TW = p.TW;
   for (int i = threadIdx.x; i < p.T1 * TW; i += THREADS) {
     const int t = i / TW, tw = i - t * TW;
@@ -760,7 +928,9 @@ __device__ void ct_current(const Tables& p, const Smem& s) {
 // meets the current table: hull candidates (a failed row's lb at
 // -NEU_LB) and, with a carried store, domain-word candidates.  Padded
 // slots are neutral.
-__device__ void ct_survivors(const Tables& p, const Smem& s) {
+template <typename Val>
+__device__ void ct_survivors(const Tables<Val>& p, const Smem<Val>& s) {
+  constexpr Val NEU_UB = Lim<Val>::BIG, NEU_LB = -Lim<Val>::BIG;
   const int R = p.R, TW = p.TW, W = p.W, K32 = 32 * p.W;
   for (int i = threadIdx.x; i < p.T1 * R; i += THREADS) {
     if (!__ldg(p.ct_mask + i)) {
@@ -774,7 +944,7 @@ __device__ void ct_survivors(const Tables& p, const Smem& s) {
     bool fail = true;
     for (int tw = 0; tw < TW; ++tw) fail &= cur[tw] == 0;
     const uint32_t* sp = p.ct_supp + (size_t)i * K32 * TW;
-    int32_t kmin = NEU_UB, kmax = NEU_LB;
+    Val kmin = NEU_UB, kmax = NEU_LB;
     for (int w = 0; w < W; ++w) {
       uint32_t word = 0;
       for (int b = 0; b < 32; ++b) {
@@ -784,13 +954,13 @@ __device__ void ct_survivors(const Tables& p, const Smem& s) {
           hit |= __ldg(sp + (size_t)k * TW + tw) & cur[tw];
         if (hit) {
           word |= 1u << b;
-          kmin = min(kmin, k);
+          kmin = min(kmin, (Val)k);
           kmax = k;
         }
       }
       if (p.carry_dom) s.ctdom[i * W + w] = word;
     }
-    const int32_t omem = __ldg(p.dom_off + __ldg(p.ct_vars + i));
+    const Val omem = __ldg(p.dom_off + __ldg(p.ct_vars + i));
     s.ctlb[i] = fail ? -NEU_LB : omem + kmin;
     s.ctub[i] = omem + kmax;
   }
@@ -811,9 +981,10 @@ struct LaneResult {
 // matches): compiled apart, a dense model's kernel carries none of the
 // sparse code, a bounds-only one none of the bitset code, and each keeps
 // its registers.
-template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
-__device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
+template <typename Val, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+__device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
                                     int max_sweeps) {
+  constexpr Val BIG = Lim<Val>::BIG, NEU_UB = BIG, NEU_LB = -BIG;
   const int V = p.V, P1 = p.P1, K = p.K, K1 = p.K + 1, C1 = p.C1,
             T = p.T, H = p.H, N = p.N, A = p.n_alldiff;
   const bool cumul = p.n_cumulative > 0;
@@ -834,43 +1005,43 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
   int cur = 0;
 
   while (changed && it < max_sweeps && !failed) {
-    const int32_t* lb = s.lb(cur);
-    const int32_t* ub = s.ub(cur);
+    const Val* lb = s.lb(cur);
+    const Val* ub = s.ub(cur);
 
     // -- (1a) ReifLinLe candidates, one thread per row ---------------------
     for (int r = tid; r < P1; r += nth) {
-      const int32_t* a_row = p.coef + (size_t)r * K;
+      const Val* a_row = p.coef + (size_t)r * K;
       const int32_t* v_row = p.vidx + (size_t)r * K;
-      int32_t smin = 0, smax = 0;
+      Val smin = 0, smax = 0;
       for (int k = 0; k < K; ++k) {
-        int32_t a = __ldg(a_row + k);
+        Val a = __ldg(a_row + k);
         int32_t v = __ldg(v_row + k);
-        int32_t xl = lb[v], xu = ub[v];
+        Val xl = lb[v], xu = ub[v];
         smin += a > 0 ? a * xl : a * xu;
         smax += a > 0 ? a * xu : a * xl;
       }
-      const int32_t c = __ldg(p.rhs + r);
+      const Val c = __ldg(p.rhs + r);
       const int32_t b = __ldg(p.bidx + r);
       const bool btrue = lb[b] >= 1;
       const bool bfalse = ub[b] <= 0;
-      int32_t* cl = s.clb + (size_t)r * K1;
-      int32_t* cu = s.cub + (size_t)r * K1;
+      Val* cl = s.clb + (size_t)r * K1;
+      Val* cu = s.cub + (size_t)r * K1;
       for (int k = 0; k < K; ++k) {
-        int32_t a = __ldg(a_row + k);
+        Val a = __ldg(a_row + k);
         int32_t v = __ldg(v_row + k);
-        int32_t xl = lb[v], xu = ub[v];
-        int32_t tl = a > 0 ? a * xl : a * xu;
-        int32_t tu = a > 0 ? a * xu : a * xl;
-        int32_t ub1 = NEU_UB, lb1 = NEU_LB, ub2 = NEU_UB, lb2 = NEU_LB;
+        Val xl = lb[v], xu = ub[v];
+        Val tl = a > 0 ? a * xl : a * xu;
+        Val tu = a > 0 ? a * xu : a * xl;
+        Val ub1 = NEU_UB, lb1 = NEU_LB, ub2 = NEU_UB, lb2 = NEU_LB;
         if (btrue) {                      // Σ a x ≤ c
-          int32_t slack1 = c - (smin - tl);
-          if (a > 0) ub1 = fdiv(slack1, a);
-          else if (a < 0) lb1 = cdiv(slack1, a);
+          Val slack1 = c - (smin - tl);
+          if (a > 0) ub1 = fdiv<Val>(slack1, a);
+          else if (a < 0) lb1 = cdiv<Val>(slack1, a);
         }
         if (bfalse) {                     // Σ -a x ≤ -c-1
-          int32_t slack2 = (-c - 1) - (-smax + tu);
-          if (a < 0) ub2 = fdiv(slack2, -a);
-          else if (a > 0) lb2 = cdiv(slack2, -a);
+          Val slack2 = (-c - 1) - (-smax + tu);
+          if (a < 0) ub2 = fdiv<Val>(slack2, -a);
+          else if (a > 0) lb2 = cdiv<Val>(slack2, -a);
         }
         cl[k] = lb1 > lb2 ? lb1 : lb2;
         cu[k] = ub1 < ub2 ? ub1 : ub2;
@@ -880,12 +1051,12 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
     }
 
     // -- (1b) AllDifferent: shifted member bounds, neutral candidates -------
-    if (ad_sparse) ad_sparse_keys(p, s, lb);
+    if (ad_sparse) ad_sparse_keys<Val>(p, s, lb);
     if (ad_dense) {
       for (int i = tid; i < p.A1 * N; i += nth) {
         if (__ldg(p.ad_mask + i)) {
           const int32_t v = __ldg(p.ad_vars + i);
-          const int32_t off = __ldg(p.ad_offs + i);
+          const Val off = __ldg(p.ad_offs + i);
           s.yl[i] = lb[v] + off;
           s.yu[i] = ub[v] + off;
         } else {                          // padding: inside no interval
@@ -899,17 +1070,17 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
     }
 
     // -- (1d) Compact-Table: each member's OR of supports ----------------
-    if (table) ct_supports(p, s, cur, lb, ub);
+    if (table) ct_supports<Val>(p, s, cur, lb, ub);
 
     // -- (1c) compulsory-part profile, one thread per (row, time) ----------
-    if (cu_sparse) cu_sparse_events(p, s, lb, ub);
+    if (cu_sparse) cu_sparse_events<Val>(p, s, lb, ub);
     if (cu_dense) {
       for (int i = tid; i < C1 * H; i += nth) {
         const int c = i / H, tau = i - c * H;
-        int32_t acc = 0;
+        Val acc = 0;
         for (int t = 0; t < T; ++t) {
           const int j = c * T + t;
-          const int32_t d = s.t_dur[j], q = s.t_dem[j];
+          const Val d = s.t_dur[j], q = s.t_dem[j];
           if (d > 0 && q > 0) {
             const int32_t v = s.t_svar[j];
             if (ub[v] <= tau && tau < lb[v] + d) acc += q;
@@ -922,75 +1093,79 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
     __syncthreads();
 
     // -- (2a) AllDifferent Hall intervals, one thread per (row, i, j) -------
-    if (ad_sparse) ad_sparse_hall(p, s, ub);
+    if (ad_sparse) ad_sparse_hall<Val>(p, s, ub);
     if (ad_dense) {
       const int NN = N * N;
       for (int q = tid; q < A * NN; q += nth) {
         const int a = q / NN, i = (q - a * NN) / N, j = q - a * NN - i * N;
-        const int32_t* ylr = s.yl + a * N;
-        const int32_t* yur = s.yu + a * N;
-        const int32_t lo = ylr[i], hi = yur[j];
+        const Val* ylr = s.yl + a * N;
+        const Val* yur = s.yu + a * N;
+        const Val lo = ylr[i], hi = yur[j];
         if (lo > hi) continue;            // empty interval or padding
-        int32_t cnt = 0;
+        Val cnt = 0;
         for (int k = 0; k < N; ++k) {
-          const int32_t kl = ylr[k], ku = yur[k];
+          const Val kl = ylr[k], ku = yur[k];
           cnt += (kl >= lo) & (ku <= hi) & (kl <= ku);
         }
-        const int32_t width = hi - lo + 1;
+        const Val width = hi - lo + 1;
         if (cnt > width) {
           s.afail[a] = 1;                 // benign race: all write 1
         } else if (cnt == width) {        // Hall interval: push the others
           for (int k = 0; k < N; ++k) {
-            const int32_t kl = ylr[k], ku = yur[k];
+            const Val kl = ylr[k], ku = yur[k];
             if (kl >= lo && ku <= hi && kl <= ku) continue;   // inside I
-            if (kl >= lo && kl <= hi) atomicMax(s.alb + a * N + k, hi + 1);
-            if (ku >= lo && ku <= hi) atomicMin(s.aub + a * N + k, lo - 1);
+            if (kl >= lo && kl <= hi) atomic_max(s.alb + a * N + k, hi + 1);
+            if (ku >= lo && ku <= hi) atomic_min(s.aub + a * N + k, lo - 1);
           }
         }
       }
     }
 
     // -- (2c) Compact-Table: current tables --------------------------------
-    if (table) ct_current(p, s);
+    if (table) ct_current<Val>(p, s);
 
     // -- (2b) first/last feasible start, one thread per (row, task) --------
-    if (cu_sparse) cu_sparse_scan(p, s, lb, ub);
+    if (cu_sparse) cu_sparse_scan<Val>(p, s, lb, ub);
     if (cu_dense) {
       for (int j = tid; j < C1 * T; j += nth) {
         const int c = j / T;
-        const int32_t d = s.t_dur[j], q = s.t_dem[j];
+        const Val d = s.t_dur[j], q = s.t_dem[j];
         if (!(d > 0 && q > 0)) {
           s.ulb[j] = NEU_LB;
           s.uub[j] = NEU_UB;
           continue;
         }
         const int32_t v = s.t_svar[j];
-        const int32_t est = lb[v], lst = ub[v], cap = s.t_cap[c];
-        const int32_t* pc = s.prof + (size_t)c * H;
+        const Val est = lb[v], lst = ub[v], cap = s.t_cap[c];
+        const Val* pc = s.prof + (size_t)c * H;
         // first s ≥ max(est, 0) with no bad point in [s, min(s + d, H))
-        int32_t first = -NEU_LB;
+        Val first = -NEU_LB;
         {
-          int32_t st = est > 0 ? est : 0;
-          int32_t tau = st;
+          Val st = est > 0 ? est : 0;
+          Val tau = st;
           while (st < H) {
-            const int32_t e = st + d < H ? st + d : H;
+            const Val e = st + d < H ? st + d : H;
             if (tau >= e) { first = st; break; }
-            if (bad_at(pc, tau, est, lst, d, q, cap)) { st = tau + 1; tau = st; }
-            else ++tau;
+            if (bad_at<Val>(pc, tau, est, lst, d, q, cap)) {
+              st = tau + 1;
+              tau = st;
+            } else {
+              ++tau;
+            }
           }
         }
         // last s ≤ min(lst, H - 1) with no bad point in [s, min(s + d, H))
-        int32_t last = -NEU_UB;
+        Val last = -NEU_UB;
         {
-          const int32_t s_hi = lst < H - 1 ? lst : H - 1;
+          const Val s_hi = lst < H - 1 ? lst : H - 1;
           if (s_hi >= 0) {
-            int32_t nb = 0x7fffffff;        // nearest bad point ≥ s
-            const int32_t e_hi = s_hi + d < H ? s_hi + d : H;
-            for (int32_t tau = e_hi - 1; tau > s_hi; --tau)
-              if (bad_at(pc, tau, est, lst, d, q, cap)) nb = tau;
-            for (int32_t st = s_hi; st >= 0; --st) {
-              if (bad_at(pc, st, est, lst, d, q, cap)) nb = st;
-              const int32_t e = st + d < H ? st + d : H;
+            Val nb = 0x7fffffff;            // nearest bad point ≥ s
+            const Val e_hi = s_hi + d < H ? s_hi + d : H;
+            for (Val tau = e_hi - 1; tau > s_hi; --tau)
+              if (bad_at<Val>(pc, tau, est, lst, d, q, cap)) nb = tau;
+            for (Val st = s_hi; st >= 0; --st) {
+              if (bad_at<Val>(pc, st, est, lst, d, q, cap)) nb = st;
+              const Val e = st + d < H ? st + d : H;
               if (nb >= e) { last = st; break; }
             }
           }
@@ -1002,17 +1177,17 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
     __syncthreads();
     // -- (2d) Compact-Table: survivors, hull and word candidates ----------
     if (table) {
-      ct_survivors(p, s);
+      ct_survivors<Val>(p, s);
       __syncthreads();
     }
 
     // -- (3) per-variable gather join, box clamp, next store ---------------
-    int32_t* nlb_s = s.lb(cur ^ 1);
-    int32_t* nub_s = s.ub(cur ^ 1);
+    Val* nlb_s = s.lb(cur ^ 1);
+    Val* nub_s = s.ub(cur ^ 1);
     int my_changed = 0;
     my_failed = 0;
     for (int v = tid; v < V; v += nth) {
-      int32_t glb = NEU_LB, gub = NEU_UB;
+      Val glb = NEU_LB, gub = NEU_UB;
       const int32_t* op = p.occ_prop + (size_t)v * p.D;
       const int32_t* os = p.occ_slot + (size_t)v * p.D;
       for (int d = 0; d < p.D; ++d) {
@@ -1035,7 +1210,7 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
         for (int d = 0; d < p.Dad; ++d) {
           const int a = __ldg(oi + d);
           const int idx = a * N + __ldg(opos + d);
-          const int32_t off = __ldg(p.ad_offs + idx);
+          const Val off = __ldg(p.ad_offs + idx);
           glb = max(glb, (s.afail[a] ? -NEU_LB : s.alb[idx]) - off);
           gub = min(gub, s.aub[idx] - off);
         }
@@ -1062,15 +1237,15 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
       }
       gub = max(gub, __ldg(p.box_lo + v));
       glb = min(glb, __ldg(p.box_hi + v));
-      int32_t l = max(lb[v], glb);
-      int32_t u = min(ub[v], gub);
+      Val l = max(lb[v], glb);
+      Val u = min(ub[v], gub);
       if (carry) {
         // AND the table occurrences into the words, then normalize
         const int W = p.W;
         const uint32_t* dc = s.dom(cur) + (size_t)v * W;
         uint32_t* dn = s.dom(cur ^ 1) + (size_t)v * W;
         const bool trk = __ldg(p.dom_track + v) != 0;
-        const int32_t off = __ldg(p.dom_off + v);
+        const Val off = __ldg(p.dom_off + v);
         int32_t lo_pos = 32 * W, hi_pos = -1;
         for (int w = 0; w < W; ++w) {
           uint32_t word = dc[w];
@@ -1081,7 +1256,7 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
               word &= s.ctdom[(__ldg(oi + d) * p.R + __ldg(opos + d)) * W + w];
           }
           if (trk) {
-            word &= range_word(l, u, off, w);
+            word &= range_word<Val>(l, u, off, w);
             if (word) {
               lo_pos = min(lo_pos, 32 * w + __ffs(word) - 1);
               hi_pos = 32 * w + 31 - __clz(word);
@@ -1091,8 +1266,8 @@ __device__ LaneResult fixpoint_lane(const Tables& p, const Smem& s,
           my_changed |= word != dc[w];
         }
         if (trk) {
-          l = max(l, min(off + lo_pos, __ldg(p.box_hi + v)));
-          u = min(u, max(off + hi_pos, __ldg(p.box_lo + v)));
+          l = max(l, min((Val)(off + lo_pos), __ldg(p.box_hi + v)));
+          u = min(u, max((Val)(off + hi_pos), __ldg(p.box_lo + v)));
         }
       }
       nlb_s[v] = l;

@@ -7,8 +7,10 @@
 ``--backend cuda`` (default) propagates with the Hopper fixpoint kernel,
 one launch per superstep; ``--backend cuda_resident`` runs K whole
 supersteps per launch of the resident search kernel (K from
-``--supersteps-per-launch``, default 16); ``--backend gather`` propagates
-with the plain PyTorch sweep.  ``--branch-value`` picks the value
+``--supersteps-per-launch``, default 16), in lane tiles of N lanes with
+``--lane-tile N`` (each tile with its own strided pool shard, cursor,
+bound and done flag); ``--backend gather`` propagates with the plain
+PyTorch sweep.  ``--branch-value`` picks the value
 branching: ``min`` (x ≤ lb), ``split`` (bisect at the midpoint) or
 ``middle_out`` (x = m | x ≠ m on the remaining value nearest the
 midpoint; search then carries the bitset store).  ``--device cpu``
@@ -46,6 +48,10 @@ def main(argv=None):
     ap.add_argument("--supersteps-per-launch", type=int, default=None,
                     help="supersteps per resident kernel launch "
                          "(--backend cuda_resident only; default 16)")
+    ap.add_argument("--lane-tile", type=int, default=None,
+                    help="lanes per tile of the resident kernel, each tile "
+                         "with its own strided pool shard (--backend "
+                         "cuda_resident only; default: one pool queue)")
     ap.add_argument("--branch-value", default=None,
                     choices=("min", "split", "middle_out"),
                     help="value branching: min = x≤lb, split = bisect at "
@@ -57,6 +63,11 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="trace the solve; print device time by kernel")
     args = ap.parse_args(argv)
+    if args.lane_tile is not None and args.backend != "cuda_resident":
+        ap.error(f"--lane-tile needs --backend cuda_resident, not "
+                 f"{args.backend}: the fixpoint kernel has no lane tile "
+                 "(a CTA runs one lane), and the reference's pallas lane "
+                 "tile changes no result")
 
     from repro_torch import solver
     from repro_torch.core.models import rcpsp
@@ -77,7 +88,8 @@ def main(argv=None):
         _PRESETS[args.preset], n_lanes=args.lanes,
         eps_target=args.eps_target, timeout_s=args.timeout,
         backend=args.backend, device=args.device,
-        supersteps_per_launch=args.supersteps_per_launch, **value)
+        supersteps_per_launch=args.supersteps_per_launch,
+        lane_tile=args.lane_tile, **value)
 
     launches0 = fixpoint_cuda.launches
     search0 = search_cuda.launches

@@ -199,7 +199,9 @@ def search_inputs(cm, n_lanes: int, eps_target, opts, pool=None):
 def search_diff(ref, got) -> list:
     """Names of what differs between two ``(st, gbest, it, pool_head,
     stopped)`` results of a resident launch: every LaneState field
-    (values, dtypes and shapes), then the four scalars."""
+    (values, dtypes and shapes), then the bound, the superstep count,
+    the pool cursor (a scalar, or ``[n_tiles]`` cursors of a lane-tiled
+    launch, compared with their shape) and the stop flag."""
     import torch
     ref_st, got_st = ref[0], got[0]
     bad = []
@@ -212,6 +214,7 @@ def search_diff(ref, got) -> list:
             bad.append(f)
     for name, a, b in zip(("gbest", "it", "pool_head", "stopped"),
                           ref[1:], got[1:]):
-        if int(a) != int(b):
+        a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+        if a.shape != b.shape or not torch.equal(a.long(), b.long()):
             bad.append(name)
     return bad

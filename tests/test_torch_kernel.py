@@ -18,6 +18,8 @@ for the search, every LaneState field, the bound, the superstep count,
 the pool cursor and the stop flag), capped or not.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -202,6 +204,45 @@ def test_search_shared_memory_budget():
     K.fit_smem(cm, limit_bytes=plain["total"])            # fixpoint fits
 
 
+def _scaled_rcpsp(n_tasks, scale=10 ** 7, device="cpu", **compile_kw):
+    """The RCPSP J-n class with every duration × `scale` (int64)."""
+    inst = rcpsp.generate(n_tasks, n_resources=4, seed=0)
+    inst = dataclasses.replace(inst, durations=inst.durations * scale)
+    return rcpsp.build_model(inst)[0].compile(device=device, **compile_kw)
+
+
+def test_int64_shared_memory_budget():
+    """At int64 every value region takes 8 bytes and a sort key 16
+    (``fixlane::smem_bytes``), int32 regions rounded up to 8: pinned for
+    J120 × 10⁷ (sparse Cumulative, Mcu 408, 1024 event keys), which fits
+    the 232,448-byte block with the resident scratch, and for the J60
+    class forced to int64 in the dense layout (the formula)."""
+    j120 = _scaled_rcpsp(120)
+    assert (j120.dtype, j120.cu_layout, j120.cu_packed) == (
+        "int64", "sparse", 408)
+    # event keys 1024·16, profile 1024·8, task table 2·408·4 + 2·408·8,
+    # candidates 2·408·8, row flags 5·8 + 24, scan 32·8
+    assert K.bank_bytes(j120)["cumulative"] == {
+        "event keys": 16384, "profile": 8192, "task table": 9792,
+        "candidates": 6528, "row flags": 64, "scan": 256}
+    assert K.smem_budget(j120) == dict(stores=3904, linear=178704,
+                                       alldiff=0, cumulative=41216,
+                                       table=0, dom=0, search=0,
+                                       total=223824)
+    assert K.fit_smem(j120, resident=True)["total"] == 223824 + 4 * 304
+    assert K.fit_smem(j120, resident=True)["total"] < K.SMEM_LIMIT_BYTES
+    j60 = _rcpsp(dict(n_tasks=60, n_resources=4), force_dtype="int64",
+                 bank_layout="dense")
+    P1, K1 = j60.vidx.shape
+    C1, T = j60.cu_svar.shape
+    assert j60.dtype == "int64" and j60.cu_layout == "dense"
+    assert K.fit_smem(j60)["total"] == (
+        8 * (4 * j60.n_vars + 2 * P1 * (K1 + 1) + C1 * j60.horizon
+             + 4 * C1 * T + C1) + -(-4 * C1 * T // 8) * 8 + 8 * -(-C1 // 2))
+    with pytest.raises(ValueError, match=r"\(int64\) needs 223,824 bytes"):
+        K.fit_smem(j120, limit_bytes=200_000)
+
+
 def _search_setup(kw, n_lanes, eps_target, device="cpu", seed=0, **opt_kw):
     cm = _rcpsp(kw, seed=seed, device=device)
     opts = S.SearchOptions(var_strategy="min_lb", max_depth=64, **opt_kw)
@@ -213,13 +254,21 @@ def test_search_wrapper_checks():
     tensors; on the card the same checks guard the launch)."""
     cm, (slb, sub, st, gbest, head) = _search_setup(SMALL, 4, 8)
     K._check_search(cm, slb, sub, st, "min_lb", "split")      # accepted
-    with pytest.raises(NotImplementedError, match="lane_tile=0"):
-        K.search_cuda(cm, slb, sub, st, gbest, 0, head, lane_tile=4)
+    tiled = K.search_cuda(cm, slb, sub, st, gbest, 0, head, lane_tile=2)
+    assert search_diff(K.search_plain(cm, slb, sub, st, gbest, 0, head,
+                                      lane_tile=2), tiled) == []
+    assert tuple(tiled[3].shape) == (2,)                 # a cursor per tile
     wide = _int64_model().compile(device="cpu")
     wst = S.init_lanes(wide, 2, S.SearchOptions(max_depth=4))
-    with pytest.raises(NotImplementedError, match="int32-only"):
-        K._check_search(wide, wide.lb0[None], wide.ub0[None], wst,
+    K._check_search(wide, wide.lb0[None], wide.ub0[None], wst,
+                    "min_lb", "min")                       # int64 accepted
+    with pytest.raises(TypeError, match="int64"):
+        K._check_search(wide, wide.lb0[None], wide.ub0[None],
+                        wst._replace(lb=wst.lb.int(), ub=wst.ub.int()),
                         "min_lb", "min")
+    with pytest.raises(ValueError, match="pool must be int64"):
+        K._check_search(wide, wide.lb0[None].int(), wide.ub0[None].int(),
+                        wst, "min_lb", "min")
     meta = torch.device("meta")          # a device other than the state's
     with pytest.raises(ValueError, match="pool on meta"):
         K._check_search(cm, slb.to(meta), sub.to(meta), st, "min_lb",
@@ -279,8 +328,9 @@ def test_wrapper_checks():
         K._check(cm, lb.t().contiguous().t(), ub.t().contiguous().t())
     wide = _int64_model().compile(device="cpu")
     assert wide.dtype == "int64"
-    with pytest.raises(NotImplementedError, match="int32-only"):
-        K._check(wide, wide.lb0[None], wide.ub0[None])
+    K._check(wide, wide.lb0[None], wide.ub0[None])       # int64 accepted
+    with pytest.raises(TypeError, match="int64"):
+        K._check(wide, wide.lb0[None].int(), wide.ub0[None].int())
     for layout in ("dense", "sparse"):                  # both accepted
         ad = _alldiff_model().compile(device="cpu", bank_layout=layout)
         K._check(ad, ad.lb0[None], ad.ub0[None])
@@ -316,6 +366,14 @@ def test_build_names_and_missing_nvcc(monkeypatch, tmp_path):
         assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
         assert lib.name.startswith(f"lib{name}_")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # each variant its own library: int64 and lane tiles, of either source
+    assert build.variant("int32") == "" and build.variant("int64") == "i64"
+    assert build.variant("int64", tiles=True) == "tiles_i64"
+    names = {build._target(n, v).name for n in ("fixpoint", "search")
+             for v in build.VARIANTS}
+    assert len(names) == 8
+    assert build._target("search", "tiles_i64").name.startswith(
+        "libsearch_tiles_i64_")
     # the name covers the shared header: editing it rebuilds both
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -381,8 +439,12 @@ def test_kernel_raises_on_unsupported_input_on_gpu(cuda):
                         torch.zeros((1, tab.n_vars, tab.n_words + 1),
                                     dtype=torch.int32, device=cuda))
     wide = _int64_model().compile(device=cuda)
-    with pytest.raises(NotImplementedError):
-        K.fixpoint_cuda(wide, wide.lb0[None], wide.ub0[None])
+    lb, ub = _random_stores(wide, 64, 9)
+    for r, g in zip(F.fixpoint_batch(wide, lb, ub),
+                    K.fixpoint_cuda(wide, lb, ub)):     # the int64 kernel
+        assert torch.equal(r, g)
+    with pytest.raises(TypeError):
+        K.fixpoint_cuda(wide, lb.int(), ub.int())
     cm = _rcpsp(SMALL, device=cuda)
     with pytest.raises(TypeError):
         K.fixpoint_cuda(cm, cm.lb0[None].long(), cm.ub0[None].long())
@@ -436,14 +498,18 @@ def test_search_kernel_raises_on_unsupported_input_on_gpu(cuda):
                                                     device=cuda)
     with pytest.raises(ValueError):
         K.search_cuda(cm, slb.cpu(), sub.cpu(), st, gbest, 0, head)
-    with pytest.raises(NotImplementedError):
-        K.search_cuda(cm, slb, sub, st, gbest, 0, head, lane_tile=2)
+    assert search_diff(
+        K.search_plain(cm, slb, sub, st, gbest, 0, head, lane_tile=2),
+        K.search_cuda(cm, slb, sub, st, gbest, 0, head, lane_tile=2)) == []
     wide = _int64_model().compile(device=cuda)
     wst = S.init_lanes(wide, 2, S.SearchOptions(max_depth=4))
-    with pytest.raises(NotImplementedError):
-        K.search_cuda(wide, wide.lb0[None], wide.ub0[None], wst,
-                      torch.zeros((), dtype=torch.int64, device=cuda), 0,
-                      head)
+    args = (wide, wide.lb0[None], wide.ub0[None], wst,
+            torch.tensor(2 ** 40, dtype=torch.int64, device=cuda), 0, head)
+    assert search_diff(K.search_plain(*args), K.search_cuda(*args)) == []
+    with pytest.raises(TypeError):
+        K.search_cuda(wide, wide.lb0[None], wide.ub0[None],
+                      wst._replace(lb=wst.lb.int(), ub=wst.ub.int()),
+                      args[4], 0, head)
     assert K.search_grid(cm, 4) == 4
 
 
@@ -534,3 +600,100 @@ def test_search_kernel_with_dom_matches_plain_on_gpu(cuda, supersteps):
         torch.cuda.synchronize()
         assert K.search_cuda.launches == before + 1
         assert search_diff(ref, got) == [], what
+
+
+def _int64_models(device):
+    """(what, model, seed) of the card-only int64 tests, every bank at
+    int64: the two-term row whose products pass 2³¹, RCPSP J30 × 10⁷
+    (sparse Cumulative by the crossover), the RCPSP small and N-queens 8
+    and 36 classes and coloring small forced to int64 (dense Cumulative
+    and AllDifferent, sparse AllDifferent), and the Compact-Table hand
+    cases forced to int64."""
+    yield "wide", _int64_model().compile(device=device), 1
+    yield "j30 x 1e7", _scaled_rcpsp(30, device=device), 2
+    yield "small int64 dense", _rcpsp(SMALL, device=device,
+                                      force_dtype="int64",
+                                      bank_layout="dense"), 3
+    yield "nqueens8 int64", _nqueens(8, device=device,
+                                     force_dtype="int64"), 4
+    yield "nqueens36 int64", _nqueens(36, device=device,
+                                      force_dtype="int64"), 5
+    cs = coloring.build_model(small_instance("coloring"))[0]
+    yield "coloring int64", cs.compile(device=device, force_dtype="int64"), 6
+    for name in ("holes", "wide"):
+        yield (f"{name} table int64", CT_HAND_MODELS[name](Model).compile(
+            device=device, force_dtype="int64"), 7)
+
+
+@pytest.mark.parametrize("max_sweeps", [1, 4, None])
+def test_int64_kernel_matches_plain_on_gpu(cuda, max_sweeps):
+    for what, cm, seed in _int64_models(cuda):
+        assert cm.dtype == "int64", what
+        lb, ub = _random_stores(cm, 256, seed)
+        doms = (None,)
+        if cm.n_table:
+            doms += (_dom_stores(cm, 256, seed)[2],)
+        for dom in doms:
+            before = K.fixpoint_cuda.launches
+            got = K.fixpoint_cuda(cm, lb, ub, dom, max_sweeps=max_sweeps)
+            torch.cuda.synchronize()
+            assert K.fixpoint_cuda.launches == before + 1
+            ref = F.fixpoint_batch(cm, lb, ub, dom, max_iters=max_sweeps)
+            for r, g in zip(ref, got):
+                assert torch.equal(r, g), what
+
+
+def _int64_search_cases(device):
+    """(what, cm, inputs, kwargs) at int64: J30 × 10⁷ and N-queens 8 and
+    the RCPSP small class forced to int64, from fresh lanes and after 5
+    plain supersteps."""
+    opts = S.SearchOptions(var_strategy="min_lb", max_depth=64)
+    for what, cm, target in (
+            ("j30 x 1e7", _scaled_rcpsp(30, device=device), 512),
+            ("nqueens8 int64", _nqueens(8, device=device,
+                                        force_dtype="int64"), 256),
+            ("small int64", _rcpsp(SMALL, device=device,
+                                   force_dtype="int64"), 64)):
+        slb, sub, st, gbest, head = search_inputs(cm, 128, target, opts)
+        kw = dict(var_strategy="min_lb")
+        yield f"{what} fresh", cm, (slb, sub, st, gbest, 0, head), kw
+        st5, g5, it5, h5, _ = K.search_plain(cm, slb, sub, st, gbest, 0,
+                                             head, supersteps=5, **kw)
+        yield f"{what} after 5", cm, (slb, sub, st5, g5, it5, h5), kw
+
+
+@pytest.mark.parametrize("supersteps", [1, 16])
+def test_int64_search_kernel_matches_plain_on_gpu(cuda, supersteps):
+    for what, cm, args, kw in _int64_search_cases(cuda):
+        ref = K.search_plain(cm, *args, supersteps=supersteps, **kw)
+        before = K.search_cuda.launches
+        got = K.search_cuda(cm, *args, supersteps=supersteps, **kw)
+        torch.cuda.synchronize()
+        assert K.search_cuda.launches == before + 1
+        assert search_diff(ref, got) == [], what
+
+
+@pytest.mark.parametrize("lane_tile", [32, 48, 1])
+def test_tiled_search_kernel_matches_plain_on_gpu(cuda, lane_tile):
+    """Lane tiles of 32 (4 tiles of 128 lanes) and 48 (a short last
+    tile) on the int32 cases and J30 × 10⁷, after 1 and 16 supersteps,
+    and tiles of one lane on the first 8 lanes of each: every field, the
+    ``[NT]`` cursors included."""
+    cases = [c for c in _search_cases(cuda) if "prove" in c[0]
+             or "first" in c[0]]
+    cases += [c for c in _int64_search_cases(cuda) if "j30" in c[0]]
+    for what, cm, args, kw in cases:
+        if lane_tile == 1:
+            st = S.LaneState(*(None if a is None else a[:8]
+                               for a in args[2]))
+            args, ks, n = args[:2] + (st,) + args[3:], (4,), 8
+        else:
+            ks, n = (1, 16), 128
+        for k in ks:
+            ref = K.search_plain(cm, *args, supersteps=k,
+                                 lane_tile=lane_tile, **kw)
+            got = K.search_cuda(cm, *args, supersteps=k,
+                                lane_tile=lane_tile, **kw)
+            torch.cuda.synchronize()
+            assert got[3].shape == (-(-n // lane_tile),)
+            assert search_diff(ref, got) == [], (what, k)
