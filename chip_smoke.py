@@ -9,7 +9,8 @@ exit code and no result line:
 1. card and build: the card line of ``nvidia-smi``, torch and CUDA
    versions; ``nvcc`` builds ``kernels/csrc/fixpoint.cu`` and
    ``kernels/csrc/search.cu`` for sm_90a, each at int32 and int64 and
-   ``search.cu`` also in its lane-tiled mode, all six at once, and their
+   ``search.cu`` also in its lane-tiled mode, and
+   ``kernels/csrc/flash_attention.cu``, all seven at once, and their
    ``-Xptxas -v`` reports (registers, shared memory) are printed;
 2. kernel against plain version: ``fixpoint_cuda`` against the plain
    PyTorch ``fixpoint_batch``, on the card, on RCPSP J30- and J60-class
@@ -160,7 +161,29 @@ exit code and no result line:
 25. times: both kernels at int64 (J120 × 10⁷) against int32 (J120) at
    ``[1024, 122]``, and ``search_cuda`` at J60 in tiles of 256 against
    one queue, beside their plain versions and bounds (int64 bytes
-   counted at 8, int64 operations against the int32 peak).
+   counted at 8, int64 operations against the int32 peak);
+26. flash attention, kernel against plain version: ``flash_attention``
+   against ``flash_attention_plain`` on the card, bf16 inputs drawn with
+   numpy from SEED, at the serving prefill shape ``[4, 2048, 32, 128]``
+   with 8 KV heads (causal), a ragged S of 1000 (the pad path),
+   bidirectional S = 512, MQA (1 KV head) and head_dim 64, each at the
+   blocks (128, 128) and (64, 128): every output within ``rtol 2⁻⁷,
+   atol 1e-3`` of the plain version's;
+27. the LM main path: qwen3-4b at full width and depth (36 layers),
+   random weights from a ``torch.Generator`` on the card seeded with 0,
+   through ``repro_torch.train.serve_step.generate``: 4 requests of 2048
+   prompt tokens, 16 tokens each, greedy, twice (cold, then warm), with
+   the launch counter set to 0 just before each and read just after
+   (exactly one launch per layer: 36); tokens in the vocabulary; then
+   decode against teacher forcing (prefill on 2047 tokens and decode
+   token 2047 against a prefill on all 2048): finite logits within
+   ``0.08 · max|logit|``;
+28. times at phase 27's attention shape: the kernel, its plain version
+   and ``torch.nn.functional.scaled_dot_product_attention`` (causal,
+   GQA; the library yardstick, which the port never calls) per call by
+   CUDA events, beside the bound (the larger of the bytes over the HBM
+   rate and the causal pairs' operations over the bf16 tensor-core
+   peak; the f32 share printed beside it).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -226,7 +249,8 @@ INT32_LANES_PER_SM = 64
 # every library the run launches, built at once in phase 1: both
 # sources at int32 and int64, and search.cu's lane-tiled mode at both
 BUILDS = (("fixpoint", ""), ("fixpoint", "i64"), ("search", ""),
-          ("search", "i64"), ("search", "tiles"), ("search", "tiles_i64"))
+          ("search", "i64"), ("search", "tiles"), ("search", "tiles_i64"),
+          ("flash_attention", ""))
 # phases 21-25: every duration of an RCPSP class × INT64_SCALE compiles to
 # int64 (sums pass the int32 headroom); scaling every duration scales the
 # optimum, so J120 × 10⁷ must prove SPARSE_OPTIMUM["J120"] × 10⁷
@@ -243,6 +267,25 @@ FIXPOINT_SOURCE = "src/repro_torch/kernels/csrc/fixpoint.cu"
 FIXPOINT_REPLACES = "src/repro/kernels/fixpoint_kernel.py:285"
 SEARCH_SOURCE = "src/repro_torch/kernels/csrc/search.cu"
 SEARCH_REPLACES = "src/repro/kernels/fixpoint_kernel.py:520"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:95"
+# phases 26-28: the LM serving path
+LM_ARCH = "qwen3-4b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 16
+LM_WEIGHT_SEED = 0
+DECODE_TOL = 0.08          # × max|logit| (tests/test_archs.py's bound)
+FLASH_RTOL, FLASH_ATOL = 2.0 ** -7, 1e-3
+# (tag, B, S, H, KV, hd, causal) of phase 26, each at FLASH_BLOCKS
+FLASH_CASES = (("prefill", 4, 2048, 32, 8, 128, True),
+               ("ragged S=1000", 4, 1000, 32, 8, 128, True),
+               ("bidirectional S=512", 4, 512, 32, 8, 128, False),
+               ("MQA", 4, 2048, 32, 1, 128, True),
+               ("head_dim 64", 4, 2048, 32, 8, 64, True))
+FLASH_BLOCKS = ((128, 128), (64, 128))
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores, and
+# f32 off them (the rate of the kernel's own FMAs)
+PEAK_BF16_FLOP_S = 989e12
+PEAK_F32_FLOP_S = 67e12
 # the propagator banks both kernels cover (csrc/fixpoint_lane.cuh)
 BANKS = ("ReifLinLe", "AllDifferent dense", "AllDifferent sparse",
          "Cumulative dense", "Cumulative sparse", "Compact-Table",
@@ -1635,6 +1678,170 @@ def phase_int64_times(card, peak_int32, sparse, sp_states, int64,
     return fix64, srch64, tiles
 
 
+# --------------------------------------------------------------------------
+# phases 26-28: the LM serving path and the flash-attention kernel
+# --------------------------------------------------------------------------
+
+def bf16_qkv(B, S, H, KV, hd):
+    """bf16 q, k, v on the card, drawn with numpy from SEED."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (B, S, h, hd), dtype=np.float32)).to("cuda", torch.bfloat16)
+        for h in (H, KV, KV))
+
+
+def phase_flash_vs_plain():
+    """Returns (max |kernel - plain| over every case, the prefill case's
+    q, k, v)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.nn.layers import set_matmul_precision
+    set_matmul_precision()
+    max_err, prefill = 0.0, None
+    for tag, B, S, H, KV, hd, causal in FLASH_CASES:
+        q, k, v = bf16_qkv(B, S, H, KV, hd)
+        if prefill is None:
+            prefill = (q, k, v)
+        for bq, bk in FLASH_BLOCKS:
+            got = flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+            ref = flash_attention_plain(q, k, v, causal=causal, bq=bq,
+                                        bk=bk)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            err = diff.max().item()
+            excess = (diff - FLASH_ATOL - FLASH_RTOL * ref.float().abs()
+                      ).max().item()
+            print(f"[26] {tag} [{B}, {S}, {H}, {hd}] KV {KV} blocks "
+                  f"({bq}, {bk}): max |err| {err:.3e} (tolerance rtol "
+                  f"2^-7, atol 1e-3: {'ok' if excess <= 0 else 'FAILED'})")
+            if excess > 0 or not torch.isfinite(got).all():
+                fail(f"flash_attention {tag} blocks ({bq}, {bk}) differs "
+                     f"from its plain version (max |err| {err:.3e})")
+            max_err = max(max_err, err)
+    return max_err, prefill
+
+
+def phase_lm_main_path(card):
+    """qwen3-4b served through `generate`, then decode against teacher
+    forcing.  Returns the warm run's flash_attention launches."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.fixpoint_kernel import (fixpoint_cuda,
+                                                     search_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.nn import model as MD
+    from repro_torch.nn.layers import init_params
+    from repro_torch.train.serve_step import generate
+    cfg = configs.get(LM_ARCH)
+    t = time.perf_counter()
+    params = init_params(MD.param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    print(f"[27] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+          f"{cfg.n_params():,} params, {nbytes / 1e9:.3f} GB on the card, "
+          f"drawn in {time.perf_counter() - t:.2f} s")
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
+    batch = {"tokens": tokens}
+    smax = LM_PROMPT + LM_GEN + 8
+    runs = []
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        flash_attention.launches = 0
+        fixpoint_cuda.launches = search_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = generate(params, cfg, batch, steps=LM_GEN, smax=smax,
+                       stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash_attention.launches
+        if fixpoint_cuda.launches or search_cuda.launches:
+            fail(f"{run} generate launched a solver kernel")
+        if launches != cfg.n_layers:
+            fail(f"{run} generate: flash_attention launched {launches} "
+                 f"times, not once per layer ({cfg.n_layers})")
+        if out.shape != (LM_BATCH, LM_GEN) or not (
+                (out >= 0) & (out < cfg.vocab)).all():
+            fail(f"{run} generate: tokens {tuple(out.shape)} outside the "
+                 f"vocabulary")
+        runs.append(out)
+        print(f"[27] {run}: {LM_BATCH} requests x {LM_PROMPT} prompt tokens"
+              f", {LM_GEN} generated: wall {wall:.3f} s, prefill "
+              f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
+              f"{stats['decode_s'] / (LM_GEN - 1) * 1e3:.3f} ms/token, "
+              f"{LM_BATCH * LM_GEN / wall:.1f} tokens/s, flash_attention "
+              f"launches {launches}, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({card})")
+    print(f"[27] cold and warm tokens equal: {torch.equal(*runs)}; "
+          f"request 0: {runs[1][0].tolist()}")
+
+    full, _ = MD.forward_prefill(params, cfg, batch, smax)
+    _, caches = MD.forward_prefill(params, cfg,
+                                   {"tokens": tokens[:, :-1]}, smax)
+    dec, _ = MD.forward_decode(params, cfg, tokens[:, -1:], caches)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
+        fail("non-finite logits")
+    err = (dec - full).abs().max().item()
+    scale = max(full.abs().max().item(), 1.0)
+    print(f"[27] decode of token {LM_PROMPT - 1} against teacher forcing: "
+          f"max |err| {err:.4f}, max |logit| {scale:.4f} "
+          f"({err / scale:.4f} of it; bound {DECODE_TOL})")
+    if err >= DECODE_TOL * scale:
+        fail(f"decode differs from teacher forcing: {err:.4f} >= "
+             f"{DECODE_TOL} x {scale:.4f}")
+    del params, caches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_flash_times(card, qkv, launches, max_err):
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = qkv
+    B, S, H, hd = q.shape
+    ms = cuda_ms(lambda: flash_attention(q, k, v), 10, 2)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 3, 1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+    library_ms = cuda_ms(sdpa, 10, 2)
+    lib_err = (sdpa().transpose(1, 2).float()
+               - flash_attention(q, k, v).float()).abs().max().item()
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    flops = 4 * hd * B * H * S * (S + 1) // 2      # QK and PV, causal pairs
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_BF16_FLOP_S * 1e3
+    f32_ms = flops / PEAK_F32_FLOP_S * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    print(f"[28] flash_attention [{B}, {S}, {H}, {hd}] KV {k.shape[2]} "
+          f"causal ({card}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention {library_ms:.4f} ms (max |diff| "
+          f"to the kernel {lib_err:.3e}); bound {bound_ms:.4f} ms "
+          f"({bound_by}: {flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16; "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms; at the "
+          f"67 TFLOP/s f32 peak {f32_ms:.3f} ms); kernel {ms / bound_ms:.1f}"
+          f"x the bound, {ms / f32_ms:.2f}x the f32 share, "
+          f"{ms / library_ms:.1f}x the library")
+    print(f"kernels: flash_attention launches={launches} (per request "
+          f"batch: one per layer of the prefill, none per decode step)")
+    return dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,
+                replaces=FLASH_REPLACES, launches=launches,
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
 def mode_entry(base, mode, launches, err, times):
     """A {"kernels": [...]} entry of one kernel mode: `base`'s name,
     route, source and bank list, this mode's launches, max |err| and
@@ -1705,6 +1912,10 @@ def main():
     fix64, srch64, tiled = timed(25, phase_int64_times, card, peak_int32,
                                  sparse, sp_states, int64, i64_states,
                                  states, tile_states)
+    flash_err, flash_qkv = timed(26, phase_flash_vs_plain)
+    flash_launches = timed(27, phase_lm_main_path, card)
+    flash = timed(28, phase_flash_times, card, flash_qkv, flash_launches,
+                  flash_err)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
                                     sp_err, ct_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
@@ -1721,7 +1932,7 @@ def main():
                    i64_launches[("J120x1e7", "cuda_resident")][1],
                    i64_search_err, srch64),
         mode_entry(kernels[1], f"int32, lane tiles of {MAIN_TILE}",
-                   tile_launches, tile_err, tiled)]
+                   tile_launches, tile_err, tiled), flash]
     print("kernels: int64 main-path launches (fixpoint_cuda, search_cuda): "
           + ", ".join(f"{t} {b} {n}" for (t, b), n in i64_launches.items())
           + f"; lane-tiled J60 search_cuda launches {tile_launches}")
