@@ -11,7 +11,8 @@ exit code and no result line:
    ``kernels/csrc/search.cu`` for sm_90a, each at int32 and int64 and
    ``search.cu`` also in its lane-tiled mode, and
    ``kernels/csrc/flash_attention.cu``, all seven at once, and their
-   ``-Xptxas -v`` reports (registers, shared memory) are printed;
+   ``-Xptxas -v`` reports (registers, shared memory) are printed; the
+   flash kernel must neither spill nor use local memory;
 2. kernel against plain version: ``fixpoint_cuda`` against the plain
    PyTorch ``fixpoint_batch``, on the card, on RCPSP J30- and J60-class
    models, for 1024 random stores (random tells on the root box, from a
@@ -27,7 +28,10 @@ exit code and no result line:
    identical results, equal to the JAX package's;
 4. times: the kernel and its plain version per launch (CUDA events) at
    the main path's shape ``[1024, 62]``, on phase 2's J60 random stores,
-   beside the least time the card could take for that work;
+   beside the least time the card could take for that work; then the
+   kernel as EPS issues it (``time_eps_launches``: J60 decomposed to
+   4096 subproblems under ``torch.profiler``, one ``[2, 62]`` launch per
+   split), its device time per launch beside its bound;
 5. resident kernel against plain version: ``search_cuda`` against
    ``search_plain`` on the card, on J30 (256 lanes) and J60 (1024 lanes)
    class models with phase 2's EPS pools, from fresh lanes, from the
@@ -70,7 +74,8 @@ exit code and no result line:
    package's, ground-checked;
 12. times of both kernels at the N-queens-32 shapes (``[1024, 33]``
    stores of phase 8; 1024 lanes, K=16, ``min_dom``/``split``, after 5
-   supersteps), beside their plain versions and bounds; then every
+   supersteps), beside their plain versions and bounds, and the fixpoint
+   kernel as EPS issues it on N-queens 32 (as in phase 4); then every
    launch of phase 10's long N-queens-32 ``cuda_resident`` solve,
    replayed from the same options and pool and timed one by one (its
    supersteps and nodes must equal the solve's);
@@ -97,7 +102,8 @@ exit code and no result line:
 16. times of both kernels at the J120 (``[1024, 122]``) and N-queens-256
    (``[1024, 257]``) shapes of phases 13 and 14, beside their plain
    versions, their bounds and the sparse banks' own work (sort compares
-   and scan steps);
+   and scan steps), and the fixpoint kernel as EPS issues it on J120 (as
+   in phase 4);
 17. the Compact-Table bank and the bitset store, kernel against plain
    version: phase 2's comparison on crossword and configuration at the
    small, bench and large tiers and a model whose tables hold more than
@@ -183,7 +189,10 @@ exit code and no result line:
    GQA; the library yardstick, which the port never calls) per call by
    CUDA events, beside the bound (the larger of the bytes over the HBM
    rate and the causal pairs' operations over the bf16 tensor-core
-   peak; the f32 share printed beside it).
+   peak), the achieved TFLOP/s of the function and the kernel's time as
+   a share of the bound; the kernel's own work with p split into bf16 hi
+   and lo (6·hd operations per pair against the function's 4·hd) printed
+   beside it.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -194,6 +203,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -282,10 +292,8 @@ FLASH_CASES = (("prefill", 4, 2048, 32, 8, 128, True),
                ("MQA", 4, 2048, 32, 1, 128, True),
                ("head_dim 64", 4, 2048, 32, 8, 64, True))
 FLASH_BLOCKS = ((128, 128), (64, 128))
-# H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores, and
-# f32 off them (the rate of the kernel's own FMAs)
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_BF16_FLOP_S = 989e12
-PEAK_F32_FLOP_S = 67e12
 # the propagator banks both kernels cover (csrc/fixpoint_lane.cuh)
 BANKS = ("ReifLinLe", "AllDifferent dense", "AllDifferent sparse",
          "Cumulative dense", "Cumulative sparse", "Compact-Table",
@@ -460,8 +468,13 @@ def phase_card_and_build():
               f"{built.seconds:.1f} s")
         for line in built.log.splitlines():
             if any(k in line for k in ("registers", "spill", "stack frame",
-                                       "Compiling entry")):
+                                       "Compiling entry", "Local memory")):
                 print(f"[1]   ptxas: {line.strip()}")
+        # the flash kernel keeps its accumulators and p in registers
+        if built.name == "flash_attention" and (
+                "Local memory" in built.log
+                or re.search(r"[1-9]\d* bytes spill stores", built.log)):
+            fail("flash_attention.cu spills or uses local memory")
     return card, peak_int32
 
 
@@ -962,6 +975,71 @@ def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what, plain_reps=5,
     return ms, plain_ms, bound_ms, bound_by
 
 
+def time_eps_launches(card, peak_int32, cm, tag, what, strategy=None):
+    """`fixpoint_cuda` as `core/eps.py` issues it on the main path:
+    `eps.decompose` to MAIN_EPS subproblems (`main_config`'s options, with
+    the instance's strategy pair), traced with ``torch.profiler``, gives the
+    device time of its launches (the root's ``[1, V]``, then one ``[2,
+    V]`` pair per split); the bound per launch as `time_fixpoint`'s
+    (tables, stores in and out and counters; the sweeps its lanes need,
+    counted from one batched run of the recorded stores, as lanes are
+    independent).  Returns (launches, kernel ms, bound ms) per launch."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import eps
+    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
+    opts = main_config("cuda", strategy).search_options()
+    calls, propagate = [], eps._propagate
+
+    def record(backend, cm_, lbs, ubs):
+        calls.append((lbs, ubs))
+        return propagate(backend, cm_, lbs, ubs)
+
+    n0 = fixpoint_cuda.launches
+    eps._propagate = record
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eps.decompose(cm, MAIN_EPS, opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        eps._propagate = propagate
+    launches = fixpoint_cuda.launches - n0
+    rows = [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and "fixpoint" in e.key]
+    count = sum(e.count for e in rows)
+    if launches != len(calls) or not count:
+        fail(f"{tag}: EPS made {launches} launches for {len(calls)} "
+             f"propagations, {count} traced")
+    ms = sum(e.self_device_time_total for e in rows) / 1e3 / count
+    lb = torch.from_numpy(np.concatenate([c[0] for c in calls])).cuda()
+    ub = torch.from_numpy(np.concatenate([c[1] for c in calls])).cuda()
+    sweeps = fixpoint_cuda(cm, lb, ub)[-2].cpu().numpy()
+    fixpoint_cuda.launches = n0           # timing launches are not counted
+    total, first = 0.0, 0
+    for lbs, _ in calls:
+        L, V = lbs.shape
+        nbytes = table_bytes(cm) + 4 * L * V * lbs.itemsize + 2 * L * 4
+        ops = int(sweeps[first:first + L].sum()) * ops_per_sweep(cm)
+        total += bound(nbytes, ops, peak_int32)[0]
+        first += L
+    bound_ms = total / launches
+    print(f"[{tag}] fixpoint as EPS issues it ({what}, eps_target "
+          f"{MAIN_EPS}): {launches} launches (1 of [1, {cm.n_vars}], "
+          f"{launches - 1} of [2, {cm.n_vars}]), {int(sweeps.sum())} "
+          f"lane-sweeps; kernel {ms:.4f} ms per launch on the device "
+          f"(profiler, {count} runs traced), bound {bound_ms:.5f} ms per "
+          f"launch (kernel {ms / bound_ms:.0f}x the bound), launches x "
+          f"(ms - bound) "
+          f"{launches * (ms - bound_ms):.1f} ms; EPS wall {wall:.2f} s "
+          f"traced, device busy {launches * ms / 1e3 / wall:.1%} of it, on "
+          f"{card}")
+    return launches, ms, bound_ms
+
+
 def search_bound_ms(cm, start, out, peak_int32, launches=1, ct_vals=0):
     """Least time for the work of `launches` launches from `start` to
     `out`: the LaneState read once and written once per launch (bools one
@@ -1086,6 +1164,7 @@ def phase_times(card, peak_int32, cases, launches, max_err):
     c = cases["J60"]
     ms, plain_ms, bound_ms, bound_by = time_fixpoint(
         card, peak_int32, c.cm, c.lbs, c.ubs, "4", "J60 random stores")
+    time_eps_launches(card, peak_int32, c.cm, "4", "J60")
     print(f"kernels: fixpoint_cuda launches={launches}")
     return [dict(name="fixpoint_cuda", route="cuda", source=FIXPOINT_SOURCE,
                  replaces=FIXPOINT_REPLACES, launches=launches,
@@ -1109,6 +1188,8 @@ def phase_alldiff_times(card, peak_int32, cases, states, long):
     c = cases["nqueens32"]
     time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "12",
                   "N-queens 32 stores of phase 8")
+    time_eps_launches(card, peak_int32, c.cm, "12", "N-queens 32",
+                      ZOO_STRATEGY["nqueens32"])
     time_search(card, peak_int32, states[("nqueens32", "min_dom/split")],
                 "12", "N-queens 32, min_dom/split, early state")
     time_resident_solve(card, peak_int32, "nqueens32", c, *long["nqueens32"])
@@ -1362,6 +1443,8 @@ def phase_sparse_times(card, peak_int32, cases, states):
         c = cases[tag]
         time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "16", what,
                       plain_reps=1)
+        if tag == "J120":
+            time_eps_launches(card, peak_int32, c.cm, "16", "J120")
     time_search(card, peak_int32, states[("J120", "prove")], "16",
                 "J120, prove", plain_reps=1, plain_warmup=0)
     time_search(card, peak_int32, states[("nqueens256", "min_dom/split")],
@@ -1820,20 +1903,25 @@ def phase_flash_times(card, qkv, launches, max_err):
     lib_err = (sdpa().transpose(1, 2).float()
                - flash_attention(q, k, v).float()).abs().max().item()
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    flops = 4 * hd * B * H * S * (S + 1) // 2      # QK and PV, causal pairs
+    pairs = B * H * S * (S + 1) // 2                # causal (query, key)
+    flops = 4 * hd * pairs                          # QK and PV
+    split_flops = 6 * hd * pairs                    # PV twice: p_hi, p_lo
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_BF16_FLOP_S * 1e3
-    f32_ms = flops / PEAK_F32_FLOP_S * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     print(f"[28] flash_attention [{B}, {S}, {H}, {hd}] KV {k.shape[2]} "
           f"causal ({card}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention {library_ms:.4f} ms (max |diff| "
           f"to the kernel {lib_err:.3e}); bound {bound_ms:.4f} ms "
           f"({bound_by}: {flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16; "
-          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms; at the "
-          f"67 TFLOP/s f32 peak {f32_ms:.3f} ms); kernel {ms / bound_ms:.1f}"
-          f"x the bound, {ms / f32_ms:.2f}x the f32 share, "
-          f"{ms / library_ms:.1f}x the library")
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms); "
+          f"achieved {flops / ms / 1e9:.1f} TFLOP/s of the function, "
+          f"roofline share {bound_ms / ms:.1%} (the bound over the kernel's "
+          f"time; kernel {ms / bound_ms:.2f}x the bound, "
+          f"{ms / library_ms:.2f}x the library); with p split into bf16 "
+          f"hi and lo the kernel does {split_flops / 1e9:.1f} GFLOP "
+          f"({split_flops / PEAK_BF16_FLOP_S * 1e3:.4f} ms at the peak, "
+          f"{split_flops / ms / 1e9:.1f} TFLOP/s achieved)")
     print(f"kernels: flash_attention launches={launches} (per request "
           f"batch: one per layer of the prefill, none per decode step)")
     return dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,

@@ -5,14 +5,16 @@ shared libraries for ``sm_90a`` (Hopper), one per variant: the default
 (int32 models, one pool queue), ``i64`` (int64 models: the same code at
 ``-DFIXLANE_VAL=int64_t``), and, for ``search.cu``, ``tiles`` and
 ``tiles_i64`` (the lane-tiled resident search, ``-DSEARCH_LANE_TILES=1``).
-A variant is built at its first launch, so a run that never meets an
-int64 model or a lane tile never builds those.  Libraries go to
-``build/`` at the repository root, named by a hash of the source, the
-shared headers (``csrc/*.cuh``) and the flags, so the first call in a
-fresh checkout builds and every later call (and every later process)
-reuses the file; an edited header rebuilds every library.  Nothing here
-runs at import time: the build starts on first use, which is the first
-launch on a CUDA tensor.
+A source may carry flags of its own (``SOURCE_FLAGS``), which the other
+sources' libraries do not see.  A variant is built at its first launch, so
+a run that never meets an int64 model or a lane tile never builds those.
+Libraries go to ``build/`` at the repository root, named by a hash of the
+source, the ``csrc/*.cuh`` headers it includes (directly or through
+another header) and the flags, so the first call in a fresh checkout
+builds and every later call (and every later process) reuses the file;
+an edited header rebuilds the libraries whose sources include it.
+Nothing here runs at import time: the build starts on first use, which
+is the first launch on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -36,6 +39,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 VARIANTS = {"": (), "i64": ("-DFIXLANE_VAL=int64_t",),
             "tiles": ("-DSEARCH_LANE_TILES=1",),
             "tiles_i64": ("-DSEARCH_LANE_TILES=1", "-DFIXLANE_VAL=int64_t")}
+# the flags of one source only: the flash kernel keeps its accumulators and
+# p in registers, so ptxas warns in its log of any spill or local memory
+SOURCE_FLAGS = {"flash_attention": ("-Xptxas", "-warn-spills",
+                                    "-Xptxas", "-warn-lmem-usage")}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
 
 
 def variant(dtype: str, tiles: bool = False) -> str:
@@ -72,15 +80,28 @@ def nvcc() -> str:
         "CUDA kernels cannot be built on this machine")
 
 
-def _flags(variant: str) -> tuple:
-    return NVCC_FLAGS + VARIANTS[variant]
+def _flags(name: str, variant: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + VARIANTS[variant]
+
+
+def headers(name: str) -> list:
+    """The ``csrc/*.cuh`` headers that ``csrc/<name>.cu`` includes, directly
+    or through another of them, sorted by name."""
+    found, todo = set(), [CSRC / f"{name}.cu"]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC / inc
+            if inc not in found and path.exists():
+                found.add(inc)
+                todo.append(path)
+    return [CSRC / inc for inc in sorted(found)]
 
 
 def _target(name: str, variant: str = "") -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in headers(name):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(_flags(variant)).encode())
+    h.update(" ".join(_flags(name, variant)).encode())
     stem = f"{name}_{variant}" if variant else name
     return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
@@ -96,7 +117,8 @@ def build(name: str, variant: str = "") -> Built:
     tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc(), *_flags(variant), "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [nvcc(), *_flags(name, variant), "-o", str(tmp),
+         str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:

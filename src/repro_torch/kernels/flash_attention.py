@@ -4,11 +4,13 @@
 (``src/repro/kernels/flash_attention.py``): causal or bidirectional GQA
 self-attention over aligned positions (train/prefill; decode goes
 through ``nn/attention.py`` `blocked_attention`).  Source
-``csrc/flash_attention.cu``: one CTA per (q-block, head, batch), K/V
-tiles staged in shared memory, f32 online softmax, both products as f32
-FMAs.  It takes bf16 q/k/v, head_dim 16 (the smoke configs), 64 or 128,
-q-blocks of 64 or 128 and KV blocks of 128; anything else raises, on the
-CPU as on the card.
+``csrc/flash_attention.cu``: one CTA per (head, batch, q-block), K/V
+tiles fed by TMA into a ring of shared-memory stages, both products on
+the tensor cores (``wgmma``), the softmax online in f32 registers, and p
+into the PV product as a bf16 pair ``p_hi + p_lo`` (f32 precision, as the
+reference keeps it).  It takes bf16 q/k/v, head_dim 16 (the smoke
+configs), 64 or 128, q-blocks of 64 or 128 and KV blocks of 128; anything
+else raises, on the CPU as on the card.
 
 On a CPU tensor the wrapper runs `flash_attention_plain`; on a CUDA
 tensor it launches the kernel or raises (failed build, refused launch).

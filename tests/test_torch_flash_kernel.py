@@ -7,10 +7,17 @@ the GPU machine, where the kernel tests run instead of skipping:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_flash_kernel.py
 
-Tolerance on the bf16 outputs: ``rtol 2⁻⁷, atol 1e-3``.  Both versions
-compute in f32 and round once to bf16; their f32 sums run in other
-orders, so an output may round one bf16 ulp apart (relative at most
-2⁻⁷).
+Tolerance on the bf16 outputs: ``rtol 2⁻⁷, atol 1e-3``.  The plain
+version computes in f32 and rounds once to bf16.  The kernel multiplies
+bf16 q and k exactly and sums in f32, takes the softmax in f32 online
+over 128-key tiles, and feeds p to the bf16 tensor cores as the pair
+``p_hi = bf16(p)``, ``p_lo = bf16(p - p_hi)``, summing both products
+with V in f32: p keeps 16 significant bits (relative error about 2⁻¹⁷),
+and the output rounds once to bf16.  So the two differ by f32 sums in
+other orders and that residue of p, and an output may round one bf16
+ulp apart (relative at most 2⁻⁷).  ``test_split_p_keeps_the_tolerance``
+emulates those rounding points on the CPU, and shows that p in bf16
+alone leaves the bound.
 """
 
 import numpy as np
@@ -89,10 +96,82 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     assert flash_attention.launches == before
 
 
-def test_build_target_is_keyed_by_the_source():
+def emulate_kernel(q, k, v, *, split=True, bn=128):
+    """The kernel's rounding points in PyTorch on the CPU (causal, one KV
+    head per query head): bf16 operands, f32 scores, an f32 online
+    softmax over `bn`-key tiles by exp2 with the scale folded in, p into
+    the PV product as ``bf16(p) + bf16(p - bf16(p))`` (`split`) or as
+    ``bf16(p)``, the products summed in f32, l from the f32 p."""
+    B, S, H, hd = q.shape
+    sl = (1.0 / hd ** 0.5) * 1.4426950408889634
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # [B,H,S,hd]
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    pos = torch.arange(S)
+    for k0 in range(0, S, bn):
+        s = qf @ kf[:, :, k0:k0 + bn].transpose(-1, -2)
+        s = s.masked_fill(pos[k0:k0 + bn][None, :] > pos[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * sl)
+        p = torch.exp2(s * sl - m_new * sl)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vf[:, :, k0:k0 + bn]
+        if split:
+            pv = pv + (p - p_hi).bfloat16().float() @ vf[:, :, k0:k0 + bn]
+        acc = acc * corr + pv
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+def test_split_p_keeps_the_tolerance():
+    """At the serving head_dim and a 2048-token causal prompt, the split p
+    stays within the tolerance of the plain version, and bf16 p alone does
+    not: the reason the kernel takes two PV products."""
+    q, k, v = qkv(1, 2048, 4, 4, 128, seed=0)
+    ref = flash_attention_plain(q, k, v).float()
+    split = emulate_kernel(q, k, v).float()
+    torch.testing.assert_close(split, ref, rtol=RTOL, atol=ATOL)
+    single = emulate_kernel(q, k, v, split=False).float()
+    outside = ((single - ref).abs() > ATOL + RTOL * ref.abs()).sum().item()
+    assert outside > 0, "bf16 p alone stayed within the tolerance"
+
+
+def test_build_target_is_keyed_by_the_source(tmp_path, monkeypatch):
     lib = build._target("flash_attention")
     assert lib.name.startswith("libflash_attention_")
     assert lib != build._target("fixpoint")
+    # each library is keyed by the headers its source includes ...
+    assert [h.name for h in build.headers("flash_attention")] == ["sm90.cuh"]
+    for name in ("fixpoint", "search"):
+        assert [h.name for h in build.headers(name)] == ["fixpoint_lane.cuh"]
+    # ... and a source's own flags reach its libraries only
+    assert set(build.SOURCE_FLAGS["flash_attention"]) <= set(
+        build._flags("flash_attention", ""))
+    for name in ("fixpoint", "search"):
+        for variant in ("", "i64"):
+            assert build._flags(name, variant) == (build.NVCC_FLAGS
+                                                   + build.VARIANTS[variant])
+    # an edited header rebuilds its includers and no other library
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {(n, v): build._target(n, v) for n in ("fixpoint", "search")
+              for v in ("", "i64")}
+    before[("flash_attention", "")] = build._target("flash_attention")
+    with open(csrc / "sm90.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {nv: build._target(*nv) for nv in before}
+    assert [nv for nv in before if before[nv] != after[nv]] == [
+        ("flash_attention", "")]
+    with open(csrc / "fixpoint_lane.cuh", "a") as f:
+        f.write("// edited\n")
+    again = {nv: build._target(*nv) for nv in before}
+    assert [nv for nv in before if again[nv] != after[nv]] == [
+        nv for nv in before if nv[0] != "flash_attention"]
 
 
 # ---- on the card only: the kernel against its plain version -----------------
@@ -106,7 +185,10 @@ def cuda():
 
 # (B, S, H, KV, hd, causal, bq, bk): the serving prefill shape, a ragged
 # S (the pad path), bidirectional, MQA, head_dim 64 and 16 (the smoke
-# configs; S below the blocks), at both q-blocks
+# configs; S below the blocks), at both q-blocks; then the tiling's edges:
+# S = 1 and S = 65 (a q-block or a warpgroup of 64 rows past S, a KV tile
+# mostly past S) at both q-blocks, head_dim 16 bidirectional at S = 128,
+# and MQA at head_dim 64
 CARD_CASES = [
     (4, 2048, 32, 8, 128, True, 128, 128),
     (4, 2048, 32, 8, 128, True, 64, 128),
@@ -116,6 +198,12 @@ CARD_CASES = [
     (2, 1024, 16, 4, 64, True, 64, 128),
     (2, 100, 4, 2, 16, True, 128, 128),
     (1, 96, 4, 2, 16, False, 128, 128),
+    (1, 1, 4, 2, 128, True, 128, 128),
+    (1, 1, 4, 2, 128, True, 64, 128),
+    (2, 65, 8, 2, 128, True, 128, 128),
+    (2, 65, 8, 2, 128, True, 64, 128),
+    (2, 128, 4, 2, 16, False, 64, 128),
+    (2, 1024, 16, 1, 64, True, 128, 128),
 ]
 
 
