@@ -9,10 +9,13 @@ exit code and no result line:
 1. card and build: the card line of ``nvidia-smi``, torch and CUDA
    versions; ``nvcc`` builds ``kernels/csrc/fixpoint.cu`` and
    ``kernels/csrc/search.cu`` for sm_90a, each at int32 and int64 and
-   ``search.cu`` also in its lane-tiled mode, and
-   ``kernels/csrc/flash_attention.cu``, all seven at once, and their
-   ``-Xptxas -v`` reports (registers, shared memory) are printed; the
-   flash kernel must neither spill nor use local memory;
+   ``search.cu`` also in its lane-tiled mode,
+   ``kernels/csrc/flash_attention.cu``, and ``fixpoint.cu``'s
+   clock-stamped ``clocks`` variants at both widths, all nine at once;
+   each kernel instance's registers and spill stores are printed (from
+   ``-Xptxas -v``); the flash kernel must neither spill nor use local
+   memory, and no few-lane instance of ``fixpoint.cu`` (1024 threads,
+   64 registers a thread) may spill;
 2. kernel against plain version: ``fixpoint_cuda`` against the plain
    PyTorch ``fixpoint_batch``, on the card, on RCPSP J30- and J60-class
    models, for 1024 random stores (random tells on the root box, from a
@@ -31,7 +34,11 @@ exit code and no result line:
    beside the least time the card could take for that work; then the
    kernel as EPS issues it (``time_eps_launches``: J60 decomposed to
    4096 subproblems under ``torch.profiler``, one ``[2, 62]`` launch per
-   split), its device time per launch beside its bound;
+   split; on an H100 they take the few-lane instance), its device time
+   per launch beside its bound, and the plain version per ``[2, 62]``
+   launch; then those launches replayed through the ``clocks`` library
+   on both instances (1024 and 256 threads per CTA): SM clocks per
+   lane-sweep by phase of the sweep (``clock_breakdown``);
 5. resident kernel against plain version: ``search_cuda`` against
    ``search_plain`` on the card, on J30 (256 lanes) and J60 (1024 lanes)
    class models with phase 2's EPS pools, from fresh lanes, from the
@@ -75,7 +82,8 @@ exit code and no result line:
 12. times of both kernels at the N-queens-32 shapes (``[1024, 33]``
    stores of phase 8; 1024 lanes, K=16, ``min_dom``/``split``, after 5
    supersteps), beside their plain versions and bounds, and the fixpoint
-   kernel as EPS issues it on N-queens 32 (as in phase 4); then every
+   kernel as EPS issues it on N-queens 32, with its clock breakdown (as
+   in phase 4); then every
    launch of phase 10's long N-queens-32 ``cuda_resident`` solve,
    replayed from the same options and pool and timed one by one (its
    supersteps and nodes must equal the solve's);
@@ -102,8 +110,8 @@ exit code and no result line:
 16. times of both kernels at the J120 (``[1024, 122]``) and N-queens-256
    (``[1024, 257]``) shapes of phases 13 and 14, beside their plain
    versions, their bounds and the sparse banks' own work (sort compares
-   and scan steps), and the fixpoint kernel as EPS issues it on J120 (as
-   in phase 4);
+   and scan steps), and the fixpoint kernel as EPS issues it on J120,
+   with its clock breakdown (as in phase 4);
 17. the Compact-Table bank and the bitset store, kernel against plain
    version: phase 2's comparison on crossword and configuration at the
    small, bench and large tiers and a model whose tables hold more than
@@ -165,9 +173,11 @@ exit code and no result line:
    whose counters must equal the plain version's on the CPU and differ
    from one queue's;
 25. times: both kernels at int64 (J120 × 10⁷) against int32 (J120) at
-   ``[1024, 122]``, and ``search_cuda`` at J60 in tiles of 256 against
-   one queue, beside their plain versions and bounds (int64 bytes
-   counted at 8, int64 operations against the int32 peak);
+   ``[1024, 122]``, the fixpoint kernel as EPS issues it on J120 × 10⁷
+   with its clock breakdown (as in phase 4, at int64), and
+   ``search_cuda`` at J60 in tiles of 256 against one queue, beside
+   their plain versions and bounds (int64 bytes counted at 8, int64
+   operations against the int32 peak);
 26. flash attention, kernel against plain version: ``flash_attention``
    against ``flash_attention_plain`` on the card, bf16 inputs drawn with
    numpy from SEED, at the serving prefill shape ``[4, 2048, 32, 128]``
@@ -192,7 +202,21 @@ exit code and no result line:
    peak), the achieved TFLOP/s of the function and the kernel's time as
    a share of the bound; the kernel's own work with p split into bf16 hi
    and lo (6·hd operations per pair against the function's 4·hd) printed
-   beside it.
+   beside it;
+29. the few-lane instance of the fixpoint kernel: ``fixpoint_cuda`` over
+   1 (the root box), 2 and 132 lanes (the few-lane instance on an H100)
+   and 133 (the 256-thread one) against ``fixpoint_batch``, every bank
+   at both widths (J60, J120, N-queens 32 and 256, crossword and
+   configuration large with the transient and the carried store; J120
+   × 10⁷, J60 int64, the wide row, N-queens 8 and 36 and a two-word
+   table forced to int64), at max_sweeps 1 and uncapped: every field
+   equal; then every launch EPS made in phases 4, 12, 16 and 25 (J60,
+   N-queens 32, J120, J120 × 10⁷) and in N-queens 256's, crossword
+   large's and configuration large's decompositions against
+   ``fixpoint_batch`` on the same stores, and the decomposition replayed
+   with the plain results, whose pool (the pool through
+   ``fixpoint_batch``) must equal the pool through ``fixpoint_cuda`` bit
+   for bit.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -257,10 +281,12 @@ J30_REFERENCE = dict(status="OPTIMAL", objective=34, n_nodes=2038,
 PEAK_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
 # every library the run launches, built at once in phase 1: both
-# sources at int32 and int64, and search.cu's lane-tiled mode at both
+# sources at int32 and int64, search.cu's lane-tiled mode at both, the
+# flash kernel, and fixpoint.cu's clock-stamped breakdown at both widths
 BUILDS = (("fixpoint", ""), ("fixpoint", "i64"), ("search", ""),
           ("search", "i64"), ("search", "tiles"), ("search", "tiles_i64"),
-          ("flash_attention", ""))
+          ("flash_attention", ""), ("fixpoint", "clocks"),
+          ("fixpoint", "clocks_i64"))
 # phases 21-25: every duration of an RCPSP class × INT64_SCALE compiles to
 # int64 (sums pass the int32 headroom); scaling every duration scales the
 # optimum, so J120 × 10⁷ must prove SPARSE_OPTIMUM["J120"] × 10⁷
@@ -294,6 +320,11 @@ FLASH_CASES = (("prefill", 4, 2048, 32, 8, 128, True),
 FLASH_BLOCKS = ((128, 128), (64, 128))
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_BF16_FLOP_S = 989e12
+# the phases of a sweep the clocks library stamps (fixlane::Phase order)
+PHASES = ("linear", "alldiff stage", "table supports", "cumulative events",
+          "alldiff sort", "alldiff hall", "table current", "cumulative sort",
+          "cumulative profile", "cumulative starts", "table survivors",
+          "join")
 # the propagator banks both kernels cover (csrc/fixpoint_lane.cuh)
 BANKS = ("ReifLinLe", "AllDifferent dense", "AllDifferent sparse",
          "Cumulative dense", "Cumulative sparse", "Compact-Table",
@@ -362,6 +393,10 @@ ZOO_SMOKE_REFERENCE = {
 # no phase needs them).
 Case = namedtuple("Case", "mod inst handles cm lbs ubs pool doms",
                   defaults=(None,))
+# `eps.decompose` traced (`time_eps_launches`): its fixpoint launches, the
+# device ms of one and its bound, the recorded (lbs, ubs, lbs', ubs') of
+# each launch and the pool
+EpsRun = namedtuple("EpsRun", "launches ms bound_ms bound_by calls pool")
 
 
 def fail(msg):
@@ -454,6 +489,7 @@ def phase_card_and_build():
     """Returns the card line and the card's int32 peak (operations/s)."""
     import torch
     from repro_torch.kernels import build
+    from repro_torch.kernels.fixpoint_kernel import FEW_THREADS
     card = nvidia_smi("name,power.limit")
     print(f"[1] card: {card}")
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -466,16 +502,51 @@ def phase_card_and_build():
     for built in build.build_all(BUILDS):
         print(f"[1] built {os.path.relpath(built.path, ROOT)} in "
               f"{built.seconds:.1f} s")
-        for line in built.log.splitlines():
-            if any(k in line for k in ("registers", "spill", "stack frame",
-                                       "Compiling entry", "Local memory")):
-                print(f"[1]   ptxas: {line.strip()}")
+        for entry, regs, spills in ptxas_report(built.log):
+            print(f"[1]   {entry}: {regs} registers, {spills} bytes spill "
+                  "stores")
+            # the few-lane fixpoint instances (one CTA of FEW_THREADS per
+            # SM: 64 registers a thread) must not spill
+            if (built.name == "fixpoint" and spills
+                    and entry.startswith(f"fixpoint<{FEW_THREADS},")):
+                fail(f"{built.path.name}: {entry} spills {spills} bytes")
         # the flash kernel keeps its accumulators and p in registers
         if built.name == "flash_attention" and (
                 "Local memory" in built.log
                 or re.search(r"[1-9]\d* bytes spill stores", built.log)):
             fail("flash_attention.cu spills or uses local memory")
     return card, peak_int32
+
+
+def ptxas_report(log):
+    """(entry, registers, spill-store bytes) of each kernel in an ``nvcc
+    -Xptxas -v`` log, the solver kernels' entries named by their thread
+    count and template arguments: ``fixpoint<threads, AD_SPARSE,
+    CU_SPARSE, DOM>`` (``fixpoint_few_kernel`` is the few-lane instance),
+    ``search<AD_SPARSE, CU_SPARSE, DOM>``."""
+    from repro_torch.kernels.fixpoint_kernel import FEW_THREADS, THREADS
+    out, entry, spills = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"(fixpoint_few|fixpoint|search)_kernelI"
+                          r"((?:L[ib]\d+E)+)E", name)
+            args = re.findall(r"L[ib](\d+)E", t.group(2)) if t else []
+            if t and t.group(1).startswith("fixpoint"):
+                args.insert(0, str(FEW_THREADS if t.group(1) ==
+                                   "fixpoint_few" else THREADS))
+            entry = (f"{t.group(1).split('_')[0]}<{','.join(args)}>" if t
+                     else name)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), spills))
+            entry, spills = None, 0
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -594,14 +665,17 @@ def solve_case(phase, tag, c, cfg, optimum=None):
     backend's kernel must have run (`cuda`: a launch per superstep at
     least; `cuda_resident`: one per K supersteps), and with `optimum`
     the result must be OPTIMAL at it.  Returns (result, (fixpoint_cuda
-    launches, search_cuda launches))."""
+    launches, search_cuda launches, fixpoint_cuda launches of the
+    few-lane instance))."""
     from repro_torch.core.models import ground_check
     from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda, search_cuda
     from repro_torch.solver import Solver
     fixpoint_cuda.launches = 0
+    fixpoint_cuda.few_lane_launches = 0
     search_cuda.launches = 0
     res = Solver(cfg).solve(c.cm)
-    launches = (fixpoint_cuda.launches, search_cuda.launches)
+    launches = (fixpoint_cuda.launches, search_cuda.launches,
+                fixpoint_cuda.few_lane_launches)
     checked = ground_check(c.mod, c.inst, c.handles, res)
     if checked is False:
         fail(f"{tag} ({cfg.backend}): the solution fails the ground check")
@@ -617,10 +691,10 @@ def solve_case(phase, tag, c, cfg, optimum=None):
           f"eps={res.eps_s:.2f} s ({res.eps_s / res.wall_s:.1%} of the "
           f"wall), search {search_s * 1e3:.1f} ms "
           f"({search_s / max(steps, 1) * 1e3:.4f} ms/superstep after EPS) "
-          f"fixpoint_cuda launches={launches[0]} search_cuda "
-          f"launches={launches[1]}; ground check "
+          f"fixpoint_cuda launches={launches[0]} (few-lane instance "
+          f"{launches[2]}) search_cuda launches={launches[1]}; ground check "
           f"{'OK' if checked else 'n/a (no solution)'}")
-    fix, srch = launches
+    fix, srch, _ = launches
     if cfg.backend == "cuda" and (fix == 0 or fix < steps):
         fail(f"{tag}: {fix} fixpoint_cuda launches for {steps} supersteps")
     if cfg.backend == "cuda_resident" and (
@@ -654,8 +728,12 @@ def same_counters(phase, what, results, reference=None):
 def phase_main_path(cases):
     import torch
     from repro_torch.solver import SolveConfig
-    res, (launches, _) = solve_case(3, "J60", cases["J60"],
-                                    main_config("cuda"), J60_OPTIMUM)
+    res, (launches, _, few) = solve_case(3, "J60", cases["J60"],
+                                         main_config("cuda"), J60_OPTIMUM)
+    # EPS runs the few-lane instance, the supersteps the 256-thread one
+    if not 0 < few < launches:
+        fail(f"J60: {few} of {launches} fixpoint_cuda launches on the "
+             "few-lane instance")
 
     # the cost of the per-superstep host read of the global done flag
     flag = torch.zeros(MAIN_LANES, dtype=torch.bool).cuda()
@@ -670,11 +748,11 @@ def phase_main_path(cases):
     got = {b: solve_case(3, "J30", cases["J30"], SolveConfig.preset(
         "prove", backend=b, n_lanes=J30_LANES))[0] for b in ("cuda", "gather")}
     same_counters(3, "J30", got, J30_REFERENCE)
-    return launches, res
+    return launches, few, res
 
 
 def phase_resident_path(cases, ref):
-    res, (_, launches) = solve_case(6, "J60", cases["J60"],
+    res, (_, launches, _) = solve_case(6, "J60", cases["J60"],
                                     main_config("cuda_resident"))
     same_counters(6, "J60", {"cuda": ref, "cuda_resident": res})
     return launches, res
@@ -975,6 +1053,40 @@ def time_fixpoint(card, peak_int32, cm, lbs, ubs, tag, what, plain_reps=5,
     return ms, plain_ms, bound_ms, bound_by
 
 
+def decompose_recorded(cm, strategy=None, replies=None):
+    """`eps.decompose` to MAIN_EPS subproblems under `main_config`'s
+    options (with the strategy pair), each propagation recorded as (lbs,
+    ubs, lbs', ubs').  With `replies` (a decomposition's recorded calls),
+    the propagations return those results instead of launching, after
+    checking that each one's stores are the recorded ones.  Returns (the
+    calls, the pool)."""
+    import numpy as np
+    from repro_torch.core import eps
+    calls, propagate = [], eps._propagate
+    opts = main_config("cuda", strategy).search_options()
+
+    def record(backend, cm_, lbs, ubs):
+        if replies is None:
+            out = propagate(backend, cm_, lbs, ubs)
+        else:
+            i = len(calls)
+            if i >= len(replies) or not (np.array_equal(lbs, replies[i][0])
+                                         and np.array_equal(ubs,
+                                                            replies[i][1])):
+                fail(f"the replayed decomposition left the recorded one at "
+                     f"propagation {i}")
+            out = replies[i][2:]
+        calls.append((lbs, ubs) + tuple(out))
+        return out
+
+    eps._propagate = record
+    try:
+        pool = eps.decompose(cm, MAIN_EPS, opts)
+    finally:
+        eps._propagate = propagate
+    return calls, pool
+
+
 def time_eps_launches(card, peak_int32, cm, tag, what, strategy=None):
     """`fixpoint_cuda` as `core/eps.py` issues it on the main path:
     `eps.decompose` to MAIN_EPS subproblems (`main_config`'s options, with
@@ -983,31 +1095,20 @@ def time_eps_launches(card, peak_int32, cm, tag, what, strategy=None):
     V]`` pair per split); the bound per launch as `time_fixpoint`'s
     (tables, stores in and out and counters; the sweeps its lanes need,
     counted from one batched run of the recorded stores, as lanes are
-    independent).  Returns (launches, kernel ms, bound ms) per launch."""
+    independent).  Returns an `EpsRun`: the recorded ``[n, V]`` stores of
+    each launch with the kernel's results, and the pool."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import eps
     from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
-    opts = main_config("cuda", strategy).search_options()
-    calls, propagate = [], eps._propagate
-
-    def record(backend, cm_, lbs, ubs):
-        calls.append((lbs, ubs))
-        return propagate(backend, cm_, lbs, ubs)
-
-    n0 = fixpoint_cuda.launches
-    eps._propagate = record
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eps.decompose(cm, MAIN_EPS, opts)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        eps._propagate = propagate
-    launches = fixpoint_cuda.launches - n0
+    n0 = fixpoint_cuda.launches, fixpoint_cuda.few_lane_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        calls, pool = decompose_recorded(cm, strategy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = fixpoint_cuda.launches - n0[0]
     rows = [e for e in prof.key_averages()
             if e.device_type != DeviceType.CPU and "fixpoint" in e.key]
     count = sum(e.count for e in rows)
@@ -1018,15 +1119,20 @@ def time_eps_launches(card, peak_int32, cm, tag, what, strategy=None):
     lb = torch.from_numpy(np.concatenate([c[0] for c in calls])).cuda()
     ub = torch.from_numpy(np.concatenate([c[1] for c in calls])).cuda()
     sweeps = fixpoint_cuda(cm, lb, ub)[-2].cpu().numpy()
-    fixpoint_cuda.launches = n0           # timing launches are not counted
-    total, first = 0.0, 0
-    for lbs, _ in calls:
+    # timing launches are not counted
+    fixpoint_cuda.launches, fixpoint_cuda.few_lane_launches = n0
+    bound_ms = t_bytes = t_ops = 0.0
+    first = 0
+    for lbs, *_ in calls:
         L, V = lbs.shape
         nbytes = table_bytes(cm) + 4 * L * V * lbs.itemsize + 2 * L * 4
         ops = int(sweeps[first:first + L].sum()) * ops_per_sweep(cm)
-        total += bound(nbytes, ops, peak_int32)[0]
+        bound_ms += bound(nbytes, ops, peak_int32)[0]
+        t_bytes += bound(nbytes, 0, peak_int32)[0]
+        t_ops += bound(0, ops, peak_int32)[0]
         first += L
-    bound_ms = total / launches
+    bound_ms /= launches
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"[{tag}] fixpoint as EPS issues it ({what}, eps_target "
           f"{MAIN_EPS}): {launches} launches (1 of [1, {cm.n_vars}], "
           f"{launches - 1} of [2, {cm.n_vars}]), {int(sweeps.sum())} "
@@ -1037,7 +1143,61 @@ def time_eps_launches(card, peak_int32, cm, tag, what, strategy=None):
           f"{launches * (ms - bound_ms):.1f} ms; EPS wall {wall:.2f} s "
           f"traced, device busy {launches * ms / 1e3 / wall:.1%} of it, on "
           f"{card}")
-    return launches, ms, bound_ms
+    return EpsRun(launches, ms, bound_ms, bound_by, calls, pool)
+
+
+def clock_breakdown(cm, tag, what, calls, threads):
+    """Per-phase SM clocks of `fixpoint_cuda`'s sweeps: `calls` (the
+    ``[n, V]`` stores `time_eps_launches` recorded) replayed one launch
+    each through the ``clocks`` library at `threads` per CTA, whose
+    sweeps end every phase with a barrier and a clock stamp
+    (``fixlane::Phase``, ``FIXLANE_CLOCKS``).  Prints the clocks per
+    lane-sweep of each phase that ran, its share, and the replay's
+    device ms per launch (CUDA events; the stamps' barriers included).
+    Returns {phase: clocks per lane-sweep}."""
+    import ctypes
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fixpoint_kernel as K
+    lib = K._lib(cm.dtype, clocks=True)
+    buf = (ctypes.c_ulonglong * (len(PHASES) + 1))()
+    sizes = [c[0].shape[0] for c in calls]
+    lb = torch.from_numpy(np.concatenate([c[0] for c in calls])).cuda()
+    ub = torch.from_numpy(np.concatenate([c[1] for c in calls])).cuda()
+    parts = list(zip(lb.split(sizes), ub.split(sizes)))
+    if lib.fixpoint_clocks(buf):                       # clear
+        fail("fixpoint_clocks failed")
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for l, u in parts:
+        K.launch_fixpoint(lib, cm, l.contiguous(), u.contiguous(), None,
+                          None, threads)
+    t1.record()
+    torch.cuda.synchronize()
+    if lib.fixpoint_clocks(buf):
+        fail("fixpoint_clocks failed")
+    sweeps = buf[len(PHASES)]
+    per = {name: buf[i] / max(sweeps, 1) for i, name in enumerate(PHASES)}
+    total = sum(per.values())
+    shown = ", ".join(f"{name} {c:.0f} ({c / total:.1%})"
+                      for name, c in per.items() if c > 0)
+    print(f"[{tag}] clocks per lane-sweep by phase, {what}, {threads} "
+          f"threads per CTA ({len(calls)} launches, {sweeps} lane-sweeps; "
+          f"replay {t0.elapsed_time(t1) / len(calls):.4f} ms per launch by "
+          f"CUDA events, stamps and host gaps included): total "
+          f"{total:.0f}: {shown}")
+    return per
+
+
+def eps_launches_and_clocks(card, peak_int32, cm, tag, what, strategy=None):
+    """`time_eps_launches`, then the clock breakdown of its recorded
+    launches on both instances (few-lane, then 256 threads).  Returns
+    `time_eps_launches`' tuple."""
+    from repro_torch.kernels.fixpoint_kernel import FEW_THREADS, THREADS
+    out = time_eps_launches(card, peak_int32, cm, tag, what, strategy)
+    for threads in (FEW_THREADS, THREADS):
+        clock_breakdown(cm, tag, f"{what} EPS", out.calls, threads)
+    return out
 
 
 def search_bound_ms(cm, start, out, peak_int32, launches=1, ct_vals=0):
@@ -1160,16 +1320,36 @@ def time_resident_solve(card, peak_int32, tag, c, cfg, res):
     return total / len(times)
 
 
+def plain_eps_ms(cm, calls, n=32):
+    """`fixpoint_batch` per ``[2, V]`` launch of EPS (CUDA events), over
+    the first `n` recorded splits."""
+    import torch
+    from repro_torch.core import fixpoint as F
+    stores = [(torch.from_numpy(c[0]).cuda(), torch.from_numpy(c[1]).cuda())
+              for c in calls[1:n + 1]]
+    it = iter(stores * 2)
+    F.fixpoint_batch(cm, *stores[0])                  # warm up
+    return cuda_ms(lambda: F.fixpoint_batch(cm, *next(it)), len(stores), 0)
+
+
 def phase_times(card, peak_int32, cases, launches, max_err):
+    """Phase 4: the many-lane instance at the main path's superstep shape,
+    and EPS's launches on the few-lane instance.  Returns the int32
+    entry of the {"kernels": [...]} line, the few-lane instance's times
+    (ms, plain ms, bound ms, bound_by) and the EPS run."""
     c = cases["J60"]
     ms, plain_ms, bound_ms, bound_by = time_fixpoint(
         card, peak_int32, c.cm, c.lbs, c.ubs, "4", "J60 random stores")
-    time_eps_launches(card, peak_int32, c.cm, "4", "J60")
+    run = eps_launches_and_clocks(card, peak_int32, c.cm, "4", "J60")
+    few_plain = plain_eps_ms(c.cm, run.calls)
+    print(f"[4] plain fixpoint_batch per [2, {c.cm.n_vars}] EPS launch: "
+          f"{few_plain:.3f} ms")
     print(f"kernels: fixpoint_cuda launches={launches}")
-    return [dict(name="fixpoint_cuda", route="cuda", source=FIXPOINT_SOURCE,
+    entry = dict(name="fixpoint_cuda", route="cuda", source=FIXPOINT_SOURCE,
                  replaces=FIXPOINT_REPLACES, launches=launches,
                  max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return entry, (run.ms, few_plain, run.bound_ms, run.bound_by), run
 
 
 def phase_search_times(card, peak_int32, timing_state, launches, max_err):
@@ -1183,16 +1363,17 @@ def phase_search_times(card, peak_int32, timing_state, launches, max_err):
 
 
 def phase_alldiff_times(card, peak_int32, cases, states, long):
-    """Both kernels at the N-queens-32 shapes, then the long N-queens-32
-    solve's launches replayed."""
+    """Both kernels at the N-queens-32 shapes, EPS's launches, then the
+    long N-queens-32 solve's launches replayed.  Returns the EPS run."""
     c = cases["nqueens32"]
     time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "12",
                   "N-queens 32 stores of phase 8")
-    time_eps_launches(card, peak_int32, c.cm, "12", "N-queens 32",
-                      ZOO_STRATEGY["nqueens32"])
+    run = eps_launches_and_clocks(card, peak_int32, c.cm, "12",
+                                  "N-queens 32", ZOO_STRATEGY["nqueens32"])
     time_search(card, peak_int32, states[("nqueens32", "min_dom/split")],
                 "12", "N-queens 32, min_dom/split, early state")
     time_resident_solve(card, peak_int32, "nqueens32", c, *long["nqueens32"])
+    return run
 
 
 # --------------------------------------------------------------------------
@@ -1437,19 +1618,22 @@ def phase_sparse_main_path(cases):
 
 
 def phase_sparse_times(card, peak_int32, cases, states):
-    """Phase 16: both kernels at the J120 and N-queens-256 shapes."""
+    """Phase 16: both kernels at the J120 and N-queens-256 shapes, and
+    EPS's launches on J120.  Returns the EPS run."""
     for tag, what in (("J120", "J120 random stores of phase 13"),
                       ("nqueens256", "N-queens 256 stores of phase 13")):
         c = cases[tag]
         time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "16", what,
                       plain_reps=1)
         if tag == "J120":
-            time_eps_launches(card, peak_int32, c.cm, "16", "J120")
+            run = eps_launches_and_clocks(card, peak_int32, c.cm, "16",
+                                          "J120")
     time_search(card, peak_int32, states[("J120", "prove")], "16",
                 "J120, prove", plain_reps=1, plain_warmup=0)
     time_search(card, peak_int32, states[("nqueens256", "min_dom/split")],
                 "16", "N-queens 256, min_dom/split", plain_reps=1,
                 plain_warmup=0)
+    return run
 
 
 # --------------------------------------------------------------------------
@@ -1705,7 +1889,7 @@ def phase_lane_tiles(rcpsp, zoo, int64, j60_resident):
                                       lane_tile=tile)
         states.update({k + (tile,): v for k, v in st.items()})
         err = max(err, e)
-    res, (_, launches) = solve_case(
+    res, (_, launches, _) = solve_case(
         24, "J60", rcpsp["J60"], main_config("cuda_resident",
                                              lane_tile=MAIN_TILE),
         J60_OPTIMUM)
@@ -1738,16 +1922,18 @@ def phase_int64_times(card, peak_int32, sparse, sp_states, int64,
                       i64_states, states, tile_states):
     """Phase 25: both kernels at int64 against int32 at the J120 shape
     ([1024, 122]: random stores of phases 13 and 21; K=16 after 5
-    supersteps), and `search_cuda` at J60 in lane tiles of MAIN_TILE
-    against one queue.  Returns the times of the int64 and lane-tile
-    modes: (fixpoint int64, search int64, search tiles), each (ms, plain
-    ms, bound ms, bound_by)."""
+    supersteps), EPS's launches on J120 × 10⁷ (the few-lane instance at
+    int64) and `search_cuda` at J60 in lane tiles of MAIN_TILE against one
+    queue.  Returns the times of the int64 and lane-tile modes: (fixpoint
+    int64, search int64, search tiles), each (ms, plain ms, bound ms,
+    bound_by), and the EPS run."""
     c = sparse["J120"]
     time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "25",
                   "J120 random stores", plain_reps=1)
     c = int64["J120x1e7"]
     fix64 = time_fixpoint(card, peak_int32, c.cm, c.lbs, c.ubs, "25",
                           "J120 x 1e7 random stores", plain_reps=1)
+    run = eps_launches_and_clocks(card, peak_int32, c.cm, "25", "J120 x 1e7")
     time_search(card, peak_int32, sp_states[("J120", "prove")], "25",
                 "J120, prove", plain_reps=1, plain_warmup=0)
     srch64 = time_search(card, peak_int32, i64_states[("J120x1e7", "prove")],
@@ -1758,7 +1944,141 @@ def phase_int64_times(card, peak_int32, sparse, sp_states, int64,
     tiles = time_search(card, peak_int32,
                         tile_states[("J60", "prove", MAIN_TILE)], "25",
                         "J60, prove")
-    return fix64, srch64, tiles
+    return fix64, srch64, tiles, run
+
+
+# --------------------------------------------------------------------------
+# phase 29: the few-lane instance of the fixpoint kernel
+# --------------------------------------------------------------------------
+
+def few_lane_models(rcpsp, zoo, sparse, tables, int64):
+    """(tag, model, random stores, random bitset stores or None) of phase
+    29: every bank at both widths.  int32: J60 (dense Cumulative), J120
+    (sparse Cumulative), N-queens 32 and 256 (dense and sparse
+    AllDifferent), crossword and configuration large (Compact-Table, also
+    with a carried store); int64: J120 × 10⁷, J60 int64, the wide row,
+    N-queens 8 and 36 forced to int64 (dense and sparse AllDifferent) and
+    the two-word table hand case forced to int64 (also carried)."""
+    import numpy as np
+    from repro_torch.core.model import Model
+    from repro_torch.core.models import nqueens
+    from repro_torch.testing import (CT_HAND_MODELS, random_dom_stores,
+                                     random_substores)
+    for tag, c in (("J60", rcpsp["J60"]), ("J120", sparse["J120"]),
+                   ("nqueens32", zoo["nqueens32"]),
+                   ("nqueens256", sparse["nqueens256"]),
+                   ("crossword_large", tables["crossword_large"]),
+                   ("configuration_large", tables["configuration_large"]),
+                   ("J120x1e7", int64["J120x1e7"]),
+                   ("J60int64", int64["J60int64"]), ("wide", int64["wide"])):
+        yield tag, c.cm, c.lbs, c.ubs, c.doms
+    made = {"nqueens8int64": nqueens.build_model(nqueens.generate(8))[0],
+            "nqueens36int64": nqueens.build_model(nqueens.generate(36))[0],
+            "wide_table_int64": CT_HAND_MODELS["wide"](Model)}
+    for tag, m in made.items():
+        cm = m.compile(device="cuda", force_dtype="int64")
+        rng = np.random.default_rng(SEED)
+        lbs, ubs = random_substores(rng, cm, N_RANDOM)
+        doms = (random_dom_stores(rng, cm, lbs, ubs, n_wipe=N_WIPE)
+                if cm.n_table else None)
+        yield tag, cm, lbs, ubs, doms
+
+
+def phase_few_lane_vs_plain(models):
+    """Phase 29, first part: `fixpoint_cuda` over 1 (the root box), 2 and
+    132 lanes (the few-lane instance; 132 = the card's SMs) and 133 (the
+    many-lane one) against `fixpoint_batch`, at max_sweeps 1 and
+    uncapped, each model of `few_lane_models` with the transient store
+    and, where it has random bitset stores, the carried one: every field
+    equal.  Returns the max |err| (0, or the run failed)."""
+    import torch
+    from repro_torch.core import fixpoint as F
+    from repro_torch.kernels.fixpoint_kernel import (FEW_THREADS,
+                                                     fixpoint_cuda,
+                                                     instance_threads)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n0 = fixpoint_cuda.launches, fixpoint_cuda.few_lane_launches
+    for tag, cm, lbs, ubs, doms in models:
+        checked = []
+        for lanes in (1, 2, sms, sms + 1):
+            if lanes == 1:
+                lb, ub = cm.lb0[None].clone(), cm.ub0[None].clone()
+            else:
+                lb = torch.from_numpy(lbs[:lanes]).cuda()
+                ub = torch.from_numpy(ubs[:lanes]).cuda()
+            for dom in (None,) + (() if doms is None else (
+                    torch.from_numpy(doms[:lanes].view("int32")).cuda(),)):
+                for cap in (1, None):
+                    ref = F.fixpoint_batch(cm, lb, ub, dom, max_iters=cap)
+                    got = fixpoint_cuda(cm, lb, ub, dom, max_sweeps=cap)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(r, g) for r, g in zip(ref, got)):
+                        store = "transient" if dom is None else "carried"
+                        fail(f"{tag}: fixpoint_cuda over {lanes} lanes "
+                             f"({store}, max_sweeps={cap}) differs from "
+                             "fixpoint_batch")
+            few = instance_threads(lanes, sms) == FEW_THREADS
+            checked.append(f"{lanes} ({'few-lane' if few else '256'})")
+        stores = "transient" + ("" if doms is None else " and carried")
+        print(f"[29] {tag} {cm.dtype}: fixpoint_cuda == fixpoint_batch on "
+              f"every field over {', '.join(checked)} lanes, max_sweeps 1 "
+              f"and uncapped, {stores} store")
+    fixpoint_cuda.launches, fixpoint_cuda.few_lane_launches = n0
+    return 0
+
+
+def phase_eps_pools(runs, more):
+    """Phase 29, second part: EPS on the few-lane instance against the
+    plain version.  `runs` holds the EPS runs of phases 4, 12, 16 and 25
+    (tag -> (model, strategy pair or None, EpsRun)); `more` the (model,
+    strategy) of the models this phase decomposes itself.  For each:
+    every recorded launch's results against `fixpoint_batch` on the same
+    stores (batched: lanes are independent), then `eps.decompose`
+    replayed with the plain results in place of the kernel's, whose pool
+    (the pool through `fixpoint_batch`) must equal the recorded run's bit
+    for bit.  Returns the max |err| (0, or the run failed)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fixpoint as F
+    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
+    recorded = {tag: (cm, strategy, run.calls, run.pool)
+                for tag, (cm, strategy, run) in runs.items()}
+    n0 = fixpoint_cuda.launches, fixpoint_cuda.few_lane_launches
+    for tag, (cm, strategy) in more.items():
+        recorded[tag] = (cm, strategy) + decompose_recorded(cm, strategy)
+    fixpoint_cuda.launches, fixpoint_cuda.few_lane_launches = n0
+    for tag, (cm, strategy, calls, pool) in recorded.items():
+        t0 = time.time()
+        lb = np.concatenate([c[0] for c in calls])
+        ub = np.concatenate([c[1] for c in calls])
+        plain = []
+        for i in range(0, lb.shape[0], N_RANDOM):
+            out = F.fixpoint_batch(cm, torch.from_numpy(lb[i:i + N_RANDOM])
+                                   .cuda(), torch.from_numpy(
+                                       ub[i:i + N_RANDOM]).cuda())
+            plain.append((out[0].cpu().numpy(), out[1].cpu().numpy()))
+        plain_lb = np.concatenate([p[0] for p in plain])
+        plain_ub = np.concatenate([p[1] for p in plain])
+        if not (np.array_equal(plain_lb, np.concatenate(
+                [c[2] for c in calls])) and np.array_equal(
+                plain_ub, np.concatenate([c[3] for c in calls]))):
+            fail(f"{tag}: an EPS launch of fixpoint_cuda differs from "
+                 "fixpoint_batch on its stores")
+        at = np.cumsum([0] + [c[0].shape[0] for c in calls])
+        replies = [c[:2] + (plain_lb[at[i]:at[i + 1]],
+                            plain_ub[at[i]:at[i + 1]])
+                   for i, c in enumerate(calls)]
+        replayed, plain_pool = decompose_recorded(cm, strategy, replies)
+        if len(replayed) != len(calls) or not all(
+                np.array_equal(a, b) for a, b in zip(plain_pool, pool)):
+            fail(f"{tag}: the EPS pool through fixpoint_batch differs from "
+                 "the pool through fixpoint_cuda")
+        print(f"[29] {tag} {cm.dtype}: {len(calls)} EPS launches "
+              f"({lb.shape[0]} stores) equal to fixpoint_batch; the pool "
+              f"through fixpoint_batch == the pool through fixpoint_cuda "
+              f"({pool[0].shape[0]} subproblems, bit for bit) "
+              f"[{time.time() - t0:.1f} s]")
+    return 0
 
 
 # --------------------------------------------------------------------------
@@ -1963,9 +2283,10 @@ def main():
 
     card, peak_int32 = timed(1, phase_card_and_build)
     rcpsp, max_err = timed(2, checked_cases, 2, rcpsp_cases)
-    launches, cuda_res = timed(3, phase_main_path, rcpsp)
-    kernels = timed(4, phase_times, card, peak_int32, rcpsp, launches,
-                    max_err)
+    launches, few, cuda_res = timed(3, phase_main_path, rcpsp)
+    entry, few_times, run4 = timed(4, phase_times, card, peak_int32, rcpsp,
+                                   launches - few, max_err)
+    kernels = [entry]
     states, search_err = timed(5, phase_search_vs_plain, 5, rcpsp,
                                {"J30": 256, "J60": MAIN_LANES},
                                RCPSP_VARIANTS, True)
@@ -1981,12 +2302,14 @@ def main():
         dict.fromkeys(searched, MAIN_LANES), ZOO_VARIANTS, False)
     zoo_launches, long = timed(10, phase_zoo_main_path, zoo)
     timed(11, phase_zoo_smoke)
-    timed(12, phase_alldiff_times, card, peak_int32, zoo, ad_states, long)
+    run12 = timed(12, phase_alldiff_times, card, peak_int32, zoo, ad_states,
+                  long)
     sparse, sp_err = timed(13, checked_cases, 13, sparse_cases)
     timed(13, phase_sparse_vs_dense)
     sp_states, sp_search_err = timed(14, phase_sparse_search, sparse)
     sp_launches = timed(15, phase_sparse_main_path, sparse)
-    timed(16, phase_sparse_times, card, peak_int32, sparse, sp_states)
+    run16 = timed(16, phase_sparse_times, card, peak_int32, sparse,
+                  sp_states)
     tables = timed(17, table_cases)
     ct_err = timed(17, phase_table_vs_plain, tables)
     ct_states, ct_search_err = timed(18, phase_table_search, tables, zoo)
@@ -1997,13 +2320,23 @@ def main():
     i64_launches = timed(23, phase_int64_main_path, int64, cuda_res)
     tile_states, tile_err, tile_launches = timed(
         24, phase_lane_tiles, rcpsp, zoo, int64, resident_res)
-    fix64, srch64, tiled = timed(25, phase_int64_times, card, peak_int32,
-                                 sparse, sp_states, int64, i64_states,
-                                 states, tile_states)
+    fix64, srch64, tiled, run25 = timed(
+        25, phase_int64_times, card, peak_int32, sparse, sp_states, int64,
+        i64_states, states, tile_states)
     flash_err, flash_qkv = timed(26, phase_flash_vs_plain)
     flash_launches = timed(27, phase_lm_main_path, card)
     flash = timed(28, phase_flash_times, card, flash_qkv, flash_launches,
                   flash_err)
+    few_err = timed(29, phase_few_lane_vs_plain, list(few_lane_models(
+        rcpsp, zoo, sparse, tables, int64)))
+    few_err = max(few_err, timed(29, phase_eps_pools, {
+        "J60": (rcpsp["J60"].cm, None, run4),
+        "nqueens32": (zoo["nqueens32"].cm, ZOO_STRATEGY["nqueens32"], run12),
+        "J120": (sparse["J120"].cm, None, run16),
+        "J120x1e7": (int64["J120x1e7"].cm, None, run25)}, {
+        "nqueens256": (sparse["nqueens256"].cm, NQ256_STRATEGY),
+        "crossword_large": (tables["crossword_large"].cm, None),
+        "configuration_large": (tables["configuration_large"].cm, None)}))
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
                                     sp_err, ct_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
@@ -2011,26 +2344,31 @@ def main():
                                     ct_search_err)
     for k in kernels:
         k["banks"] = list(BANKS)
-    kernels[0]["mode"] = "int32"
+    kernels[0]["mode"] = "int32, 256 threads"
     kernels[1]["mode"] = "int32, one queue"
+    fix64_launches = i64_launches[("J120x1e7", "cuda")]
     kernels += [
-        mode_entry(kernels[0], "int64", i64_launches[("J120x1e7", "cuda")][0],
-                   i64_err, fix64),
+        mode_entry(kernels[0], "int32, few-lane: EPS, 1024 threads", few,
+                   few_err, few_times),
+        mode_entry(kernels[0], "int64, 256 threads",
+                   fix64_launches[0] - fix64_launches[2], i64_err, fix64),
         mode_entry(kernels[1], "int64, one queue",
                    i64_launches[("J120x1e7", "cuda_resident")][1],
                    i64_search_err, srch64),
         mode_entry(kernels[1], f"int32, lane tiles of {MAIN_TILE}",
                    tile_launches, tile_err, tiled), flash]
-    print("kernels: int64 main-path launches (fixpoint_cuda, search_cuda): "
+    print("kernels: int64 main-path launches (fixpoint_cuda, search_cuda, "
+          "few-lane fixpoint_cuda): "
           + ", ".join(f"{t} {b} {n}" for (t, b), n in i64_launches.items())
           + f"; lane-tiled J60 search_cuda launches {tile_launches}")
-    print("kernels: zoo main-path launches (fixpoint_cuda, search_cuda): "
+    print("kernels: zoo main-path launches (fixpoint_cuda, search_cuda, "
+          "few-lane fixpoint_cuda): "
           + ", ".join(f"{t} {b} {n}" for (t, b), n in zoo_launches.items()))
     print("kernels: sparse main-path launches (fixpoint_cuda, "
-          "search_cuda): " + ", ".join(
+          "search_cuda, few-lane fixpoint_cuda): " + ", ".join(
               f"{t} {b} {n}" for (t, b), n in sp_launches.items()))
     print("kernels: table and middle_out main-path launches (fixpoint_cuda,"
-          " search_cuda): " + ", ".join(
+          " search_cuda, few-lane fixpoint_cuda): " + ", ".join(
               f"{t} {b} {n}" for (t, b), n in ct_launches.items()))
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)

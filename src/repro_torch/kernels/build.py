@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles into
 shared libraries for ``sm_90a`` (Hopper), one per variant: the default
 (int32 models, one pool queue), ``i64`` (int64 models: the same code at
-``-DFIXLANE_VAL=int64_t``), and, for ``search.cu``, ``tiles`` and
-``tiles_i64`` (the lane-tiled resident search, ``-DSEARCH_LANE_TILES=1``).
+``-DFIXLANE_VAL=int64_t``), for ``search.cu`` ``tiles`` and ``tiles_i64``
+(the lane-tiled resident search, ``-DSEARCH_LANE_TILES=1``), and for
+``fixpoint.cu`` ``clocks`` and ``clocks_i64`` (a barrier and an SM-clock
+stamp after every phase of a sweep, ``-DFIXLANE_CLOCKS=1``: the per-phase
+breakdown of ``chip_smoke.py``, never launched by the port).
 A source may carry flags of its own (``SOURCE_FLAGS``), which the other
 sources' libraries do not see.  A variant is built at its first launch, so
 a run that never meets an int64 model or a lane tile never builds those.
@@ -38,7 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the defines of each library variant
 VARIANTS = {"": (), "i64": ("-DFIXLANE_VAL=int64_t",),
             "tiles": ("-DSEARCH_LANE_TILES=1",),
-            "tiles_i64": ("-DSEARCH_LANE_TILES=1", "-DFIXLANE_VAL=int64_t")}
+            "tiles_i64": ("-DSEARCH_LANE_TILES=1", "-DFIXLANE_VAL=int64_t"),
+            "clocks": ("-DFIXLANE_CLOCKS=1",),
+            "clocks_i64": ("-DFIXLANE_CLOCKS=1", "-DFIXLANE_VAL=int64_t")}
 # the flags of one source only: the flash kernel keeps its accumulators and
 # p in registers, so ptxas warns in its log of any spill or local memory
 SOURCE_FLAGS = {"flash_attention": ("-Xptxas", "-warn-spills",
@@ -46,11 +51,11 @@ SOURCE_FLAGS = {"flash_attention": ("-Xptxas", "-warn-spills",
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
 
 
-def variant(dtype: str, tiles: bool = False) -> str:
+def variant(dtype: str, tiles: bool = False, clocks: bool = False) -> str:
     """The library variant for a model of `dtype` ("int32" or "int64"),
-    lane-tiled or not."""
-    parts = (["tiles"] if tiles else []) + (["i64"] if dtype == "int64"
-                                            else [])
+    lane-tiled or not, with the clock stamps or not."""
+    parts = ((["tiles"] if tiles else []) + (["clocks"] if clocks else [])
+             + (["i64"] if dtype == "int64" else []))
     return "_".join(parts)
 
 

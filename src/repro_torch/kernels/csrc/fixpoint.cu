@@ -13,23 +13,28 @@
 // words, per-lane sweep counts, convergence flags) are equal bit for
 // bit, capped or not.
 //
-// Bound: at the RCPSP J60 shape the work per sweep is integer ALU and
-// shared-memory traffic, not device-memory bytes: the stores and tables
-// are read once per launch, so int32 operations bound it.  This kernel
-// builds the profile with C1·H·T compares where a difference array and a
-// prefix sum need C1·(T+H); a CTA runs its lane's sweeps one after the
-// other, each a chain of dependent shared-memory and L2 loads with at
-// most a few hundred threads busy.  So it runs well above that bound
-// (PERF.md has the times); nothing in this design addresses that yet.
-// At the N-queens-32 shape the AllDifferent bank dominates a sweep: A·N²
-// endpoint pairs, each a loop over the row's N members, from shared
-// memory; int32 operations bound it too.  At the J120 and N-queens-256
-// shapes (sparse banks) a sweep adds a bitonic sort of 1024 keys (55
-// barrier steps) and O(n²) scans per row, all in shared memory: int32
-// operations again.  On the Compact-Table models (crossword,
-// configuration) a sweep ORs the supports of each member's live values
-// and tests every value's support against the current table, from the
-// support table in L2: int32 (bitwise) operations.
+// Two instances of every kernel, by the CTA's thread count (the caller
+// picks one per launch, kernels/fixpoint_kernel.py::instance_threads):
+// the many-lane instance, 256 threads, for launches over more lanes than
+// the card has SMs (the `cuda` backend's supersteps over 1024 lanes),
+// built for throughput; and the few-lane instance, 1024 threads and one
+// CTA per SM, for EPS's root and its 2-lane splits, built for one lane's
+// latency: 32 warps hide shared-memory latency, and every phase maps its
+// work to more threads (fixpoint_lane.cuh has the mapping).
+//
+// Bound: the work per sweep is integer ALU and shared-memory traffic,
+// not device-memory bytes: the stores and tables are read once per
+// launch, so int32 operations bound it.  A CTA still runs its lane's
+// sweeps one after the other, each a chain of barrier-separated phases,
+// so a launch over 1 or 2 lanes stays far above that bound (PERF.md has
+// the times): its cost is the latency of the longest per-thread chain of
+// each phase and of the barriers between them.  The dense Cumulative
+// profile is a difference array and a prefix sum (C1·(T+H) work); the
+// sparse banks sort (bitonic, the in-warp steps in registers) and scan
+// their own segment of events; the AllDifferent bank's dense layout
+// tests A·N² endpoint pairs, each a loop over the row's N members; the
+// Compact-Table models OR each member's supports from L2 and test every
+// value's support against the current table (bitwise operations).
 // An int64 model runs the same code at 64 bits (the library built with
 // -DFIXLANE_VAL=int64_t): the stores, candidates and value tables double
 // in width, and the sparse banks sort 128-bit keys.
@@ -42,6 +47,7 @@
 
 namespace {
 
+using fixlane::FEW_THREADS;
 using fixlane::THREADS;
 using Val = FIXLANE_VAL;
 
@@ -58,8 +64,9 @@ struct Params {
   int max_sweeps;
 };
 
-template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
-__global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
+// One CTA of NT threads per lane.
+template <int NT, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+__device__ __forceinline__ void fixpoint_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const fixlane::Smem<Val> s =
       fixlane::carve<Val, AD_SPARSE, CU_SPARSE, DOM>(p.t, smem);
@@ -70,24 +77,24 @@ __global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
   const bool carry = DOM && p.t.carry_dom;
   const int VW = V * p.t.W;
 
-  for (int v = tid; v < V; v += THREADS) {
+  for (int v = tid; v < V; v += NT) {
     s.lb(0)[v] = p.lb_in[row + v];
     s.ub(0)[v] = p.ub_in[row + v];
   }
   if (carry)
-    for (int i = tid; i < VW; i += THREADS)
+    for (int i = tid; i < VW; i += NT)
       s.dom(0)[i] = p.dom_in[(size_t)lane * VW + i];
-  fixlane::stage_tables<Val, CU_SPARSE>(p.t, s);
+  fixlane::stage_tables<NT, Val, CU_SPARSE>(p.t, s);
   const fixlane::LaneResult r =
-      fixlane::fixpoint_lane<Val, AD_SPARSE, CU_SPARSE, DOM>(p.t, s,
-                                                            p.max_sweeps);
+      fixlane::fixpoint_lane<NT, Val, AD_SPARSE, CU_SPARSE, DOM>(
+          p.t, s, p.max_sweeps);
 
-  for (int v = tid; v < V; v += THREADS) {
+  for (int v = tid; v < V; v += NT) {
     p.lb_out[row + v] = s.lb(r.cur)[v];
     p.ub_out[row + v] = s.ub(r.cur)[v];
   }
   if (carry)
-    for (int i = tid; i < VW; i += THREADS)
+    for (int i = tid; i < VW; i += NT)
       p.dom_out[(size_t)lane * VW + i] = s.dom(r.cur)[i];
   if (tid == 0) {
     p.sweeps[lane] = r.sweeps;
@@ -95,32 +102,64 @@ __global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
   }
 }
 
+// The many-lane instance: the launch bounds of a 256-thread CTA, so
+// ptxas may keep registers low enough for several CTAs per SM.
 template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+__global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
+  fixpoint_body<THREADS, AD_SPARSE, CU_SPARSE, DOM>(p);
+}
+
+// The few-lane instance: one 1024-thread CTA per SM, so ptxas may use
+// all of the 64 registers a thread that leaves (without the minimum of
+// one block it aims at two CTAs per SM, 32 registers, and spills).
+template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+__global__ void __launch_bounds__(FEW_THREADS, 1)
+    fixpoint_few_kernel(Params p) {
+  fixpoint_body<FEW_THREADS, AD_SPARSE, CU_SPARSE, DOM>(p);
+}
+
+template <int NT, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+auto kernel_of() {
+  if constexpr (NT == FEW_THREADS)
+    return fixpoint_few_kernel<AD_SPARSE, CU_SPARSE, DOM>;
+  else
+    return fixpoint_kernel<AD_SPARSE, CU_SPARSE, DOM>;
+}
+
+template <int NT, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 int launch(const Params& p, int L, size_t smem, cudaStream_t stream) {
+  const auto kernel = kernel_of<NT, AD_SPARSE, CU_SPARSE, DOM>();
   cudaError_t err = cudaFuncSetAttribute(
-      fixpoint_kernel<AD_SPARSE, CU_SPARSE, DOM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fixpoint_kernel<AD_SPARSE, CU_SPARSE, DOM>
-      <<<L, THREADS, smem, stream>>>(p);
+  kernel<<<L, NT, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 // The instance of the model's layouts and bitset code.
-template <bool DOM>
+template <int NT, bool DOM>
 int launch_dom(const Params& p, int L, size_t smem, cudaStream_t st) {
   if (p.t.ad_sparse)
-    return p.t.cu_sparse ? launch<true, true, DOM>(p, L, smem, st)
-                         : launch<true, false, DOM>(p, L, smem, st);
-  return p.t.cu_sparse ? launch<false, true, DOM>(p, L, smem, st)
-                       : launch<false, false, DOM>(p, L, smem, st);
+    return p.t.cu_sparse ? launch<NT, true, true, DOM>(p, L, smem, st)
+                         : launch<NT, true, false, DOM>(p, L, smem, st);
+  return p.t.cu_sparse ? launch<NT, false, true, DOM>(p, L, smem, st)
+                       : launch<NT, false, false, DOM>(p, L, smem, st);
+}
+
+template <int NT>
+int launch_nt(const Params& p, int L, size_t smem, cudaStream_t st) {
+  return fixlane::uses_dom(p.t) ? launch_dom<NT, true>(p, L, smem, st)
+                                : launch_dom<NT, false>(p, L, smem, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launch on `stream` at `threads` per CTA (THREADS, the many-lane
+// instance, or FEW_THREADS, the few-lane one; the caller picks:
+// kernels/fixpoint_kernel.py::instance_threads); returns the cudaError_t
+// of the launch (0 = success, cudaErrorInvalidValue for another count).
 // `tables`: the fixlane::N_TABLES tables and `dims`: the fixlane::N_DIMS
 // sizes, both in fixlane::Tables order; `dom_in`/`dom_out`: the [L, V, W]
 // bitset store in and out, or both null when none is carried.  The
@@ -129,7 +168,7 @@ int fixpoint_launch(const void* const* tables, const int* dims,
                     const Val* lb_in, const Val* ub_in,
                     Val* lb_out, Val* ub_out, int32_t* sweeps,
                     int32_t* conv, const uint32_t* dom_in,
-                    uint32_t* dom_out, int L, int max_sweeps,
+                    uint32_t* dom_out, int L, int max_sweeps, int threads,
                     void* stream) {
   Params p{fixlane::tables_from<Val>(tables, dims, dom_in != nullptr),
            lb_in, ub_in, lb_out, ub_out, sweeps, conv, dom_in, dom_out,
@@ -138,9 +177,25 @@ int fixpoint_launch(const void* const* tables, const int* dims,
   // smem_budget uses the same formula)
   const size_t smem = fixlane::smem_bytes(p.t);
   cudaStream_t st = (cudaStream_t)stream;
-  return fixlane::uses_dom(p.t) ? launch_dom<true>(p, L, smem, st)
-                                : launch_dom<false>(p, L, smem, st);
+  if (threads == THREADS) return launch_nt<THREADS>(p, L, smem, st);
+  if (threads == FEW_THREADS) return launch_nt<FEW_THREADS>(p, L, smem, st);
+  return (int)cudaErrorInvalidValue;
 }
+
+#ifdef FIXLANE_CLOCKS
+// The `clocks` library only: copy the per-phase clock sums and the
+// lane-sweep count (fixlane::Phase order, N_PHASES + 1 values) to host
+// memory `out` and clear them.  Synchronises the device first.
+int fixpoint_clocks(unsigned long long* out) {
+  const size_t n = sizeof(unsigned long long) * (fixlane::N_PHASES + 1);
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, fixlane::clocks, n);
+  static const unsigned long long zeros[fixlane::N_PHASES + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(fixlane::clocks, zeros, n);
+  return (int)err;
+}
+#endif
 
 const char* fixpoint_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

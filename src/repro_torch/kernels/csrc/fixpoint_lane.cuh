@@ -13,20 +13,36 @@
 // words, sweep counts, convergence flags) are equal bit for bit, capped
 // or not.
 //
-// Design (TURBO's block-per-subproblem mapping):
+// Design (TURBO's block-per-subproblem mapping), for a CTA of NT threads
+// (a template parameter: 256 in the many-lane instances and in search.cu,
+// 1024 in fixpoint.cu's few-lane ones; every phase is written once):
 //   * the lane's current and next lb/ub live in shared memory,
 //     double-buffered, so every sweep reads only the old store (Jacobi,
 //     as the reference: capped stores and sweep counts match);
-//   * per sweep: (1) threads over linear rows write the [P1, K+1]
-//     candidates, threads over AllDifferent members stage the shifted
-//     bounds yl/yu [A1, N], threads over (row, time) build the
-//     compulsory-part profile [C1, H]; (2) threads over AllDifferent
-//     endpoint pairs (row, i, j) count the members inside [yl_i, yu_j]
-//     and push, threads over (row, task) find the first and last
-//     feasible start; (3) threads over variables min/max-reduce their
-//     occurrence lists, clamp to the box and write the next store (a
-//     sparse bank writes its sort keys in (1) and sorts and scans in
-//     (2), below);
+//   * per sweep: (1) the linear rows by (row, term): a group of GL lanes
+//     per row, a term each (GL the next power of two of K, at most 32 and
+//     at most NT / P1, so 1 when the rows alone fill the CTA: then a
+//     thread's terms are independent loads, as today's one-row loop);
+//     smin/smax are integer sums reduced in the group by __shfl_xor, each
+//     lane writes its own term's candidates and the group's first lane
+//     the entailment pair; threads over AllDifferent members stage the
+//     shifted bounds yl/yu [A1, N]; threads over (row, task) add ±q at
+//     the ends of each compulsory part to the [C1, H] difference array
+//     (shared-memory atomicAdd: integer sums commute); (2) a warp per
+//     Cumulative row prefix-sums the difference array into the profile
+//     and flags overload; threads over AllDifferent endpoint pairs (row,
+//     i, j) count the members inside [yl_i, yu_j] and push, threads over
+//     (row, task) find the first and last feasible start; (3) the join
+//     by lane groups: GJ lanes per variable (the largest power of two
+//     with GJ·V <= NT, at most 32) stride its occurrence lists and
+//     max/min-reduce by __shfl_xor (max and min commute, so the result
+//     is the serial one); the group's first lane clamps to the box and
+//     writes the next store (a sparse bank writes its sort keys in (1)
+//     and sorts and scans in (2), below);
+//     The many-lane instance keeps GL = GJ = 1 (a thread per row and per
+//     variable) and the shared-memory sort, and its bitset-store
+//     instances the C1·H·T profile loop: its CTAs share an SM, and those
+//     phases' registers would cost it CTAs per SM;
 //   * `__syncthreads_or` ends the loop on the per-lane rule
 //     changed ∧ it < max_sweeps ∧ ¬failed, so every thread leaves with
 //     the same sweep count, flags and result buffer.
@@ -50,7 +66,9 @@
 //
 // The sparse layouts (packed/CSR rows: members or tasks of every row on
 // one axis of M slots with a segment id each, padding in segment A or C)
-// share a bitonic sort of 64-bit keys in shared memory (`block_sort`).
+// share a bitonic sort of 64-bit keys in shared memory (`block_sort`; at
+// n <= NT each thread holds a key in registers and the in-warp steps
+// exchange by __shfl_xor, so n = 1024 takes 21 barriers for 55 steps).
 // Signed values are biased (x ^ 0x80000000) before they are packed, so
 // the key order equals the reference's lexsort on every int32.
 //   * Cumulative: each packed task writes two events, (seg, lst, 1) with
@@ -59,9 +77,11 @@
 //     them).  After the sort a block prefix sum gives the profile; an
 //     event owns [u, v) up to the next event of its segment.  Under the
 //     seg-major sort segment c's events are sorted positions
-//     [2·cu_ptr[c], 2·cu_ptr[c+1]), so one thread per task runs the
-//     forward and backward monotone-jump scans over its own segment only
-//     (the reference scans all events under a same-segment mask).  Keys
+//     [2·cu_ptr[c], 2·cu_ptr[c+1]), so two threads per task run the
+//     forward and the backward monotone-jump scan over its own segment
+//     only (the reference scans all events under a same-segment mask),
+//     each from a binary-searched start to the first event that can no
+//     longer move it (`cu_sparse_starts`).  Keys
 //     that tie only span empty intervals, and the group's last event
 //     carries the group's whole sum, so the order among ties changes
 //     nothing.
@@ -123,7 +143,14 @@
 
 namespace fixlane {
 
-constexpr int THREADS = 256;              // threads per CTA (one lane at a time)
+// Threads per CTA of the two instances of the fixpoint: the many-lane one
+// (fixpoint.cu over more lanes than the card has SMs, and every CTA of
+// search.cu), built for throughput, and the few-lane one (fixpoint.cu
+// over at most one lane per SM: EPS's root and splits), built for one
+// lane's latency.  Every phase is written once, templated on the CTA's
+// thread count NT.
+constexpr int THREADS = 256;
+constexpr int FEW_THREADS = 1024;
 
 // iinfo(Val).max // 4 and the neutral candidates of the model's width
 template <typename Val> struct Lim;
@@ -152,6 +179,12 @@ __device__ __forceinline__ void atomic_max(int32_t* a, int32_t v) {
 }
 __device__ __forceinline__ void atomic_min(int32_t* a, int32_t v) {
   atomicMin(a, v);
+}
+__device__ __forceinline__ void atomic_add(int32_t* a, int32_t v) {
+  atomicAdd(a, v);
+}
+__device__ __forceinline__ void atomic_add(int64_t* a, int64_t v) {
+  atomicAdd((unsigned long long*)a, (unsigned long long)v);   // two's complement
 }
 __device__ __forceinline__ void atomic_max(int64_t* a, int64_t v) {
   atomicMax((long long*)a, (long long)v);
@@ -250,6 +283,48 @@ __host__ __device__ inline int cu_sort_n(const Tables<Val>& p) {
 }
 
 constexpr int SCAN_WORDS = 32;   // a block scan's per-warp sums
+
+// ---- the per-phase clock breakdown (the `clocks` library only) -----------
+
+// The phases of a sweep that FIXLANE_STAMP times, in sweep order; slot
+// N_PHASES counts lane-sweeps.  Built with -DFIXLANE_CLOCKS
+// (kernels/build.py variant `clocks`), a barrier ends every phase and
+// thread 0 adds the SM clocks since the previous stamp to the phase's
+// slot of `clocks`, summed over CTAs and launches (fixpoint.cu
+// `fixpoint_clocks` reads and clears it).  The phases of one step run
+// concurrently in the other builds, which have no stamps.
+enum Phase {
+  PH_LINEAR,      // (1a) ReifLinLe candidates
+  PH_AD_STAGE,    // (1b) AllDifferent member bounds or sort keys
+  PH_CT_SUPP,     // (1d) Compact-Table supports
+  PH_CU_EVENTS,   // (1c) Cumulative events or difference array
+  PH_AD_SORT,     // (2a) sparse AllDifferent sort
+  PH_AD_HALL,     // (2a) AllDifferent Hall intervals and pushes
+  PH_CT_CUR,      // (2c) Compact-Table current tables
+  PH_CU_SORT,     // (2b) sparse Cumulative event sort
+  PH_CU_PROFILE,  // (2b) profile prefix sum and overload flags
+  PH_CU_STARTS,   // (2b) first and last feasible starts
+  PH_CT_SURV,     // (2d) Compact-Table survivors
+  PH_JOIN,        // (3) join, box clamp, next store, loop flags
+  N_PHASES
+};
+
+#ifdef FIXLANE_CLOCKS
+__device__ unsigned long long clocks[N_PHASES + 1];
+#define FIXLANE_STAMP(ph)                                                  \
+  do {                                                                     \
+    __syncthreads();                                                       \
+    if (threadIdx.x == 0) {                                                \
+      const long long now_ = clock64();                                    \
+      atomicAdd(&fixlane::clocks[ph], (unsigned long long)(now_ - stamp_)); \
+      stamp_ = now_;                                                       \
+    }                                                                      \
+  } while (0)
+#else
+#define FIXLANE_STAMP(ph) \
+  do {                    \
+  } while (0)
+#endif
 
 // ---- sort keys ------------------------------------------------------------
 
@@ -565,28 +640,31 @@ __device__ __forceinline__ Smem<Val> carve(const Tables<Val>& p,
 }
 
 // Stage the cumulative task table in shared memory and clear the
-// overload flags; once per CTA, before its first fixpoint.  The caller
+// overload flags (and the dense profile); once per CTA, before its first
+// fixpoint.  The caller
 // synchronises (fixpoint_lane starts with a barrier).
-template <typename Val, bool CU_SPARSE>
+template <int NT, typename Val, bool CU_SPARSE>
 __device__ __forceinline__ void stage_tables(const Tables<Val>& p,
                                              const Smem<Val>& s) {
   if (p.n_cumulative <= 0) return;
   const int tid = threadIdx.x;
   if (CU_SPARSE) {
-    for (int i = tid; i < p.Mcu; i += THREADS) {
+    for (int i = tid; i < p.Mcu; i += NT) {
       s.t_svar[i] = p.cu_pk_svar[i];
       s.t_dur[i] = p.cu_pk_dur[i];
       s.t_dem[i] = p.cu_pk_dem[i];
       s.t_seg[i] = p.cu_pk_seg[i];
     }
   } else {
-    for (int i = tid; i < p.C1 * p.T; i += THREADS) {
+    for (int i = tid; i < p.C1 * p.T; i += NT) {
       s.t_svar[i] = p.cu_svar[i];
       s.t_dur[i] = p.cu_dur[i];
       s.t_dem[i] = p.cu_dem[i];
     }
+    // the difference array the profile is built in starts at zero
+    for (int i = tid; i < p.C1 * p.H; i += NT) s.prof[i] = 0;
   }
-  for (int c = tid; c < p.C1; c += THREADS) {
+  for (int c = tid; c < p.C1; c += NT) {
     s.t_cap[c] = p.cu_cap[c];
     s.ovl[c] = 0;
   }
@@ -594,19 +672,49 @@ __device__ __forceinline__ void stage_tables(const Tables<Val>& p,
 
 // ---- block-wide building blocks (every thread of the CTA calls them) ----
 
-constexpr int WARPS = THREADS / 32;
-
 __device__ __forceinline__ int32_t shfl_up(int32_t x, int o) {
   return __shfl_up_sync(0xffffffffu, x, o);
 }
 __device__ __forceinline__ int64_t shfl_up(int64_t x, int o) {
   return (int64_t)__shfl_up_sync(0xffffffffu, (long long)x, o);
 }
+__device__ __forceinline__ int32_t shfl_idx(int32_t x, int src) {
+  return __shfl_sync(0xffffffffu, x, src);
+}
+__device__ __forceinline__ int64_t shfl_idx(int64_t x, int src) {
+  return (int64_t)__shfl_sync(0xffffffffu, (long long)x, src);
+}
+__device__ __forceinline__ int32_t shfl_xor(int32_t x, int o) {
+  return __shfl_xor_sync(0xffffffffu, x, o);
+}
+__device__ __forceinline__ int64_t shfl_xor(int64_t x, int o) {
+  return (int64_t)__shfl_xor_sync(0xffffffffu, (long long)x, o);
+}
+__device__ __forceinline__ uint64_t shfl_xor(uint64_t x, int o) {
+  return (uint64_t)__shfl_xor_sync(0xffffffffu, (unsigned long long)x, o);
+}
+__device__ __forceinline__ Key128 shfl_xor(Key128 x, int o) {
+  return Key128{shfl_xor(x.hi, o), shfl_xor(x.lo, o)};
+}
+
+// Lanes of a group that shares one row (linear: n = K terms, fit =
+// NT / P1) or one variable (join: n = 32, fit = NT / V): the least power
+// of two >= n, at most 32 and at most `fit` (1 when n <= 1 or fit < 2).
+// A power of two that divides 32, so a group never straddles two warps
+// and reduces by __shfl_xor.
+__device__ __forceinline__ int lane_group(int n, int fit) {
+  int g = 1;
+  while (g < n && g < 32 && 2 * g <= fit) g <<= 1;
+  return g;
+}
 
 // Exclusive prefix sum of one value per thread over the CTA; `wsum` holds
-// 32 values.  Returns the thread's prefix and writes the total.
-template <typename T>
+// 32 values (NT / 32 <= 32 warps).  Returns the thread's prefix and
+// writes the total.
+template <int NT, typename T>
 __device__ T block_exclusive_scan(T v, T* wsum, T* total) {
+  constexpr int WARPS = NT / 32;
+  static_assert(WARPS <= SCAN_WORDS, "one scan word per warp");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   T x = v;
   for (int o = 1; o < 32; o <<= 1) {
@@ -632,14 +740,14 @@ __device__ T block_exclusive_scan(T v, T* wsum, T* total) {
 
 // In-place inclusive prefix sum of x[0, n): a run per thread, the runs'
 // offsets by block_exclusive_scan.  Ends with a barrier.
-template <typename Val>
+template <int NT, typename Val>
 __device__ void block_inclusive_scan(Val* x, int n, Val* wsum) {
-  const int per = (n + THREADS - 1) / THREADS;
+  const int per = (n + NT - 1) / NT;
   const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
   Val sum = 0;
   for (int i = lo; i < hi; ++i) sum += x[i];
   Val total;
-  Val run = block_exclusive_scan<Val>(sum, wsum, &total);
+  Val run = block_exclusive_scan<NT, Val>(sum, wsum, &total);
   for (int i = lo; i < hi; ++i) {
     run += x[i];
     x[i] = run;
@@ -647,41 +755,100 @@ __device__ void block_inclusive_scan(Val* x, int n, Val* wsum) {
   __syncthreads();
 }
 
-// Sort n (a power of two) keys ascending in shared memory, each with its
-// payload: a bitonic network, n/2 compare-exchanges per step spread over
-// the CTA.  Equal keys are never swapped.  The caller synchronises before
-// (the keys are written); it ends with a barrier.
-template <typename Key, typename P>
-__device__ void block_sort(Key* key, P* val, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < (n >> 1); t += THREADS) {
-        const int i = 2 * j * (t / j) + (t % j);   // bit j of i is clear
-        const int l = i + j;
-        const Key a = key[i], b = key[l];
-        if ((i & k) == 0 ? a > b : a < b) {
-          key[i] = b;
-          key[l] = a;
-          const P x = val[i];
-          val[i] = val[l];
-          val[l] = x;
-        }
-      }
-      __syncthreads();
+// One step (k, j) of the bitonic network in shared memory: n/2
+// compare-exchanges of the pairs (i, i + j), i with bit j clear, spread
+// over the CTA; ascending where bit k of i is clear.  Equal keys are never
+// swapped.  Ends with a barrier.
+template <int NT, typename Key, typename P>
+__device__ __forceinline__ void sort_step(Key* key, P* val, int n, int k,
+                                          int j) {
+  for (int t = threadIdx.x; t < (n >> 1); t += NT) {
+    // t with a zero inserted at bit j (j is a power of two)
+    const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+    const int l = i + j;
+    const Key a = key[i], b = key[l];
+    if ((i & k) == 0 ? a > b : a < b) {
+      key[i] = b;
+      key[l] = a;
+      const P x = val[i];
+      val[i] = val[l];
+      val[l] = x;
     }
   }
+  __syncthreads();
+}
+
+// Sort n (a power of two) keys ascending in shared memory, each with its
+// payload: a bitonic network; equal keys are never swapped, so the result
+// (payloads included) is the network's whatever the thread count.  In the
+// few-lane instance at n <= NT, thread t holds key t in registers and the
+// steps whose partner t ^ j lies in its warp (j < 32) exchange through
+// __shfl_xor, with no barrier: the 55 steps of n = 1024 take 21 barriers
+// (15 shared-memory steps, 5 stores of the registers before them and the
+// final store).  Otherwise every step is a shared-memory step
+// (`sort_step`; the many-lane instance keeps that form, and its
+// registers).  The caller synchronises before (the keys are written); it
+// ends with a barrier.
+template <int NT, typename Key, typename P>
+__device__ void block_sort(Key* key, P* val, int n) {
+  if (NT == THREADS || n > NT) {
+    for (int k = 2; k <= n; k <<= 1)
+      for (int j = k >> 1; j > 0; j >>= 1)
+        sort_step<NT, Key, P>(key, val, n, k, j);
+    return;
+  }
+  // threads t >= n hold no key: their partners t ^ j (j < n) are >= n
+  // too, so they only ever exchange among themselves and store nothing
+  const int t = threadIdx.x;
+  Key a{};
+  P x{};
+  if (t < n) {
+    a = key[t];
+    x = val[t];
+  }
+  for (int k = 2; k <= n; k <<= 1) {
+    if (k > 32) {                        // j >= 32: in shared memory
+      if (t < n) {
+        key[t] = a;
+        val[t] = x;
+      }
+      __syncthreads();
+      for (int j = k >> 1; j >= 32; j >>= 1)
+        sort_step<NT, Key, P>(key, val, n, k, j);
+      if (t < n) {
+        a = key[t];
+        x = val[t];
+      }
+    }
+    const bool up = (t & k) == 0;       // bit k of the pair's lower index
+    for (int j = min(k >> 1, 16); j > 0; j >>= 1) {
+      const Key b = shfl_xor(a, j);
+      const P y = shfl_xor(x, j);
+      const bool lower = (t & j) == 0;
+      const bool swap = up ? (lower ? a > b : b > a) : (lower ? a < b : b < a);
+      if (swap) {
+        a = b;
+        x = y;
+      }
+    }
+  }
+  if (t < n) {
+    key[t] = a;
+    val[t] = x;
+  }
+  __syncthreads();
 }
 
 // ---- the sparse Cumulative bank ------------------------------------------
 
 // Step (1): one thread per event slot writes its key (segment, time,
 // kind) and delta; the power-of-two tail gets keys that sort last.
-template <typename Val>
+template <int NT, typename Val>
 __device__ void cu_sparse_events(const Tables<Val>& p, const Smem<Val>& s,
                                  const Val* lb, const Val* ub) {
   using SK = SortKey<Val>;
   const int M = p.Mcu, n = cu_sort_n(p);
-  for (int e = threadIdx.x; e < n; e += THREADS) {
+  for (int e = threadIdx.x; e < n; e += NT) {
     if (e >= 2 * M) {
       s.ckey[e] = SK::last();
       s.cval[e] = 0;
@@ -700,19 +867,16 @@ __device__ void cu_sparse_events(const Tables<Val>& p, const Smem<Val>& s,
   }
 }
 
-// Step (2): sort, profile, per-row overload, then one thread per task
-// finds its first and last feasible start.  Barriers separate its
-// passes; the caller synchronises after the last.
-template <typename Val>
-__device__ void cu_sparse_scan(const Tables<Val>& p, const Smem<Val>& s,
-                               const Val* lb, const Val* ub) {
+// Step (2), after the sort (`block_sort` on the event keys and deltas):
+// the profile (a block prefix sum of the deltas) and the per-row
+// overload flags.  Ends with a barrier.
+template <int NT, typename Val>
+__device__ void cu_sparse_profile(const Tables<Val>& p, const Smem<Val>& s) {
   using SK = SortKey<Val>;
-  constexpr Val NEU_UB = Lim<Val>::BIG, NEU_LB = -Lim<Val>::BIG;
-  const int M = p.Mcu, E = 2 * M;
-  block_sort(s.ckey, s.cval, cu_sort_n(p));
-  block_inclusive_scan<Val>(s.cval, cu_sort_n(p), s.wsum);
+  const int E = 2 * p.Mcu;
+  block_inclusive_scan<NT, Val>(s.cval, cu_sort_n(p), s.wsum);
   // an overloaded non-empty interval [u, v) fails its row
-  for (int e = threadIdx.x; e < E; e += THREADS) {
+  for (int e = threadIdx.x; e < E; e += NT) {
     const auto k = s.ckey[e];
     const int c = SK::event_seg(k);
     const Val u = SK::event_time(k);
@@ -721,50 +885,93 @@ __device__ void cu_sparse_scan(const Tables<Val>& p, const Smem<Val>& s,
     if (u < v && s.cval[e] > s.t_cap[c]) s.ovl[c] = 1;  // benign race
   }
   __syncthreads();
-  for (int m = threadIdx.x; m < M; m += THREADS) {
+}
+
+// Step (2), last: the first and last feasible start of each task over its
+// own segment of the profile, two threads per task (x = 2m: forward, x =
+// 2m + 1: backward).  Under the seg-major sort the segment's events are
+// sorted by time, so each scan skips what provably changes nothing:
+//   * forward (jump past each forbidden interval [u, v)): an interval
+//     with v <= est cannot move st (>= est), so the scan starts at the
+//     first event whose successor lies after est (binary search); it
+//     stops at the first u >= st + d, since later intervals start later
+//     and st moves only past an interval that starts before st + d;
+//   * backward (jump before each forbidden interval): an interval with
+//     u >= lst + d cannot move sl (<= lst), so the scan starts below the
+//     first event at or after lst + d; it stops at the first v <= sl.
+// The caller synchronises after it.
+template <typename Val>
+__device__ __forceinline__ Val event_time(const Smem<Val>& s, int e) {
+  return SortKey<Val>::event_time(s.ckey[e]);
+}
+
+// First index f in [lo, hi) whose event time is > t (`strict`) or >= t,
+// or hi when there is none; the times of [lo, hi) are sorted.
+template <typename Val>
+__device__ __forceinline__ int first_after(const Smem<Val>& s, int lo,
+                                           int hi, Val t, bool strict) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const Val x = event_time<Val>(s, mid);
+    if (strict ? x > t : x >= t) hi = mid;
+    else lo = mid + 1;
+  }
+  return lo;
+}
+
+template <int NT, typename Val>
+__device__ void cu_sparse_starts(const Tables<Val>& p, const Smem<Val>& s,
+                                 const Val* lb, const Val* ub) {
+  constexpr Val NEU_UB = Lim<Val>::BIG, NEU_LB = -Lim<Val>::BIG;
+  const int M = p.Mcu;
+  for (int x = threadIdx.x; x < 2 * M; x += NT) {
+    const int m = x >> 1;
+    const bool fwd = (x & 1) == 0;
     const Val d = s.t_dur[m], q = s.t_dem[m];
     const int c = s.t_seg[m];
     if (!(c < p.n_cumulative && d > 0 && q > 0)) {
-      s.ulb[m] = NEU_LB;
-      s.uub[m] = NEU_UB;
+      if (fwd) s.ulb[m] = NEU_LB;
+      else s.uub[m] = NEU_UB;
       continue;
     }
     const Val cap = s.t_cap[c];
     if (q > cap) {                 // a lone task over capacity
-      s.ulb[m] = -NEU_LB;
-      s.uub[m] = -NEU_UB;
+      if (fwd) s.ulb[m] = -NEU_LB;
+      else s.uub[m] = -NEU_UB;
       continue;
     }
     const int v = s.t_svar[m];
     const Val est = lb[v], lst = ub[v], ect = est + d;
     const bool cp = lst < ect;
     const int e0 = 2 * __ldg(p.cu_ptr + c), e1 = 2 * __ldg(p.cu_ptr + c + 1);
-    // first feasible start >= est: jump past each forbidden interval
-    Val st = est;
-    Val u = e0 < e1 ? SK::event_time(s.ckey[e0]) : 0;
-    for (int e = e0; e < e1; ++e) {
-      const Val v_ = e + 1 < e1 ? SK::event_time(s.ckey[e + 1]) : u;
-      if (u < v_) {
-        const bool own = cp && u >= lst && u < ect;
-        if (s.cval[e] + (own ? 0 : q) > cap && st < v_ && st + d > u)
-          st = v_;
+    if (fwd) {
+      // first feasible start >= est: jump past each forbidden interval
+      Val st = est;
+      for (int e = first_after<Val>(s, e0 + 1, e1, est, true) - 1;
+           e + 1 < e1; ++e) {
+        const Val u = event_time<Val>(s, e), v_ = event_time<Val>(s, e + 1);
+        if (u >= st + d) break;
+        if (u < v_) {
+          const bool own = cp && u >= lst && u < ect;
+          if (s.cval[e] + (own ? 0 : q) > cap && st < v_) st = v_;
+        }
       }
-      u = v_;
-    }
-    // last feasible start <= lst: jump before each forbidden interval
-    Val sl = lst;
-    Val v_ = e1 > e0 ? SK::event_time(s.ckey[e1 - 1]) : 0;
-    for (int e = e1 - 1; e >= e0; --e) {
-      const Val u_ = SK::event_time(s.ckey[e]);
-      if (u_ < v_) {
-        const bool own = cp && u_ >= lst && u_ < ect;
-        if (s.cval[e] + (own ? 0 : q) > cap && sl < v_ && sl + d > u_)
-          sl = u_ - d;
+      s.ulb[m] = s.ovl[c] ? -NEU_LB : st;     // overload fails the row
+    } else {
+      // last feasible start <= lst: jump before each forbidden interval
+      Val sl = lst;
+      for (int e = min(first_after<Val>(s, e0, e1, lst + d, false),
+                       e1 - 1) - 1;
+           e >= e0; --e) {
+        const Val u_ = event_time<Val>(s, e), v_ = event_time<Val>(s, e + 1);
+        if (v_ <= sl) break;
+        if (u_ < v_) {
+          const bool own = cp && u_ >= lst && u_ < ect;
+          if (s.cval[e] + (own ? 0 : q) > cap && sl + d > u_) sl = u_ - d;
+        }
       }
-      v_ = u_;
+      s.uub[m] = sl >= 0 ? sl : -NEU_UB;
     }
-    s.ulb[m] = s.ovl[c] ? -NEU_LB : st;     // overload fails the row
-    s.uub[m] = sl >= 0 ? sl : -NEU_UB;
   }
 }
 
@@ -772,12 +979,12 @@ __device__ void cu_sparse_scan(const Tables<Val>& p, const Smem<Val>& s,
 
 // Step (1): one thread per key slot writes (seg, yl) and the member
 // index; the Hall folds and fail flags are cleared.
-template <typename Val>
+template <int NT, typename Val>
 __device__ void ad_sparse_keys(const Tables<Val>& p, const Smem<Val>& s,
                                const Val* lb) {
   using SK = SortKey<Val>;
   const int M = p.Mad, n = ad_sort_n(p);
-  for (int i = threadIdx.x; i < n; i += THREADS) {
+  for (int i = threadIdx.x; i < n; i += NT) {
     if (i >= M) {
       s.akey[i] = SK::last();
       s.aval[i] = 0;
@@ -788,27 +995,27 @@ __device__ void ad_sparse_keys(const Tables<Val>& p, const Smem<Val>& s,
     s.aval[i] = i;
     s.msup[i] = -Lim<Val>::BIG;
   }
-  for (int a = threadIdx.x; a < p.A1; a += THREADS) s.afail[a] = 0;
+  for (int a = threadIdx.x; a < p.A1; a += NT) s.afail[a] = 0;
 }
 
-// Step (2): sort, Hall counts and folds, pushes.  Writes the candidate
-// pair in packed order, unshifted (a failed row's lb at -NEU_LB - off).
-// Barriers separate its passes; the caller synchronises after the last.
-template <typename Val>
+// Step (2), after the sort (`block_sort` on the keys and member indices):
+// Hall counts and folds, pushes.  Writes the candidate pair in packed
+// order, unshifted (a failed row's lb at -NEU_LB - off).  Barriers
+// separate its passes; the caller synchronises after the last.
+template <int NT, typename Val>
 __device__ void ad_sparse_hall(const Tables<Val>& p, const Smem<Val>& s,
                                const Val* ub) {
   using SK = SortKey<Val>;
   constexpr Val NEU_UB = Lim<Val>::BIG, NEU_LB = -Lim<Val>::BIG;
   const int M = p.Mad, A = p.n_alldiff;
-  block_sort(s.akey, s.aval, ad_sort_n(p));
-  for (int i = threadIdx.x; i < M; i += THREADS) {
+  for (int i = threadIdx.x; i < M; i += NT) {
     const int m = s.aval[i];
     s.syl[i] = SK::member_value(s.akey[i]);
     s.syu[i] = ub[__ldg(p.ad_pk_var + m)] + __ldg(p.ad_pk_off + m);
   }
   __syncthreads();
   // one thread per upper endpoint j: cnt(i, j) by the suffix count
-  for (int j = threadIdx.x; j < M; j += THREADS) {
+  for (int j = threadIdx.x; j < M; j += NT) {
     const int c = SK::member_seg(s.akey[j]);
     if (c >= A) continue;                       // padding
     const int s0 = __ldg(p.ad_ptr + c), s1 = __ldg(p.ad_ptr + c + 1);
@@ -833,7 +1040,7 @@ __device__ void ad_sparse_hall(const Tables<Val>& p, const Smem<Val>& s,
   }
   __syncthreads();
   // one thread per member k: push out of the Hall intervals of its row
-  for (int k = threadIdx.x; k < M; k += THREADS) {
+  for (int k = threadIdx.x; k < M; k += NT) {
     const int c = SK::member_seg(s.akey[k]);
     const int m = s.aval[k];
     const Val off = __ldg(p.ad_pk_off + m);
@@ -883,11 +1090,11 @@ __device__ __forceinline__ uint32_t range_word(Val lo, Val hi, Val off,
 // the member's live values; a padded slot gets all-ones.  The member's
 // words are the carried store's or, without one, the range words of the
 // current bounds (all-ones for an untracked variable).
-template <typename Val>
+template <int NT, typename Val>
 __device__ void ct_supports(const Tables<Val>& p, const Smem<Val>& s,
                             int cur, const Val* lb, const Val* ub) {
   const int TW = p.TW, W = p.W, K32 = 32 * p.W;
-  for (int i = threadIdx.x; i < p.T1 * p.R * TW; i += THREADS) {
+  for (int i = threadIdx.x; i < p.T1 * p.R * TW; i += NT) {
     const int tr = i / TW, tw = i - tr * TW;
     uint32_t acc = 0xffffffffu;
     if (__ldg(p.ct_mask + tr)) {
@@ -913,10 +1120,10 @@ __device__ void ct_supports(const Tables<Val>& p, const Smem<Val>& s,
 
 // Step (2): one thread per (row, support word) ANDs the members' words
 // into the current table.
-template <typename Val>
+template <int NT, typename Val>
 __device__ void ct_current(const Tables<Val>& p, const Smem<Val>& s) {
   const int R = p.R, TW = p.TW;
-  for (int i = threadIdx.x; i < p.T1 * TW; i += THREADS) {
+  for (int i = threadIdx.x; i < p.T1 * TW; i += NT) {
     const int t = i / TW, tw = i - t * TW;
     uint32_t c = 0xffffffffu;
     for (int r = 0; r < R; ++r) c &= s.ctor[(t * R + r) * TW + tw];
@@ -928,11 +1135,11 @@ __device__ void ct_current(const Tables<Val>& p, const Smem<Val>& s) {
 // meets the current table: hull candidates (a failed row's lb at
 // -NEU_LB) and, with a carried store, domain-word candidates.  Padded
 // slots are neutral.
-template <typename Val>
+template <int NT, typename Val>
 __device__ void ct_survivors(const Tables<Val>& p, const Smem<Val>& s) {
   constexpr Val NEU_UB = Lim<Val>::BIG, NEU_LB = -Lim<Val>::BIG;
   const int R = p.R, TW = p.TW, W = p.W, K32 = 32 * p.W;
-  for (int i = threadIdx.x; i < p.T1 * R; i += THREADS) {
+  for (int i = threadIdx.x; i < p.T1 * R; i += NT) {
     if (!__ldg(p.ct_mask + i)) {
       s.ctlb[i] = NEU_LB;
       s.ctub[i] = NEU_UB;
@@ -974,17 +1181,18 @@ struct LaneResult {
 
 // Run the store in s.lb(0) / s.ub(0) (and, carried, s.dom(0)), written by
 // the caller, by any thread, to its fixed point, at most `max_sweeps`
-// sweeps.  Every thread of the CTA calls it and gets the same result; the
-// overload flags are clear again on return.  AD_SPARSE, CU_SPARSE and DOM
-// must equal the model's layouts and uses_dom(p) (each kernel is
-// instantiated for the eight triples and the launch picks the one that
-// matches): compiled apart, a dense model's kernel carries none of the
-// sparse code, a bounds-only one none of the bitset code, and each keeps
-// its registers.
-template <typename Val, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+// sweeps, on a CTA of NT threads.  Every thread of the CTA calls it and
+// gets the same result; the overload flags (and the dense profile) are
+// clear again on return.  AD_SPARSE, CU_SPARSE and DOM must equal the
+// model's layouts and uses_dom(p) (each kernel is instantiated for the
+// eight triples and the launch picks the one that matches): compiled
+// apart, a dense model's kernel carries none of the sparse code, a
+// bounds-only one none of the bitset code, and each keeps its registers.
+template <int NT, typename Val, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
                                     int max_sweeps) {
   constexpr Val BIG = Lim<Val>::BIG, NEU_UB = BIG, NEU_LB = -BIG;
+  constexpr int WARPS = NT / 32;
   const int V = p.V, P1 = p.P1, K = p.K, K1 = p.K + 1, C1 = p.C1,
             T = p.T, H = p.H, N = p.N, A = p.n_alldiff;
   const bool cumul = p.n_cumulative > 0;
@@ -993,7 +1201,22 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
   const bool ad_sparse = alldiff && AD_SPARSE, ad_dense = alldiff && !AD_SPARSE;
   const bool table = DOM && p.n_table > 0;
   const bool carry = DOM && p.carry_dom;
-  const int tid = threadIdx.x, nth = THREADS;
+  const int tid = threadIdx.x, nth = NT;
+  const int lane = tid & 31, warp = tid >> 5;
+  // (1a): GL lanes per row, a term each (strided when K > GL), as many
+  // as one pass over the rows leaves threads for (1 when P1 >= NT);
+  // (3): GJ lanes per variable, striding its occurrence slots.  The
+  // many-lane instance keeps one thread per row and per variable: its
+  // CTAs share an SM, and the groups' registers cost it more CTAs per SM
+  // than their shuffles save (PERF.md)
+  const int GL = NT == THREADS ? 1 : lane_group(K, NT / max(P1, 1));
+  const int GJ = NT == THREADS ? 1 : lane_group(32, NT / max(V, 1));
+  // The bitset-store instances of the 256-thread body keep the C1·H·T
+  // compare loop for the dense profile: the difference array's code took
+  // them from 80 to 126 registers in search.cu (two co-resident CTAs per
+  // SM instead of three; PERF.md), and their models (tables,
+  // middle_out) seldom carry Cumulative rows
+  constexpr bool PROFILE_LOOP = NT == THREADS && DOM;
 
   __syncthreads();
   int my_failed = 0;
@@ -1003,55 +1226,75 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
   int changed = 1;
   int it = 0;
   int cur = 0;
+#ifdef FIXLANE_CLOCKS
+  long long stamp_ = clock64();
+#endif
 
   while (changed && it < max_sweeps && !failed) {
     const Val* lb = s.lb(cur);
     const Val* ub = s.ub(cur);
 
-    // -- (1a) ReifLinLe candidates, one thread per row ---------------------
-    for (int r = tid; r < P1; r += nth) {
-      const Val* a_row = p.coef + (size_t)r * K;
-      const int32_t* v_row = p.vidx + (size_t)r * K;
-      Val smin = 0, smax = 0;
-      for (int k = 0; k < K; ++k) {
-        Val a = __ldg(a_row + k);
-        int32_t v = __ldg(v_row + k);
-        Val xl = lb[v], xu = ub[v];
-        smin += a > 0 ? a * xl : a * xu;
-        smax += a > 0 ? a * xu : a * xl;
-      }
-      const Val c = __ldg(p.rhs + r);
-      const int32_t b = __ldg(p.bidx + r);
-      const bool btrue = lb[b] >= 1;
-      const bool bfalse = ub[b] <= 0;
-      Val* cl = s.clb + (size_t)r * K1;
-      Val* cu = s.cub + (size_t)r * K1;
-      for (int k = 0; k < K; ++k) {
-        Val a = __ldg(a_row + k);
-        int32_t v = __ldg(v_row + k);
-        Val xl = lb[v], xu = ub[v];
-        Val tl = a > 0 ? a * xl : a * xu;
-        Val tu = a > 0 ? a * xu : a * xl;
-        Val ub1 = NEU_UB, lb1 = NEU_LB, ub2 = NEU_UB, lb2 = NEU_LB;
-        if (btrue) {                      // Σ a x ≤ c
-          Val slack1 = c - (smin - tl);
-          if (a > 0) ub1 = fdiv<Val>(slack1, a);
-          else if (a < 0) lb1 = cdiv<Val>(slack1, a);
+    // -- (1a) ReifLinLe candidates: GL lanes per row, a term each -----------
+    // smin/smax are integer sums (any order gives the same value), reduced
+    // over the group by __shfl_xor; each lane writes its own terms'
+    // candidates and the group's first lane the entailment pair.
+    {
+      const int g = tid & (GL - 1);
+      for (int r0 = 0; r0 < P1; r0 += NT / GL) {     // uniform over the CTA
+        const int r = r0 + tid / GL;
+        const bool act = r < P1;
+        const Val* a_row = p.coef + (size_t)r * K;
+        const int32_t* v_row = p.vidx + (size_t)r * K;
+        Val smin = 0, smax = 0;
+        if (act)
+          for (int k = g; k < K; k += GL) {
+            const Val a = __ldg(a_row + k);
+            const int32_t v = __ldg(v_row + k);
+            const Val xl = lb[v], xu = ub[v];
+            smin += a > 0 ? a * xl : a * xu;
+            smax += a > 0 ? a * xu : a * xl;
+          }
+        for (int o = 1; o < GL; o <<= 1) {
+          smin += shfl_xor(smin, o);
+          smax += shfl_xor(smax, o);
         }
-        if (bfalse) {                     // Σ -a x ≤ -c-1
-          Val slack2 = (-c - 1) - (-smax + tu);
-          if (a < 0) ub2 = fdiv<Val>(slack2, -a);
-          else if (a > 0) lb2 = cdiv<Val>(slack2, -a);
+        if (!act) continue;
+        const Val c = __ldg(p.rhs + r);
+        const int32_t b = __ldg(p.bidx + r);
+        const bool btrue = lb[b] >= 1;
+        const bool bfalse = ub[b] <= 0;
+        Val* cl = s.clb + (size_t)r * K1;
+        Val* cu = s.cub + (size_t)r * K1;
+        for (int k = g; k < K; k += GL) {
+          const Val a = __ldg(a_row + k);
+          const int32_t v = __ldg(v_row + k);
+          const Val xl = lb[v], xu = ub[v];
+          const Val tl = a > 0 ? a * xl : a * xu;
+          const Val tu = a > 0 ? a * xu : a * xl;
+          Val ub1 = NEU_UB, lb1 = NEU_LB, ub2 = NEU_UB, lb2 = NEU_LB;
+          if (btrue) {                    // Σ a x ≤ c
+            const Val slack1 = c - (smin - tl);
+            if (a > 0) ub1 = fdiv<Val>(slack1, a);
+            else if (a < 0) lb1 = cdiv<Val>(slack1, a);
+          }
+          if (bfalse) {                   // Σ -a x ≤ -c-1
+            const Val slack2 = (-c - 1) - (-smax + tu);
+            if (a < 0) ub2 = fdiv<Val>(slack2, -a);
+            else if (a > 0) lb2 = cdiv<Val>(slack2, -a);
+          }
+          cl[k] = lb1 > lb2 ? lb1 : lb2;
+          cu[k] = ub1 < ub2 ? ub1 : ub2;
         }
-        cl[k] = lb1 > lb2 ? lb1 : lb2;
-        cu[k] = ub1 < ub2 ? ub1 : ub2;
+        if (g == 0) {
+          cl[K] = smax <= c ? 1 : NEU_LB;   // entailed → b ≥ 1
+          cu[K] = smin > c ? 0 : NEU_UB;    // disentailed → b ≤ 0
+        }
       }
-      cl[K] = smax <= c ? 1 : NEU_LB;     // entailed → b ≥ 1
-      cu[K] = smin > c ? 0 : NEU_UB;      // disentailed → b ≤ 0
     }
+    FIXLANE_STAMP(PH_LINEAR);
 
     // -- (1b) AllDifferent: shifted member bounds, neutral candidates -------
-    if (ad_sparse) ad_sparse_keys<Val>(p, s, lb);
+    if (ad_sparse) ad_sparse_keys<NT, Val>(p, s, lb);
     if (ad_dense) {
       for (int i = tid; i < p.A1 * N; i += nth) {
         if (__ldg(p.ad_mask + i)) {
@@ -1068,13 +1311,19 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
       }
       for (int a = tid; a < p.A1; a += nth) s.afail[a] = 0;
     }
+    FIXLANE_STAMP(PH_AD_STAGE);
 
     // -- (1d) Compact-Table: each member's OR of supports ----------------
-    if (table) ct_supports<Val>(p, s, cur, lb, ub);
+    if (table) ct_supports<NT, Val>(p, s, cur, lb, ub);
+    FIXLANE_STAMP(PH_CT_SUPP);
 
-    // -- (1c) compulsory-part profile, one thread per (row, time) ----------
-    if (cu_sparse) cu_sparse_events<Val>(p, s, lb, ub);
-    if (cu_dense) {
+    // -- (1c) Cumulative: events (sparse) or the profile's difference
+    // array (dense): +q where a task's compulsory part [lst, est + d)
+    // starts and -q where it ends, clipped to [0, H), by shared-memory
+    // atomicAdd (integer: any order gives the same sums); with
+    // PROFILE_LOOP one thread per (row, time) sums the tasks over it ----
+    if (cu_sparse) cu_sparse_events<NT, Val>(p, s, lb, ub);
+    if (cu_dense && PROFILE_LOOP) {
       for (int i = tid; i < C1 * H; i += nth) {
         const int c = i / H, tau = i - c * H;
         Val acc = 0;
@@ -1090,10 +1339,26 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
         if (acc > s.t_cap[c]) s.ovl[c] = 1;   // benign race: all write 1
       }
     }
+    if (cu_dense && !PROFILE_LOOP) {
+      for (int j = tid; j < C1 * T; j += nth) {
+        const Val d = s.t_dur[j], q = s.t_dem[j];
+        if (!(d > 0 && q > 0)) continue;
+        const int32_t v = s.t_svar[j];
+        const Val lst = ub[v], ect = lb[v] + d;
+        const Val lo = lst > 0 ? lst : 0, hi = ect < H ? ect : (Val)H;
+        if (lo >= hi) continue;
+        Val* pc = s.prof + (size_t)(j / T) * H;
+        atomic_add(pc + lo, q);
+        if (hi < H) atomic_add(pc + hi, -q);
+      }
+    }
     __syncthreads();
+    FIXLANE_STAMP(PH_CU_EVENTS);
 
     // -- (2a) AllDifferent Hall intervals, one thread per (row, i, j) -------
-    if (ad_sparse) ad_sparse_hall<Val>(p, s, ub);
+    if (ad_sparse) block_sort<NT>(s.akey, s.aval, ad_sort_n(p));
+    FIXLANE_STAMP(PH_AD_SORT);
+    if (ad_sparse) ad_sparse_hall<NT, Val>(p, s, ub);
     if (ad_dense) {
       const int NN = N * N;
       for (int q = tid; q < A * NN; q += nth) {
@@ -1120,12 +1385,44 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
         }
       }
     }
+    FIXLANE_STAMP(PH_AD_HALL);
 
     // -- (2c) Compact-Table: current tables --------------------------------
-    if (table) ct_current<Val>(p, s);
+    if (table) ct_current<NT, Val>(p, s);
+    FIXLANE_STAMP(PH_CT_CUR);
 
-    // -- (2b) first/last feasible start, one thread per (row, task) --------
-    if (cu_sparse) cu_sparse_scan<Val>(p, s, lb, ub);
+    // -- (2b) Cumulative: sort and profile (sparse), the prefix sum of
+    // each row's difference array (dense, a warp per row), the overload
+    // flags, then the first/last feasible starts ------------------------
+    if (cu_sparse) block_sort<NT>(s.ckey, s.cval, cu_sort_n(p));
+    FIXLANE_STAMP(PH_CU_SORT);
+    if (cu_sparse) cu_sparse_profile<NT, Val>(p, s);
+    if (cu_dense && !PROFILE_LOOP) {
+      for (int c = warp; c < C1; c += WARPS) {
+        Val* pc = s.prof + (size_t)c * H;
+        const Val cap = s.t_cap[c];
+        Val run = 0;
+        bool over = false;
+        for (int t0 = 0; t0 < H; t0 += 32) {         // uniform over the warp
+          const int tau = t0 + lane;
+          Val x = tau < H ? pc[tau] : 0;
+          for (int o = 1; o < 32; o <<= 1) {
+            const Val y = shfl_up(x, o);
+            if (lane >= o) x += y;
+          }
+          x += run;
+          if (tau < H) {
+            pc[tau] = x;
+            over |= x > cap;
+          }
+          run = shfl_idx(x, 31);
+        }
+        if (__any_sync(0xffffffffu, over) && lane == 0) s.ovl[c] = 1;
+      }
+      __syncthreads();
+    }
+    FIXLANE_STAMP(PH_CU_PROFILE);
+    if (cu_sparse) cu_sparse_starts<NT, Val>(p, s, lb, ub);
     if (cu_dense) {
       for (int j = tid; j < C1 * T; j += nth) {
         const int c = j / T;
@@ -1175,66 +1472,86 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
       }
     }
     __syncthreads();
+    FIXLANE_STAMP(PH_CU_STARTS);
     // -- (2d) Compact-Table: survivors, hull and word candidates ----------
     if (table) {
-      ct_survivors<Val>(p, s);
+      ct_survivors<NT, Val>(p, s);
       __syncthreads();
     }
+    FIXLANE_STAMP(PH_CT_SURV);
 
-    // -- (3) per-variable gather join, box clamp, next store ---------------
+    // -- (3) join: GJ lanes per variable stride its occurrence slots and
+    // max/min-reduce them by __shfl_xor (max and min commute); the group's
+    // first lane clamps to the box, ANDs and normalizes the carried words
+    // and writes the next store ------------------------------------------
     Val* nlb_s = s.lb(cur ^ 1);
     Val* nub_s = s.ub(cur ^ 1);
     int my_changed = 0;
     my_failed = 0;
-    for (int v = tid; v < V; v += nth) {
+    const int g = tid & (GJ - 1);
+    for (int v0 = 0; v0 < V; v0 += NT / GJ) {         // uniform over the CTA
+      const int v = v0 + tid / GJ;
+      const bool act = v < V;
       Val glb = NEU_LB, gub = NEU_UB;
-      const int32_t* op = p.occ_prop + (size_t)v * p.D;
-      const int32_t* os = p.occ_slot + (size_t)v * p.D;
-      for (int d = 0; d < p.D; ++d) {
-        const int idx = __ldg(op + d) * K1 + __ldg(os + d);
-        glb = max(glb, s.clb[idx]);
-        gub = min(gub, s.cub[idx]);
-      }
-      if (ad_sparse) {                  // flat: ad_ptr[inst] + pos
-        const int32_t* oi = p.ad_occ_inst + (size_t)v * p.Dad;
-        const int32_t* opos = p.ad_occ_pos + (size_t)v * p.Dad;
-        for (int d = 0; d < p.Dad; ++d) {
-          const int idx = __ldg(p.ad_ptr + __ldg(oi + d)) + __ldg(opos + d);
-          glb = max(glb, s.alb[idx]);
-          gub = min(gub, s.aub[idx]);
+      if (act) {
+        const int32_t* op = p.occ_prop + (size_t)v * p.D;
+        const int32_t* os = p.occ_slot + (size_t)v * p.D;
+        #pragma unroll (NT == THREADS ? 1 : 4)
+        for (int d = g; d < p.D; d += GJ) {
+          const int idx = __ldg(op + d) * K1 + __ldg(os + d);
+          glb = max(glb, s.clb[idx]);
+          gub = min(gub, s.cub[idx]);
+        }
+        if (ad_sparse) {                // flat: ad_ptr[inst] + pos
+          const int32_t* oi = p.ad_occ_inst + (size_t)v * p.Dad;
+          const int32_t* opos = p.ad_occ_pos + (size_t)v * p.Dad;
+          #pragma unroll (NT == THREADS ? 1 : 4)
+          for (int d = g; d < p.Dad; d += GJ) {
+            const int idx = __ldg(p.ad_ptr + __ldg(oi + d)) + __ldg(opos + d);
+            glb = max(glb, s.alb[idx]);
+            gub = min(gub, s.aub[idx]);
+          }
+        }
+        if (ad_dense) {
+          const int32_t* oi = p.ad_occ_inst + (size_t)v * p.Dad;
+          const int32_t* opos = p.ad_occ_pos + (size_t)v * p.Dad;
+          #pragma unroll (NT == THREADS ? 1 : 4)
+          for (int d = g; d < p.Dad; d += GJ) {
+            const int a = __ldg(oi + d);
+            const int idx = a * N + __ldg(opos + d);
+            const Val off = __ldg(p.ad_offs + idx);
+            glb = max(glb, (s.afail[a] ? -NEU_LB : s.alb[idx]) - off);
+            gub = min(gub, s.aub[idx] - off);
+          }
+        }
+        if (cumul) {                    // sparse: flat cu_ptr[inst] + pos
+          const int32_t* oi = p.cu_occ_inst + (size_t)v * p.Dcu;
+          const int32_t* opos = p.cu_occ_pos + (size_t)v * p.Dcu;
+          #pragma unroll (NT == THREADS ? 1 : 4)
+          for (int d = g; d < p.Dcu; d += GJ) {
+            const int idx =
+                CU_SPARSE ? __ldg(p.cu_ptr + __ldg(oi + d)) + __ldg(opos + d)
+                          : __ldg(oi + d) * T + __ldg(opos + d);
+            glb = max(glb, s.ulb[idx]);
+            gub = min(gub, s.uub[idx]);
+          }
+        }
+        if (table) {
+          const int32_t* oi = p.ct_occ_inst + (size_t)v * p.Dct;
+          const int32_t* opos = p.ct_occ_pos + (size_t)v * p.Dct;
+          #pragma unroll (NT == THREADS ? 1 : 4)
+          for (int d = g; d < p.Dct; d += GJ) {
+            const int idx = __ldg(oi + d) * p.R + __ldg(opos + d);
+            glb = max(glb, s.ctlb[idx]);
+            gub = min(gub, s.ctub[idx]);
+          }
         }
       }
-      if (ad_dense) {
-        const int32_t* oi = p.ad_occ_inst + (size_t)v * p.Dad;
-        const int32_t* opos = p.ad_occ_pos + (size_t)v * p.Dad;
-        for (int d = 0; d < p.Dad; ++d) {
-          const int a = __ldg(oi + d);
-          const int idx = a * N + __ldg(opos + d);
-          const Val off = __ldg(p.ad_offs + idx);
-          glb = max(glb, (s.afail[a] ? -NEU_LB : s.alb[idx]) - off);
-          gub = min(gub, s.aub[idx] - off);
-        }
+      for (int o = 1; o < GJ; o <<= 1) {
+        glb = max(glb, shfl_xor(glb, o));
+        gub = min(gub, shfl_xor(gub, o));
       }
-      if (cumul) {                      // sparse: flat cu_ptr[inst] + pos
-        const int32_t* oi = p.cu_occ_inst + (size_t)v * p.Dcu;
-        const int32_t* opos = p.cu_occ_pos + (size_t)v * p.Dcu;
-        for (int d = 0; d < p.Dcu; ++d) {
-          const int idx = CU_SPARSE
-                              ? __ldg(p.cu_ptr + __ldg(oi + d)) + __ldg(opos + d)
-                              : __ldg(oi + d) * T + __ldg(opos + d);
-          glb = max(glb, s.ulb[idx]);
-          gub = min(gub, s.uub[idx]);
-        }
-      }
-      if (table) {
-        const int32_t* oi = p.ct_occ_inst + (size_t)v * p.Dct;
-        const int32_t* opos = p.ct_occ_pos + (size_t)v * p.Dct;
-        for (int d = 0; d < p.Dct; ++d) {
-          const int idx = __ldg(oi + d) * p.R + __ldg(opos + d);
-          glb = max(glb, s.ctlb[idx]);
-          gub = min(gub, s.ctub[idx]);
-        }
-      }
+      if (!act || g != 0) continue;
       gub = max(gub, __ldg(p.box_lo + v));
       glb = min(glb, __ldg(p.box_hi + v));
       Val l = max(lb[v], glb);
@@ -1277,8 +1594,14 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
     }
     if (cumul)
       for (int c = tid; c < C1; c += nth) s.ovl[c] = 0;   // for the next sweep
+    if (cu_dense && !PROFILE_LOOP)      // the next sweep's difference array
+      for (int i = tid; i < C1 * H; i += nth) s.prof[i] = 0;
     changed = __syncthreads_or(my_changed);
     failed = __syncthreads_or(my_failed);
+    FIXLANE_STAMP(PH_JOIN);
+#ifdef FIXLANE_CLOCKS
+    if (tid == 0) atomicAdd(&fixlane::clocks[N_PHASES], 1ull);
+#endif
     cur ^= 1;
     ++it;
   }

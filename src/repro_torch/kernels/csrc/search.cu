@@ -206,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
   const int tid = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int L = p.L, V = t.V, S = p.S, MD = p.MD;
 
-  fixlane::stage_tables<Val, CU_SPARSE>(t, s);
+  fixlane::stage_tables<THREADS, Val, CU_SPARSE>(t, s);
 
   bool gdone;
   Val gbest = 0;
@@ -279,7 +279,7 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
     for (int i = tid * per; i < min(L, (tid + 1) * per); ++i)
       cnt += __ldcg(p.want + i);
     int total;
-    scan[tid] = block_exclusive_scan(cnt, wsum, &total);
+    scan[tid] = block_exclusive_scan<THREADS>(cnt, wsum, &total);
     __syncthreads();
     // wanting lanes before lane x (x <= L)
     auto prefix = [&](int x) {
@@ -405,7 +405,8 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         }
       }
       const fixlane::LaneResult r =
-          fixlane::fixpoint_lane<Val, AD_SPARSE, CU_SPARSE, DOM>(t, s, p.cap);
+          fixlane::fixpoint_lane<THREADS, Val, AD_SPARSE, CU_SPARSE, DOM>(
+              t, s, p.cap);
       Val* flb = s.lb(r.cur);
       Val* fub = s.ub(r.cur);
 

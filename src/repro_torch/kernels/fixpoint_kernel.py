@@ -6,6 +6,9 @@ their wrappers.
   ``csrc/fixpoint.cu``: one CTA per lane, both stores double-buffered in
   shared memory, the sweep loop driven by ``__syncthreads_or`` on the
   per-lane rule of the reference (changed ∧ it < max_sweeps ∧ ¬failed).
+  Two instances of one body (`instance_threads` picks per launch): the
+  few-lane one, 1024 threads and an SM per lane, for launches over no
+  more lanes than the card has SMs (EPS), and the 256-thread one beyond.
 * `search_cuda` replaces ``search_pallas`` in both of its modes, one
   pool queue (``lane_tile=0``) and lane tiles (``lane_tile=N``, the
   reference's ``n_tiles > 1``): K whole supersteps of the search per
@@ -26,12 +29,14 @@ refused launch).  It never falls back.
 
 ``fixpoint_cuda.launches`` and ``search_cuda.launches`` count kernel
 launches (and nothing else), so a run can show that the main path went
-through the kernels.
+through the kernels; ``fixpoint_cuda.few_lane_launches`` counts those of
+the few-lane instance among the first.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,13 +46,27 @@ from repro_torch.core import search as S
 # shared memory one H100 block may use (232,448 bytes = 227 KB)
 SMEM_LIMIT_BYTES = 227 * 1024
 UNCAPPED = 2 ** 31 - 1
-# threads per CTA (fixlane::THREADS in csrc/fixpoint_lane.cuh)
+# threads per CTA of fixpoint_cuda's two instances (csrc/fixpoint_lane.cuh):
+# the many-lane instance (fixlane::THREADS), which search.cu's CTA shares,
+# and the few-lane instance (fixlane::FEW_THREADS), one lane on a CTA
+# built for latency; `instance_threads` picks one per launch
 THREADS = 256
+FEW_THREADS = 1024
 # a block scan's per-warp sums (fixlane::SCAN_WORDS)
 SCAN_WORDS = 32
-# csrc/search.cu EXTRA_WORDS: the scan's per-thread prefixes, its
-# per-warp sums and 16 lane scalars
+# csrc/search.cu EXTRA_WORDS: the scan's per-thread prefixes (one per
+# thread of its 256-thread CTA), its per-warp sums and 16 lane scalars
 SEARCH_EXTRA_WORDS = THREADS + SCAN_WORDS + 16
+
+
+def instance_threads(n_lanes: int, n_sms: int) -> int:
+    """Threads per CTA of the `fixpoint_cuda` instance a launch over
+    `n_lanes` lanes takes on a card of `n_sms` SMs: the few-lane
+    instance (FEW_THREADS, one CTA per SM) while every lane has an SM of
+    its own, the many-lane one (THREADS) beyond.  EPS's root ``[1, V]``
+    and split ``[2, V]`` launches take the first, the ``cuda`` backend's
+    supersteps over 1024 lanes the second."""
+    return FEW_THREADS if n_lanes <= n_sms else THREADS
 
 
 def sort_size(n: int) -> int:
@@ -238,17 +257,27 @@ def _c_tables(cm):
             (ctypes.c_int * len(dims))(*dims))
 
 
-def _lib(dtype: str):
+def _lib(dtype: str, clocks: bool = False):
+    """The fixpoint library of a model's width, or with `clocks` the one
+    whose sweeps stamp every phase (``fixpoint_clocks``)."""
     from repro_torch.kernels.build import load, variant
-    lib = load("fixpoint", variant(dtype))
+    lib = load("fixpoint", variant(dtype, clocks=clocks))
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fixpoint_launch.argtypes = [ptr] * 10 + [i32] * 2 + [ptr]
+        lib.fixpoint_launch.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
         lib.fixpoint_launch.restype = i32
         lib.fixpoint_error_string.argtypes = [i32]
         lib.fixpoint_error_string.restype = ctypes.c_char_p
+        if clocks:
+            lib.fixpoint_clocks.argtypes = [ptr]
+            lib.fixpoint_clocks.restype = i32
         lib._typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(cm, lb, ub, dom=None):
@@ -284,12 +313,36 @@ def fixpoint_cuda(cm, lb, ub, dom=None, *, max_sweeps=None):
     Returns (lb', ub', sweeps i32[L], converged bool[L]), with dom'
     before the counters when `dom` is given, equal to
     `fixpoint_batch(cm, lb, ub, dom, max_iters=max_sweeps)`.
-    ``max_sweeps`` None is uncapped.
+    ``max_sweeps`` None is uncapped.  On the card the launch runs the
+    instance `instance_threads` picks for L lanes.
     """
     if lb.device.type == "cpu":
         return F.fixpoint_batch(cm, lb, ub, dom, max_iters=max_sweeps)
     if lb.device.type != "cuda":
         raise ValueError(f"fixpoint_cuda: unsupported device {lb.device}")
+    threads = instance_threads(lb.shape[0], _sm_count(lb.device.index
+                                                       or 0))
+    out, launched = launch_fixpoint(_lib(cm.dtype), cm, lb, ub, dom,
+                                    max_sweeps, threads)
+    if launched:
+        fixpoint_cuda.launches += 1
+        if threads == FEW_THREADS:
+            fixpoint_cuda.few_lane_launches += 1
+    return out
+
+
+# every launch, and those of the few-lane instance among them
+fixpoint_cuda.launches = 0
+fixpoint_cuda.few_lane_launches = 0
+
+
+def launch_fixpoint(lib, cm, lb, ub, dom, max_sweeps, threads):
+    """One launch of `lib`'s fixpoint kernel (`_lib`) on CUDA tensors at
+    `threads` per CTA (THREADS or FEW_THREADS), counted nowhere: the
+    body of `fixpoint_cuda`, and of the clock breakdown of
+    ``chip_smoke.py`` on the ``clocks`` library.  Returns (the outputs
+    of `fixpoint_cuda`, whether a kernel was launched: not for 0
+    lanes)."""
     _check(cm, lb, ub, dom)
     fit_smem(cm, dom=dom is not None)
     L = lb.shape[0]
@@ -299,26 +352,21 @@ def fixpoint_cuda(cm, lb, ub, dom=None, *, max_sweeps=None):
     conv = torch.empty(L, dtype=torch.int32, device=lb.device)
     out = (lb_out, ub_out) + (() if dom is None else (dom_out,))
     if L == 0:
-        return out + (sweeps, conv.bool())
+        return out + (sweeps, conv.bool()), False
     cap = UNCAPPED if max_sweeps is None else int(max_sweeps)
     if cap < 0:
         raise ValueError(f"fixpoint_cuda: max_sweeps must be >= 0, got {cap}")
-    lib = _lib(cm.dtype)
     err = lib.fixpoint_launch(
         *_c_tables(cm), lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
         ub_out.data_ptr(), sweeps.data_ptr(), conv.data_ptr(),
         None if dom is None else dom.data_ptr(),
-        None if dom is None else dom_out.data_ptr(), L, cap,
+        None if dom is None else dom_out.data_ptr(), L, cap, threads,
         torch.cuda.current_stream(lb.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            "fixpoint_cuda: launch failed: "
+            f"fixpoint_cuda: launch failed ({threads} threads per CTA): "
             + lib.fixpoint_error_string(err).decode())
-    fixpoint_cuda.launches += 1
-    return out + (sweeps, conv.bool())
-
-
-fixpoint_cuda.launches = 0
+    return out + (sweeps, conv.bool()), True
 
 
 # --------------------------------------------------------------------------

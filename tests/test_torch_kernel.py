@@ -366,12 +366,16 @@ def test_build_names_and_missing_nvcc(monkeypatch, tmp_path):
         assert lib.parent == build.BUILD_DIR and lib.suffix == ".so"
         assert lib.name.startswith(f"lib{name}_")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    # each variant its own library: int64 and lane tiles, of either source
+    # each variant its own library: int64, lane tiles and the clock
+    # stamps, of either source
     assert build.variant("int32") == "" and build.variant("int64") == "i64"
     assert build.variant("int64", tiles=True) == "tiles_i64"
     names = {build._target(n, v).name for n in ("fixpoint", "search")
              for v in build.VARIANTS}
-    assert len(names) == 8
+    assert len(names) == 12
+    assert build.variant("int64", clocks=True) == "clocks_i64"
+    assert build._target("fixpoint", "clocks").name.startswith(
+        "libfixpoint_clocks_")
     assert build._target("search", "tiles_i64").name.startswith(
         "libsearch_tiles_i64_")
     # the name covers the shared header: editing it rebuilds both
@@ -697,3 +701,56 @@ def test_tiled_search_kernel_matches_plain_on_gpu(cuda, lane_tile):
             torch.cuda.synchronize()
             assert got[3].shape == (-(-n // lane_tile),)
             assert search_diff(ref, got) == [], (what, k)
+
+
+# ---- on the card only: the few-lane instance ------------------------------
+
+def _few_lane_models(device):
+    """(what, model, seed, carried store) of every bank at both widths:
+    the int32 models of `_gpu_models`, the table models (with and
+    without a carried store), a carried store on a bounds-only model, and
+    the int64 models (tables with both)."""
+    for cm, seed in _gpu_models(device):
+        yield f"{cm.name} {cm.ad_layout}/{cm.cu_layout}", cm, seed, False
+    for what, cm, seed in _table_models(device):
+        yield what, cm, seed, False
+        yield f"{what} carried", cm, seed, True
+    yield "nqueens8 carried", _nqueens(8, device=device), 3, True
+    for what, cm, seed in _int64_models(device):
+        yield what, cm, seed, False
+        if cm.n_table:
+            yield f"{what} carried", cm, seed, True
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 132, 133])
+def test_few_lane_instance_matches_plain_on_gpu(cuda, lanes):
+    """`fixpoint_cuda` over 1, 2 and 132 lanes (the few-lane instance on
+    an H100) and 133 (the 256-thread one) against `fixpoint_batch`, every
+    bank at both widths, with the transient and the carried store, capped
+    and uncapped: stores, words, sweeps and convergence flags equal; the
+    few-lane counter moves only when the rule picks that instance."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    few = K.instance_threads(lanes, sms) == K.FEW_THREADS
+    for what, cm, seed, carried in _few_lane_models(cuda):
+        if carried:
+            lb, ub, dom = _dom_stores(cm, max(lanes, 4), seed)
+            dom = dom[:lanes].contiguous()
+        else:
+            lb, ub = _random_stores(cm, max(lanes, 4), seed)
+            dom = None
+        lb, ub = lb[:lanes].contiguous(), ub[:lanes].contiguous()
+        if lanes == 1:                 # EPS's root launch
+            lb, ub = cm.lb0[None].clone(), cm.ub0[None].clone()
+            if carried:
+                dom = dom[:1]
+        for cap in (1, None):
+            before = (K.fixpoint_cuda.launches,
+                      K.fixpoint_cuda.few_lane_launches)
+            got = K.fixpoint_cuda(cm, lb, ub, dom, max_sweeps=cap)
+            torch.cuda.synchronize()
+            assert (K.fixpoint_cuda.launches,
+                    K.fixpoint_cuda.few_lane_launches) == (
+                before[0] + 1, before[1] + int(few)), what
+            ref = F.fixpoint_batch(cm, lb, ub, dom, max_iters=cap)
+            for r, g in zip(ref, got):
+                assert torch.equal(r, g), (what, lanes, cap)
