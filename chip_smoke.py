@@ -10,12 +10,15 @@ exit code and no result line:
    versions; ``nvcc`` builds ``kernels/csrc/fixpoint.cu`` and
    ``kernels/csrc/search.cu`` for sm_90a, each at int32 and int64 and
    ``search.cu`` also in its lane-tiled mode,
-   ``kernels/csrc/flash_attention.cu``, and ``fixpoint.cu``'s
-   clock-stamped ``clocks`` variants at both widths, all nine at once;
-   each kernel instance's registers and spill stores are printed (from
-   ``-Xptxas -v``); the flash kernel must neither spill nor use local
-   memory, and no few-lane instance of ``fixpoint.cu`` (1024 threads,
-   64 registers a thread) may spill;
+   ``kernels/csrc/flash_attention.cu``, and the clock-stamped ``clocks``
+   variants of ``fixpoint.cu`` at both widths and of ``search.cu`` at
+   int32, all ten at once; each kernel instance's registers and spill
+   stores are printed (from ``-Xptxas -v``), and each solver kernel
+   instance's co-resident CTAs per SM (the launch's occupancy query with
+   no dynamic shared memory: what its registers and threads allow); the
+   flash kernel must neither spill nor use local memory, and no few-lane
+   instance of ``fixpoint.cu`` (1024 threads, 64 registers a thread) may
+   spill;
 2. kernel against plain version: ``fixpoint_cuda`` against the plain
    PyTorch ``fixpoint_batch``, on the card, on RCPSP J30- and J60-class
    models, for 1024 random stores (random tells on the root box, from a
@@ -86,7 +89,15 @@ exit code and no result line:
    in phase 4); then every
    launch of phase 10's long N-queens-32 ``cuda_resident`` solve,
    replayed from the same options and pool and timed one by one (its
-   supersteps and nodes must equal the solve's);
+   supersteps and nodes must equal the solve's); then the early state's
+   launch and the replay's slowest launch replayed through
+   ``search.cu``'s ``clocks`` library (``search_clock_breakdown``; its
+   outputs must equal ``search_cuda``'s): the share of CTA-clocks of
+   each phase of a superstep (dispatch, the wait at the first grid
+   barrier, ranks, load, fixpoint, commit, the wait at the second), the
+   clocks per lane-sweep of each phase of a sweep, and per superstep the
+   lanes' sweeps, the sweeps of one CTA's lanes and the CTAs' busy
+   clocks, mean and maximum;
 13. the sparse banks, kernel against plain version: phase 2's comparison
    on the J90 and J120 classes, jobshop 20 x 15 (sparse Cumulative),
    N-queens 64 and N-queens 256 (sparse AllDifferent; the first 256
@@ -110,8 +121,9 @@ exit code and no result line:
 16. times of both kernels at the J120 (``[1024, 122]``) and N-queens-256
    (``[1024, 257]``) shapes of phases 13 and 14, beside their plain
    versions, their bounds and the sparse banks' own work (sort compares
-   and scan steps), and the fixpoint kernel as EPS issues it on J120,
-   with its clock breakdown (as in phase 4);
+   and scan steps), the J120 launch replayed through the search
+   ``clocks`` library (as in phase 12), and the fixpoint kernel as EPS
+   issues it on J120, with its clock breakdown (as in phase 4);
 17. the Compact-Table bank and the bitset store, kernel against plain
    version: phase 2's comparison on crossword and configuration at the
    small, bench and large tiers and a model whose tables hold more than
@@ -286,7 +298,7 @@ INT32_LANES_PER_SM = 64
 BUILDS = (("fixpoint", ""), ("fixpoint", "i64"), ("search", ""),
           ("search", "i64"), ("search", "tiles"), ("search", "tiles_i64"),
           ("flash_attention", ""), ("fixpoint", "clocks"),
-          ("fixpoint", "clocks_i64"))
+          ("fixpoint", "clocks_i64"), ("search", "clocks"))
 # phases 21-25: every duration of an RCPSP class × INT64_SCALE compiles to
 # int64 (sums pass the int32 headroom); scaling every duration scales the
 # optimum, so J120 × 10⁷ must prove SPARSE_OPTIMUM["J120"] × 10⁷
@@ -322,9 +334,17 @@ FLASH_BLOCKS = ((128, 128), (64, 128))
 PEAK_BF16_FLOP_S = 989e12
 # the phases of a sweep the clocks library stamps (fixlane::Phase order)
 PHASES = ("linear", "alldiff stage", "table supports", "cumulative events",
-          "alldiff sort", "alldiff hall", "table current", "cumulative sort",
-          "cumulative profile", "cumulative starts", "table survivors",
-          "join")
+          "alldiff sort", "alldiff masks", "alldiff hall", "table current",
+          "cumulative sort", "cumulative profile", "cumulative starts",
+          "table survivors", "join")
+# the phases of a superstep the search clocks library stamps
+# (csrc/search.cu SPhase order), its per-superstep records (the first
+# SEARCH_CLOCK_STEPS supersteps of a launch) and their fields
+SEARCH_PHASES = ("dispatch", "want wait", "ranks", "load", "fixpoint",
+                 "commit", "bound wait")
+SEARCH_CLOCK_STEPS = 64
+STEP_STATS = ("busy_sum", "busy_max", "cta_sweeps_max", "sweeps_sum",
+              "sweeps_max", "lanes")
 # the propagator banks both kernels cover (csrc/fixpoint_lane.cuh)
 BANKS = ("ReifLinLe", "AllDifferent dense", "AllDifferent sparse",
          "Cumulative dense", "Cumulative sparse", "Compact-Table",
@@ -499,12 +519,12 @@ def phase_card_and_build():
     peak_int32 = sms * INT32_LANES_PER_SM * mhz * 1e6
     print(f"[1] {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x {mhz:.0f} "
           f"MHz (max SM clock) = {peak_int32 / 1e12:.2f} T int32 op/s")
-    for built in build.build_all(BUILDS):
+    for (_, var), built in zip(BUILDS, build.build_all(BUILDS)):
         print(f"[1] built {os.path.relpath(built.path, ROOT)} in "
               f"{built.seconds:.1f} s")
         for entry, regs, spills in ptxas_report(built.log):
             print(f"[1]   {entry}: {regs} registers, {spills} bytes spill "
-                  "stores")
+                  f"stores{ctas_per_sm(built.name, var, entry)}")
             # the few-lane fixpoint instances (one CTA of FEW_THREADS per
             # SM: 64 registers a thread) must not spill
             if (built.name == "fixpoint" and spills
@@ -516,6 +536,31 @@ def phase_card_and_build():
                 or re.search(r"[1-9]\d* bytes spill stores", built.log)):
             fail("flash_attention.cu spills or uses local memory")
     return card, peak_int32
+
+
+def ctas_per_sm(name, var, entry):
+    """", N CTAs per SM" for a solver kernel instance (`ptxas_report`'s
+    entry name) of library `name` variant `var`: the co-resident CTAs the
+    occupancy query of the launch finds (``search_occupancy``,
+    ``fixpoint_occupancy``) with no dynamic shared memory, so bounded by
+    the instance's registers and threads alone (a model's shared memory
+    may bound it further); "" for another kernel."""
+    from repro_torch.kernels import fixpoint_kernel as K
+    args = re.fullmatch(r"(fixpoint|search)<([\d,]+)>", entry)
+    if args is None:
+        return ""
+    flags = [int(a) for a in args.group(2).split(",")]
+    dtype = "int64" if var.endswith("i64") else "int32"
+    if name == "search":
+        lib = K._search_lib(dtype, var.startswith("tiles"),
+                            clocks=var.startswith("clocks"))
+        n = lib.search_occupancy(*flags, 0)
+    else:
+        lib = K._lib(dtype, clocks=var.startswith("clocks"))
+        n = lib.fixpoint_occupancy(*flags, 0)
+    if n < 1:
+        fail(f"{name} {var} {entry}: no co-resident CTA ({n})")
+    return f", {n} CTAs per SM"
 
 
 def ptxas_report(log):
@@ -1189,6 +1234,88 @@ def clock_breakdown(cm, tag, what, calls, threads):
     return per
 
 
+def search_clock_breakdown(card, timing_state, tag, what):
+    """One K=MAIN_K launch of `search_cuda` from `timing_state` (model,
+    pool, start, keywords), replayed through the search ``clocks``
+    library, whose supersteps end every phase with a barrier and a clock
+    stamp (``SPhase``) and whose sweeps stamp theirs (``fixlane::Phase``);
+    its outputs must equal `search_cuda`'s.  Prints the share of
+    CTA-clocks each superstep phase takes, the clocks per lane-sweep of
+    each sweep phase, and per superstep the lanes' sweeps (mean and
+    maximum), the sweeps of one CTA's lanes (mean and maximum) and the
+    CTAs' busy clocks (every phase but the two grid-barrier waits; mean
+    and maximum).  Returns the summary: busy clocks summed over the
+    supersteps of the slowest CTA and of the mean CTA, and the least
+    that the longest lane and the CTA with the most sweeps take at the
+    clocks per lane-sweep of this launch."""
+    import ctypes
+    from repro_torch.kernels import fixpoint_kernel as K
+    from repro_torch.testing import search_diff
+    cm, slb, sub, start, kw = timing_state
+    lib = K._search_lib(cm.dtype, False, clocks=True)
+    n_fix, n_sup = len(PHASES) + 1, len(SEARCH_PHASES)
+    buf = (ctypes.c_ulonglong * (n_fix + n_sup + SEARCH_CLOCK_STEPS
+                                 * len(STEP_STATS)))()
+    if lib.search_clocks(buf):                         # clear
+        fail("search_clocks failed")
+    got = K.launch_search(lib, cm, slb, sub, *start, supersteps=MAIN_K,
+                          **kw)
+    if lib.search_clocks(buf):
+        fail("search_clocks failed")
+    n0 = K.search_cuda.launches
+    ref = K.search_cuda(cm, slb, sub, *start, supersteps=MAIN_K, **kw)
+    K.search_cuda.launches = n0           # a check, not the main path
+    bad = search_diff(ref, got)
+    if bad:
+        fail(f"{tag} {what}: the clocks library differs from search_cuda "
+             f"in {bad}")
+    L = start[0].lb.shape[0]
+    grid = lib.search_grid(L, *K._c_tables(cm), int(start[0].dom is not None))
+    sweep_clk = sum(buf[:n_fix - 1])
+    lane_sweeps = buf[n_fix - 1]
+    per_sweep = sweep_clk / max(lane_sweeps, 1)
+    sup = buf[n_fix:n_fix + n_sup]
+    total = sum(sup)
+    print(f"[{tag}] superstep clocks, {what} (K={MAIN_K}, {L} lanes on "
+          f"{grid} CTAs, the clocks library): share of CTA-clocks by "
+          f"phase: " + ", ".join(f"{name} {c / total:.1%}"
+                                 for name, c in zip(SEARCH_PHASES, sup)))
+    shares = ", ".join(f"{name} {buf[i] / max(lane_sweeps, 1):.0f} "
+                       f"({buf[i] / max(sweep_clk, 1):.1%})"
+                       for i, name in enumerate(PHASES) if buf[i])
+    print(f"[{tag}] sweep clocks, {what}: {lane_sweeps} lane-sweeps, "
+          f"{per_sweep:.0f} clocks per lane-sweep: {shares}")
+    steps = [dict(zip(STEP_STATS, buf[n_fix + n_sup + k * len(STEP_STATS):
+                                     n_fix + n_sup + (k + 1)
+                                     * len(STEP_STATS)]))
+             for k in range(min(MAIN_K, SEARCH_CLOCK_STEPS))]
+    steps = [r for r in steps if r["lanes"]]
+    rows = []
+    for k, r in enumerate(steps):
+        rows.append(f"{k}: lanes {r['lanes']}, sweeps mean "
+                    f"{r['sweeps_sum'] / r['lanes']:.2f} max "
+                    f"{r['sweeps_max']}, CTA sweeps mean "
+                    f"{r['sweeps_sum'] / grid:.2f} max "
+                    f"{r['cta_sweeps_max']}, busy kclk mean "
+                    f"{r['busy_sum'] / grid / 1e3:.1f} max "
+                    f"{r['busy_max'] / 1e3:.1f}")
+    print(f"[{tag}] per superstep, {what}: " + "; ".join(rows))
+    summary = dict(
+        busy_max=sum(r["busy_max"] for r in steps),
+        busy_mean=sum(r["busy_sum"] for r in steps) / grid,
+        longest_lane=per_sweep * sum(r["sweeps_max"] for r in steps),
+        busiest_cta=per_sweep * sum(r["cta_sweeps_max"] for r in steps),
+        even_split=per_sweep * sum(r["sweeps_sum"] for r in steps) / grid)
+    print(f"[{tag}] summed over {len(steps)} supersteps, {what}, in "
+          f"kclk: slowest CTA's busy {summary['busy_max'] / 1e3:.0f}, mean "
+          f"CTA's {summary['busy_mean'] / 1e3:.0f}; at {per_sweep:.0f} "
+          f"clocks per lane-sweep the longest lane's sweeps take "
+          f"{summary['longest_lane'] / 1e3:.0f}, the busiest CTA's "
+          f"{summary['busiest_cta'] / 1e3:.0f}, all sweeps spread evenly "
+          f"over the CTAs {summary['even_split'] / 1e3:.0f} on {card}")
+    return summary
+
+
 def eps_launches_and_clocks(card, peak_int32, cm, tag, what, strategy=None):
     """`time_eps_launches`, then the clock breakdown of its recorded
     launches on both instances (few-lane, then 256 threads).  Returns
@@ -1266,11 +1393,13 @@ def time_search(card, peak_int32, timing_state, tag, what, plain_reps=2,
     return ms, plain_ms, bound_ms, bound_by
 
 
-def time_resident_solve(card, peak_int32, tag, c, cfg, res):
+def time_resident_solve(card, peak_int32, tag, c, cfg, res, phase=12):
     """Every launch of one `cuda_resident` solve, replayed from the same
     options and a pool decomposed as the solve's (the split depends on
     the strategy pair) and timed one by one (CUDA events); the replay's
-    supersteps and nodes must equal the solve's `res`."""
+    supersteps and nodes must equal the solve's `res`.  Returns (the
+    device ms of all launches, the timing state (model, pool, start,
+    keywords) of the slowest one)."""
     import torch
     from repro_torch.kernels.fixpoint_kernel import search_cuda
     from repro_torch.testing import search_inputs
@@ -1283,7 +1412,7 @@ def time_resident_solve(card, peak_int32, tag, c, cfg, res):
                                               cfg.resolved_eps_target(), opts)
     start = cur = (st, gbest, 0, head)
     n0 = search_cuda.launches
-    times = []
+    times, slowest = [], None
     while True:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -1293,6 +1422,8 @@ def time_resident_solve(card, peak_int32, tag, c, cfg, res):
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
+        if times[-1] >= max(times):
+            slowest = cur
         cur = out[:4]
         if bool(out[4]) or int(out[2]) >= cfg.max_supersteps:
             break
@@ -1306,7 +1437,7 @@ def time_resident_solve(card, peak_int32, tag, c, cfg, res):
         c.cm, start, out, peak_int32, launches=len(times))
     total = sum(times)
     mid = sorted(times)[len(times) // 2]
-    print(f"[12] {tag} main-path replay ({cfg.backend}, K="
+    print(f"[{phase}] {tag} main-path replay ({cfg.backend}, K="
           f"{cfg.resolved_supersteps()}, {cfg.n_lanes} lanes): "
           f"{len(times)} launches, {steps} supersteps, {sweeps} lane-sweeps, "
           f"nodes {nodes} as the solve; device {total:.2f} ms in all "
@@ -1316,8 +1447,9 @@ def time_resident_solve(card, peak_int32, tag, c, cfg, res):
           f"bound {bound_ms:.5f} ms in all ({bound_by}: {nbytes} B, {ops} "
           f"int32 ops; kernel {total / bound_ms:.0f}x the bound)"
           f"{pair_note(c.cm, sweeps, peak_int32)} on {card}")
-    print("[12] per-launch ms: " + " ".join(f"{t:.3f}" for t in times))
-    return total / len(times)
+    print(f"[{phase}] per-launch ms: "
+          + " ".join(f"{t:.3f}" for t in times))
+    return total, (c.cm, slb, sub, slowest, kw)
 
 
 def plain_eps_ms(cm, calls, n=32):
@@ -1370,9 +1502,14 @@ def phase_alldiff_times(card, peak_int32, cases, states, long):
                   "N-queens 32 stores of phase 8")
     run = eps_launches_and_clocks(card, peak_int32, c.cm, "12",
                                   "N-queens 32", ZOO_STRATEGY["nqueens32"])
-    time_search(card, peak_int32, states[("nqueens32", "min_dom/split")],
-                "12", "N-queens 32, min_dom/split, early state")
-    time_resident_solve(card, peak_int32, "nqueens32", c, *long["nqueens32"])
+    early = states[("nqueens32", "min_dom/split")]
+    time_search(card, peak_int32, early, "12",
+                "N-queens 32, min_dom/split, early state")
+    _, slowest = time_resident_solve(card, peak_int32, "nqueens32", c,
+                                     *long["nqueens32"])
+    search_clock_breakdown(card, early, "12", "N-queens 32 early state")
+    search_clock_breakdown(card, slowest, "12",
+                           "N-queens 32 replay's slowest launch")
     return run
 
 
@@ -1630,6 +1767,8 @@ def phase_sparse_times(card, peak_int32, cases, states):
                                           "J120")
     time_search(card, peak_int32, states[("J120", "prove")], "16",
                 "J120, prove", plain_reps=1, plain_warmup=0)
+    search_clock_breakdown(card, states[("J120", "prove")], "16",
+                           "J120 early state")
     time_search(card, peak_int32, states[("nqueens256", "min_dom/split")],
                 "16", "N-queens 256, min_dom/split", plain_reps=1,
                 plain_warmup=0)

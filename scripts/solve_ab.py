@@ -14,9 +14,14 @@ launch (the root's ``[1, V]`` and every split's ``[2, V]``), its bound
 and the traced EPS wall (``chip_smoke.time_eps_launches`` of the
 repository this script is in); then it solves J60 and J120 through
 ``cuda_resident`` (1024 lanes, K = 16, preset ``prove``) and prints the
-time to the proven optimum, the EPS share and the counters.  The card's
-name and power limit come first.  Host-bound numbers (the EPS wall)
-vary from run to run, so give each root more than once, in turns.
+time to the proven optimum, the EPS share and the counters; then it
+solves N-queens 32 through ``cuda_resident`` (first-fail and bisection,
+as ``chip_smoke.py`` phase 10) to the proven optimum q0 = 0 in 338
+supersteps, and replays every launch of that solve and times it on the
+device (``chip_smoke.time_resident_solve``): the resident kernel's
+largest term.  The card's name and power limit come first.  Host-bound
+numbers (the EPS wall) vary from run to run, so give each root more
+than once, in turns.
 """
 
 import argparse
@@ -30,6 +35,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # resources, seed 0) and the instances solved to the optimum
 RCPSP = (("J60", 60, 1), ("J120", 120, 1), ("J120x1e7", 120, 10 ** 7))
 SOLVED = ("J60", "J120")
+# N-queens 32's resident solve: the supersteps every checkout must take
+# to prove q0 = 0 (chip_smoke.py phase 10 since the zoo was ported)
+NQ32_SUPERSTEPS = 338
 
 
 def run(root):
@@ -67,6 +75,19 @@ def run(root):
         print(f"{root} {tag}: cuda_resident {res.status} {res.objective} "
               f"in {res.wall_s:.3f} s (EPS {res.eps_s:.3f} s), nodes "
               f"{res.n_nodes}, supersteps {res.n_supersteps}", flush=True)
+    c = cases["nqueens32"]
+    cfg = CS.main_config("cuda_resident", CS.ZOO_STRATEGY["nqueens32"],
+                         max_supersteps=CS.ZOO_LONG_CAP)
+    res, _ = CS.solve_case(root, "nqueens32", c, cfg,
+                           CS.ZOO_OPTIMUM["nqueens32"])
+    if res.n_supersteps != NQ32_SUPERSTEPS:
+        CS.fail(f"{root} nqueens32: {res.n_supersteps} supersteps, not "
+                f"{NQ32_SUPERSTEPS}")
+    total, _ = CS.time_resident_solve(card, peak, "nqueens32", c, cfg, res,
+                                      phase=root)
+    print(f"{root} nqueens32: cuda_resident {res.status} {res.objective} "
+          f"in {res.n_supersteps} supersteps, nodes {res.n_nodes}; "
+          f"replayed launches {total:.2f} ms on the device", flush=True)
 
 
 def main():

@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles into
 shared libraries for ``sm_90a`` (Hopper), one per variant: the default
 (int32 models, one pool queue), ``i64`` (int64 models: the same code at
 ``-DFIXLANE_VAL=int64_t``), for ``search.cu`` ``tiles`` and ``tiles_i64``
-(the lane-tiled resident search, ``-DSEARCH_LANE_TILES=1``), and for
-``fixpoint.cu`` ``clocks`` and ``clocks_i64`` (a barrier and an SM-clock
-stamp after every phase of a sweep, ``-DFIXLANE_CLOCKS=1``: the per-phase
-breakdown of ``chip_smoke.py``, never launched by the port).
+(the lane-tiled resident search, ``-DSEARCH_LANE_TILES=1``), and
+``clocks`` and ``clocks_i64`` (a barrier and an SM-clock stamp after every
+phase of a sweep and, in ``search.cu``, of a superstep,
+``-DFIXLANE_CLOCKS=1``: the per-phase breakdowns of ``chip_smoke.py``,
+never launched by the port).
 A source may carry flags of its own (``SOURCE_FLAGS``), which the other
 sources' libraries do not see.  A variant is built at its first launch, so
 a run that never meets an int64 model or a lane tile never builds those.

@@ -32,9 +32,9 @@
 // profile is a difference array and a prefix sum (C1·(T+H) work); the
 // sparse banks sort (bitonic, the in-warp steps in registers) and scan
 // their own segment of events; the AllDifferent bank's dense layout
-// tests A·N² endpoint pairs, each a loop over the row's N members; the
-// Compact-Table models OR each member's supports from L2 and test every
-// value's support against the current table (bitwise operations).
+// tests A·N² endpoint pairs against per-member bitmasks (AND and popc);
+// the Compact-Table models OR each member's supports from L2 and test
+// every value's support against the current table (bitwise operations).
 // An int64 model runs the same code at 64 bits (the library built with
 // -DFIXLANE_VAL=int64_t): the stores, candidates and value tables double
 // in width, and the sparse banks sort 128-bit keys.
@@ -62,14 +62,22 @@ struct Params {
   const uint32_t* dom_in;     // [L, V, W] when p.t.carry_dom
   uint32_t* dom_out;          // [L, V, W] when p.t.carry_dom
   int max_sweeps;
+  fixlane::Smem<Val> layout;  // the instance's regions, carved at
+                              // fixlane::LAYOUT_BASE by the launch (read
+                              // by the many-lane instances)
 };
 
 // One CTA of NT threads per lane.
 template <int NT, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 __device__ __forceinline__ void fixpoint_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // the many-lane instances take the layout the launch carved (fewer
+  // registers through the sweep loop, no spills); the few-lane ones carve
+  // their own, as with a passed layout one of them spills
   const fixlane::Smem<Val> s =
-      fixlane::carve<Val, AD_SPARSE, CU_SPARSE, DOM>(p.t, smem);
+      NT == THREADS
+          ? fixlane::rebase(p.layout, smem)
+          : fixlane::carve<Val, AD_SPARSE, CU_SPARSE, DOM>(p.t, smem);
   const int V = p.t.V;
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
@@ -102,10 +110,27 @@ __device__ __forceinline__ void fixpoint_body(const Params& p) {
   }
 }
 
-// The many-lane instance: the launch bounds of a 256-thread CTA, so
-// ptxas may keep registers low enough for several CTAs per SM.
+// Co-resident CTAs per SM each many-lane instance is built for (its
+// minimum-blocks launch bound: ptxas keeps it within 65536 / (THREADS ·
+// n) registers): the CTAs per SM ptxas gave each instance before the
+// bound existed, so that no change to the shared body loses an instance
+// a CTA per SM.  PERF.md §6 lists each instance's registers.
 template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
-__global__ void __launch_bounds__(THREADS) fixpoint_kernel(Params p) {
+constexpr int min_ctas() {
+  if constexpr (DOM && !AD_SPARSE) return 2;
+  if constexpr (sizeof(Val) == 8) return AD_SPARSE && CU_SPARSE && !DOM ? 3 : 4;
+  if constexpr (AD_SPARSE && !CU_SPARSE && !DOM) return 6;
+  if constexpr ((!AD_SPARSE && CU_SPARSE) || (AD_SPARSE && CU_SPARSE && DOM))
+    return 4;
+  return 5;
+}
+
+// The many-lane instance: a 256-thread CTA with the registers of
+// min_ctas() CTAs per SM.
+template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+__global__ void __launch_bounds__(THREADS,
+                                  min_ctas<AD_SPARSE, CU_SPARSE, DOM>())
+    fixpoint_kernel(Params p) {
   fixpoint_body<THREADS, AD_SPARSE, CU_SPARSE, DOM>(p);
 }
 
@@ -132,7 +157,10 @@ int launch(const Params& p, int L, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<L, NT, smem, stream>>>(p);
+  Params q = p;
+  q.layout = fixlane::carve<Val, AD_SPARSE, CU_SPARSE, DOM>(
+      p.t, fixlane::layout_base());
+  kernel<<<L, NT, smem, stream>>>(q);
   return (int)cudaGetLastError();
 }
 
@@ -152,9 +180,47 @@ int launch_nt(const Params& p, int L, size_t smem, cudaStream_t st) {
                                 : launch_dom<NT, false>(p, L, smem, st);
 }
 
+// Co-resident CTAs per SM of one instance at `smem` bytes of dynamic
+// shared memory, or a negative cudaError_t.
+template <int NT, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+int occupancy(int smem) {
+  const auto kernel = kernel_of<NT, AD_SPARSE, CU_SPARSE, DOM>();
+  int per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                        smem);
+  return err == cudaSuccess ? per_sm : -(int)err;
+}
+
+template <int NT, bool DOM>
+int occupancy_dom(int ad_sparse, int cu_sparse, int smem) {
+  if (ad_sparse)
+    return cu_sparse ? occupancy<NT, true, true, DOM>(smem)
+                     : occupancy<NT, true, false, DOM>(smem);
+  return cu_sparse ? occupancy<NT, false, true, DOM>(smem)
+                   : occupancy<NT, false, false, DOM>(smem);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Co-resident CTAs per SM of the instance (threads, ad_sparse, cu_sparse,
+// dom) at `smem` bytes of dynamic shared memory, or a negative
+// cudaError_t (cudaErrorInvalidValue for another thread count).
+int fixpoint_occupancy(int threads, int ad_sparse, int cu_sparse, int dom,
+                       int smem) {
+  if (threads == THREADS)
+    return dom ? occupancy_dom<THREADS, true>(ad_sparse, cu_sparse, smem)
+               : occupancy_dom<THREADS, false>(ad_sparse, cu_sparse, smem);
+  if (threads == FEW_THREADS)
+    return dom ? occupancy_dom<FEW_THREADS, true>(ad_sparse, cu_sparse, smem)
+               : occupancy_dom<FEW_THREADS, false>(ad_sparse, cu_sparse,
+                                                   smem);
+  return -(int)cudaErrorInvalidValue;
+}
 
 // Launch on `stream` at `threads` per CTA (THREADS, the many-lane
 // instance, or FEW_THREADS, the few-lane one; the caller picks:
@@ -172,7 +238,7 @@ int fixpoint_launch(const void* const* tables, const int* dims,
                     void* stream) {
   Params p{fixlane::tables_from<Val>(tables, dims, dom_in != nullptr),
            lb_in, ub_in, lb_out, ub_out, sweeps, conv, dom_in, dom_out,
-           max_sweeps};
+           max_sweeps, {}};
   // shared-memory bytes of one CTA (kernels/fixpoint_kernel.py::
   // smem_budget uses the same formula)
   const size_t smem = fixlane::smem_bytes(p.t);

@@ -30,8 +30,9 @@
 //     the ends of each compulsory part to the [C1, H] difference array
 //     (shared-memory atomicAdd: integer sums commute); (2) a warp per
 //     Cumulative row prefix-sums the difference array into the profile
-//     and flags overload; threads over AllDifferent endpoint pairs (row,
-//     i, j) count the members inside [yl_i, yu_j] and push, threads over
+//     and flags overload; threads over AllDifferent members build their
+//     bitmasks, then threads over upper endpoints count the members
+//     inside each [yl_i, yu_j] by popc and push (below), threads over
 //     (row, task) find the first and last feasible start; (3) the join
 //     by lane groups: GJ lanes per variable (the largest power of two
 //     with GJ·V <= NT, at most 32) stride its occurrence lists and
@@ -50,19 +51,33 @@
 // cumulative task table is staged in shared memory, once per CTA.
 //
 // Dense AllDifferent (the reference's [L, A1, N, N, N] tensor is its
-// specification, not carried over): one thread per endpoint pair (i, j)
-// of a row tests I = [yl_i, yu_j] by a loop over the row's N members.
-// More members inside I than its width fails the row (a per-row flag);
-// exactly as many makes I a Hall interval, and each member outside I
-// with a bound inside it is pushed out with a shared-memory
-// atomicMax/atomicMin on the row's candidate pair.  Those commute, so
-// the pair equals the reference's max/min over (i, j).  Padded members
-// are staged as the empty interval yl = BIG > yu = -BIG: no pair starts
-// or ends at one, it is never inside (a real member of a store that is
-// swept has yl <= yu) and never pushed (real bounds stay inside the
-// box, far from ±BIG).  The join reads the pair
-// through ad_occ_inst/ad_occ_pos, with a failed row's lb candidates at
-// -NEU_LB, shifted back by the member's offset, as the reference.
+// specification, not carried over): every endpoint pair (i, j) of a row
+// tests I = [yl_i, yu_j] against the row's members as bitmasks.  Each
+// sweep first builds, per member, W = ceil(N / 32) words of four sets —
+// GEL_i = {k : yl_k >= yl_i} and GEU_i = {k : yu_k >= yl_i} by its lower
+// bound, LEU_j = {k : yu_k <= yu_j} and LEL_j = {k : yl_k <= yu_j} by its
+// upper bound — and NE = {k : yl_k <= yu_k} per row (`ad_dense_masks`, a
+// thread per member and word; 5·N²·W compares per row).  Then a thread
+// per upper endpoint j walks the lower endpoints i (`ad_dense_hall`): the
+// members inside I are GEL_i & LEU_j & NE, counted by popc (N²·W ANDs and
+// popcs per row, where a count per pair over the members took 4·N³).
+// More than the width of I fails the row (a per-row flag); exactly as
+// many makes I a Hall interval, and the members outside I with their
+// lower bound in it (GEL_i & LEL_j) or their upper bound in it (GEU_i &
+// LEU_j) are pushed out with a shared-memory atomicMax/atomicMin on the
+// row's candidate pair.  Those commute, so the pair equals the
+// reference's max/min over (i, j).  Spare threads (a CTA wider than the
+// rows' members) split each member's or endpoint's loop (`slices`).  The
+// few-lane instance at int64 keeps the form the bitmask pass replaced, a
+// thread per pair counting over the members (`ad_dense_pairs`): there the
+// bitmask pass does not fit its 64 registers a thread.
+// Padded members are staged as the empty interval yl = BIG > yu = -BIG:
+// no pair starts or ends at one, it is never inside (not in NE; a real
+// member of a store that is swept has yl <= yu) and never pushed (not in
+// LEL_j nor GEU_i: real bounds stay inside the box, far from ±BIG).  The
+// join reads the pair through ad_occ_inst/ad_occ_pos, with a failed
+// row's lb candidates at -NEU_LB, shifted back by the member's offset, as
+// the reference.
 //
 // The sparse layouts (packed/CSR rows: members or tasks of every row on
 // one axis of M slots with a segment id each, padding in segment A or C)
@@ -291,7 +306,9 @@ constexpr int SCAN_WORDS = 32;   // a block scan's per-warp sums
 // (kernels/build.py variant `clocks`), a barrier ends every phase and
 // thread 0 adds the SM clocks since the previous stamp to the phase's
 // slot of `clocks`, summed over CTAs and launches (fixpoint.cu
-// `fixpoint_clocks` reads and clears it).  The phases of one step run
+// `fixpoint_clocks` reads and clears it).  The last stamp is kept in
+// shared memory, so the stamps hold no register through the sweep (a
+// few-lane instance has 64 a thread).  The phases of one step run
 // concurrently in the other builds, which have no stamps.
 enum Phase {
   PH_LINEAR,      // (1a) ReifLinLe candidates
@@ -299,6 +316,7 @@ enum Phase {
   PH_CT_SUPP,     // (1d) Compact-Table supports
   PH_CU_EVENTS,   // (1c) Cumulative events or difference array
   PH_AD_SORT,     // (2a) sparse AllDifferent sort
+  PH_AD_MASKS,    // (2a) dense AllDifferent member bitmasks
   PH_AD_HALL,     // (2a) AllDifferent Hall intervals and pushes
   PH_CT_CUR,      // (2c) Compact-Table current tables
   PH_CU_SORT,     // (2b) sparse Cumulative event sort
@@ -424,8 +442,9 @@ __host__ __device__ inline size_t region(size_t n) {
 // without AllDifferent rows gets no AllDifferent part.  V = value width,
 // K = key width (8 at int32, 16 at int64), I = an int32 region, each
 // region rounded up to V bytes:
-//   AllDifferent, dense:  yl, yu, candidate pair [A1, N] (V) and a fail
-//     flag per row (I);
+//   AllDifferent, dense:  yl, yu, candidate pair [A1, N] (V), a fail
+//     flag per row (I) and the member bitmasks of the Hall pass (I,
+//     `ad_mask_words`);
 //   AllDifferent, sparse: sort keys (K) and member indices (I) over
 //     ad_sort_n, then syl, syu, min_inf, max_sup and the candidate pair
 //     over Mad (V), and a fail flag per row (I);
@@ -436,6 +455,14 @@ __host__ __device__ inline size_t region(size_t n) {
 //     over cu_sort_n; the task table: start vars (I), durations and
 //     demands (V), segments (I); the candidate pair over Mcu (V);
 //     capacity (V) and overload (I) per row; the scan's warp sums (V).
+// Words of the dense AllDifferent bank's member bitmasks: four sets per
+// member of each of the A1 rows of N members (GEL, GEU by the member's
+// lower bound, LEU, LEL by its upper bound) and NE per row, each set W =
+// ceil(N / 32) words (`ad_dense_masks`).
+__host__ __device__ inline size_t ad_mask_words(int A1, int N) {
+  return (size_t)(4 * N + 1) * A1 * ((N + 31) / 32);
+}
+
 template <typename Val>
 __host__ __device__ inline size_t alldiff_bytes(const Tables<Val>& p) {
   using Key = typename SortKey<Val>::T;
@@ -446,7 +473,8 @@ __host__ __device__ inline size_t alldiff_bytes(const Tables<Val>& p) {
            6 * region<Val, Val>(p.Mad) + region<Val, int32_t>(p.A1);
   }
   return 4 * region<Val, Val>((size_t)p.A1 * p.N) +
-         region<Val, int32_t>(p.A1);
+         region<Val, int32_t>(p.A1) +
+         region<Val, uint32_t>(ad_mask_words(p.A1, p.N));
 }
 
 template <typename Val>
@@ -533,7 +561,8 @@ struct Smem {
   Val* msup;        // sparse only
   Val* alb;
   Val* aub;
-  int32_t* afail;   // [A1] pigeonhole failure per row
+  int32_t* afail;   // [A1] pigeonhole failure per row (dense: the member
+                    // bitmasks follow, `ad_masks`)
   Key* akey;        // sparse only
   int32_t* aval;    // sparse only
   // Compact-Table and the bitset store (DOM instances only)
@@ -555,7 +584,7 @@ template <typename Val>
 struct Carver {
   unsigned char* at;
   template <typename T>
-  __device__ __forceinline__ T* take(size_t n) {
+  __host__ __device__ __forceinline__ T* take(size_t n) {
     T* r = (T*)at;
     at += region<Val, T>(n);
     return r;
@@ -568,10 +597,13 @@ struct Carver {
 // bitset regions last.  The total is smem_bytes'.  The layouts and DOM
 // are template parameters (equal to p.ad_sparse, p.cu_sparse,
 // uses_dom(p)), so each kernel instance computes its own layout's
-// addresses only.
+// addresses only.  fixpoint.cu's launch carves on the host at
+// LAYOUT_BASE and its many-lane kernels move the layout to their shared
+// memory (`rebase`); its few-lane kernels and search.cu carve in the
+// kernel.
 template <typename Val, bool AD_SPARSE, bool CU_SPARSE, bool DOM>
-__device__ __forceinline__ Smem<Val> carve(const Tables<Val>& p,
-                                           unsigned char* base) {
+__host__ __device__ __forceinline__ Smem<Val> carve(const Tables<Val>& p,
+                                                    unsigned char* base) {
   using Key = typename SortKey<Val>::T;
   const int V = p.V, K1 = p.K + 1, C1 = p.C1;
   Smem<Val> s = {};
@@ -623,6 +655,7 @@ __device__ __forceinline__ Smem<Val> carve(const Tables<Val>& p,
     s.alb = c.template take<Val>(AN);
     s.aub = c.template take<Val>(AN);
     s.afail = c.template take<int32_t>(p.A1);
+    c.template take<uint32_t>(ad_mask_words(p.A1, p.N));   // `ad_masks`
   }
   if (DOM) {
     s.W = p.W;
@@ -636,6 +669,62 @@ __device__ __forceinline__ Smem<Val> carve(const Tables<Val>& p,
     }
     if (p.carry_dom) s.domst = c.template take<uint32_t>(2 * V * p.W);
   }
+  return s;
+}
+
+// The base the launches carve a layout at (a kernel parameter; no region
+// lies at address 0, so the offsets need no null pointer).
+constexpr uintptr_t LAYOUT_BASE = 4096;
+
+__host__ inline unsigned char* layout_base() {
+  return reinterpret_cast<unsigned char*>(LAYOUT_BASE);
+}
+
+// A layout carved at LAYOUT_BASE moved to `base`, a CTA's shared memory:
+// each region's address is one add of a kernel parameter to `base`,
+// where the kernel would otherwise carve sums of region sizes, which
+// ptxas keeps in registers through the sweep loop (fixpoint.cu's
+// many-lane instances need fewer registers so, and none spills: PERF.md
+// §6).
+// Regions a layout does not use come out as unused garbage, as their
+// null pointers before.
+template <typename Val>
+__device__ __forceinline__ Smem<Val> rebase(Smem<Val> s, unsigned char* base) {
+#define FIXLANE_REBASE(f) \
+  s.f = (decltype(s.f))(base + ((uintptr_t)s.f - LAYOUT_BASE))
+  FIXLANE_REBASE(store);
+  FIXLANE_REBASE(clb);
+  FIXLANE_REBASE(cub);
+  FIXLANE_REBASE(prof);
+  FIXLANE_REBASE(ulb);
+  FIXLANE_REBASE(uub);
+  FIXLANE_REBASE(t_svar);
+  FIXLANE_REBASE(t_dur);
+  FIXLANE_REBASE(t_dem);
+  FIXLANE_REBASE(t_seg);
+  FIXLANE_REBASE(t_cap);
+  FIXLANE_REBASE(ovl);
+  FIXLANE_REBASE(ckey);
+  FIXLANE_REBASE(cval);
+  FIXLANE_REBASE(wsum);
+  FIXLANE_REBASE(yl);
+  FIXLANE_REBASE(yu);
+  FIXLANE_REBASE(syl);
+  FIXLANE_REBASE(syu);
+  FIXLANE_REBASE(minf);
+  FIXLANE_REBASE(msup);
+  FIXLANE_REBASE(alb);
+  FIXLANE_REBASE(aub);
+  FIXLANE_REBASE(afail);
+  FIXLANE_REBASE(akey);
+  FIXLANE_REBASE(aval);
+  FIXLANE_REBASE(domst);
+  FIXLANE_REBASE(ctor);
+  FIXLANE_REBASE(ctcur);
+  FIXLANE_REBASE(ctlb);
+  FIXLANE_REBASE(ctub);
+  FIXLANE_REBASE(ctdom);
+#undef FIXLANE_REBASE
   return s;
 }
 
@@ -1060,6 +1149,176 @@ __device__ void ad_sparse_hall(const Tables<Val>& p, const Smem<Val>& s,
   }
 }
 
+// ---- the dense AllDifferent bank ------------------------------------------
+
+// The dense bank's member bitmasks, the region after the fail flags (an
+// address computed where a phase needs it, not one more kept through the
+// sweep).
+template <typename Val>
+__device__ __forceinline__ uint32_t* ad_masks(const Tables<Val>& p,
+                                              const Smem<Val>& s) {
+  return (uint32_t*)((unsigned char*)s.afail + region<Val, int32_t>(p.A1));
+}
+
+// Threads that share one item of `items` (a member, or an upper endpoint)
+// when the CTA has more threads than items: each takes every S-th step of
+// the item's loop.  At most `steps`, and 1 when the items fill the CTA.
+template <int NT>
+__device__ __forceinline__ int slices(int items, int steps) {
+  return items >= NT ? 1 : min(steps, NT / max(items, 1));
+}
+
+// Step (2), first: the member bitmasks of each row a of N members, W =
+// ceil(N / 32) words per set, bit k of word w for member 32·w + k:
+//   GEL_i = {k : yl_k >= yl_i},  GEU_i = {k : yu_k >= yl_i}  (by i's lower
+//   bound), LEU_i = {k : yu_k <= yu_i},  LEL_i = {k : yl_k <= yu_i}  (by
+//   i's upper bound), and NE = {k : yl_k <= yu_k}.
+// One thread per (member i, word w) walks the word's members k (loads the
+// threads of a warp share), S threads per word when the CTA has threads
+// to spare, each OR-ing its bits (atomicOr; the words were cleared in
+// step (1b)).  Bits past N stay clear.  The caller synchronises after it.
+template <int NT, typename Val>
+__device__ void ad_dense_masks(const Tables<Val>& p, const Smem<Val>& s) {
+  const int N = p.N, W = (N + 31) >> 5, AN = p.n_alldiff * N;
+  const size_t set = (size_t)p.A1 * N * W;
+#ifdef FIXLANE_CLOCKS    // the few-lane stamped build: one thread per word
+  const int S = NT == FEW_THREADS ? 1 : slices<NT>(AN * W, min(N, 32));
+#else                    // (with slices it spills; PERF.md §6)
+  const int S = slices<NT>(AN * W, min(N, 32));
+#endif
+  for (int x = threadIdx.x; x < AN * W * S; x += NT) {
+    const int sl = x / (AN * W), iw = x - sl * AN * W;
+    const int w = iw / AN, ai = iw - w * AN, i = ai % N, a0 = ai - i;
+    const Val li = s.yl[ai], ui = s.yu[ai];
+    const int k0 = 32 * w, k1 = min(N, k0 + 32);
+    uint32_t gel = 0, geu = 0, leu = 0, lel = 0, ne = 0;
+    for (int k = k0 + sl; k < k1; k += S) {
+      const Val lk = s.yl[a0 + k], uk = s.yu[a0 + k];
+      const uint32_t bit = 1u << (k - k0);
+      gel |= lk >= li ? bit : 0u;
+      geu |= uk >= li ? bit : 0u;
+      leu |= uk <= ui ? bit : 0u;
+      lel |= lk <= ui ? bit : 0u;
+      ne |= lk <= uk ? bit : 0u;
+    }
+    uint32_t* m = ad_masks<Val>(p, s) + (size_t)ai * W + w;
+    uint32_t* mne = ad_masks<Val>(p, s) + 4 * set + (size_t)(a0 / N) * W + w;
+    if (S == 1) {
+      m[0] = gel;
+      m[set] = geu;
+      m[2 * set] = leu;
+      m[3 * set] = lel;
+      if (i == 0) *mne = ne;
+    } else {
+      atomicOr(m, gel);
+      atomicOr(m + set, geu);
+      atomicOr(m + 2 * set, leu);
+      atomicOr(m + 3 * set, lel);
+      if (i == 0) atomicOr(mne, ne);
+    }
+  }
+}
+
+// Step (2) for the few-lane instance at int64, whose 64 registers a
+// thread do not hold the bitmask pass (it spills): one thread per
+// endpoint pair (row, i, j) counts the members inside [yl_i, yu_j] by a
+// loop over the row and pushes, the same counts and candidates as the
+// bitmask pass.
+template <int NT, typename Val>
+__device__ void ad_dense_pairs(const Tables<Val>& p, const Smem<Val>& s) {
+  const int N = p.N, NN = N * N;
+  for (int q = threadIdx.x; q < p.n_alldiff * NN; q += NT) {
+    const int a = q / NN, i = (q - a * NN) / N, j = q - a * NN - i * N;
+    const Val* ylr = s.yl + a * N;
+    const Val* yur = s.yu + a * N;
+    const Val lo = ylr[i], hi = yur[j];
+    if (lo > hi) continue;              // empty interval or padding
+    Val cnt = 0;
+    for (int k = 0; k < N; ++k) {
+      const Val kl = ylr[k], ku = yur[k];
+      cnt += (kl >= lo) & (ku <= hi) & (kl <= ku);
+    }
+    const Val width = hi - lo + 1;
+    if (cnt > width) {
+      s.afail[a] = 1;                   // benign race: all write 1
+    } else if (cnt == width) {          // Hall interval: push the others
+      for (int k = 0; k < N; ++k) {
+        const Val kl = ylr[k], ku = yur[k];
+        if (kl >= lo && ku <= hi && kl <= ku) continue;   // inside I
+        if (kl >= lo && kl <= hi) atomic_max(s.alb + a * N + k, hi + 1);
+        if (ku >= lo && ku <= hi) atomic_min(s.aub + a * N + k, lo - 1);
+      }
+    }
+  }
+}
+
+// Push member k of row a0 / N out of the Hall interval [lo, hi]: the set
+// bits of `lbm` have their lower bound in it, those of `ubm` their upper.
+template <typename Val>
+__device__ __forceinline__ void ad_push(const Smem<Val>& s, int base,
+                                        uint32_t lbm, uint32_t ubm, Val lo,
+                                        Val hi) {
+  for (; lbm; lbm &= lbm - 1)
+    atomic_max(s.alb + base + __ffs(lbm) - 1, hi + 1);
+  for (; ubm; ubm &= ubm - 1)
+    atomic_min(s.aub + base + __ffs(ubm) - 1, lo - 1);
+}
+
+// Step (2): every endpoint pair (row, i, j) with yl_i <= yu_j, one thread
+// per upper endpoint j walking the lower endpoints i (S threads per j when
+// the CTA has threads to spare): the members inside I = [yl_i, yu_j] are
+// GEL_i & LEU_j & NE (the loop's yl_k >= yl_i, yu_k <= yu_j, yl_k <=
+// yu_k), counted by popc.  More than the width fails the row; exactly as
+// many makes I a Hall interval, and every member outside it with its
+// lower bound in I (GEL_i & LEL_j) is pushed to yu_j + 1, with its upper
+// bound in I (GEU_i & LEU_j) to yl_i - 1, by shared-memory atomicMax /
+// atomicMin, which commute.  Rows of one word keep j's words in registers.
+template <int NT, typename Val>
+__device__ void ad_dense_hall(const Tables<Val>& p, const Smem<Val>& s) {
+  const int N = p.N, W = (N + 31) >> 5, AN = p.n_alldiff * N;
+  const size_t set = (size_t)p.A1 * N * W;
+  const int S = slices<NT>(AN, N);
+  for (int x = threadIdx.x; x < AN * S; x += NT) {
+    const int sl = x / AN, aj = x - sl * AN, a = aj / N, a0 = a * N;
+    const Val hi = s.yu[aj];
+    const uint32_t* gel = ad_masks<Val>(p, s) + (size_t)a0 * W;
+    const uint32_t* geu = gel + set;
+    const uint32_t* leu = ad_masks<Val>(p, s) + 2 * set + (size_t)aj * W;
+    const uint32_t* lel = leu + set;
+    const uint32_t* ne = ad_masks<Val>(p, s) + 4 * set + (size_t)a * W;
+    if (W == 1) {
+      const uint32_t lu = leu[0], ll = lel[0], nn = ne[0];
+      for (int i = sl; i < N; i += S) {
+        const Val lo = s.yl[a0 + i];
+        if (lo > hi) continue;          // empty interval or padding
+        const uint32_t in = gel[i] & lu & nn;
+        const Val cnt = __popc(in), width = hi - lo + 1;
+        if (cnt > width) s.afail[a] = 1;          // benign race
+        else if (cnt == width)          // Hall interval: push the others
+          ad_push<Val>(s, a0, gel[i] & ll & ~in, geu[i] & lu & ~in, lo, hi);
+      }
+      continue;
+    }
+    for (int i = sl; i < N; i += S) {
+      const Val lo = s.yl[a0 + i];
+      if (lo > hi) continue;
+      Val cnt = 0;
+      for (int w = 0; w < W; ++w)
+        cnt += __popc(gel[i * W + w] & leu[w] & ne[w]);
+      const Val width = hi - lo + 1;
+      if (cnt > width) {
+        s.afail[a] = 1;
+      } else if (cnt == width) {
+        for (int w = 0; w < W; ++w) {
+          const uint32_t in = gel[i * W + w] & leu[w] & ne[w];
+          ad_push<Val>(s, a0 + 32 * w, gel[i * W + w] & lel[w] & ~in,
+                       geu[i * W + w] & leu[w] & ~in, lo, hi);
+        }
+      }
+    }
+  }
+}
+
 // Is time point tau forbidden for task (c, t)?  The profile without the
 // task's own compulsory part, plus its demand, exceeds the capacity.
 template <typename Val>
@@ -1217,6 +1476,11 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
   // SM instead of three; PERF.md), and their models (tables,
   // middle_out) seldom carry Cumulative rows
   constexpr bool PROFILE_LOOP = NT == THREADS && DOM;
+  // The few-lane instance keeps the dense AllDifferent bank's
+  // endpoint-pair loop at int64: there the bitmask pass needs more than
+  // its 64 registers a thread, while at int32 it is the pair loop that
+  // spills (PERF.md §6)
+  constexpr bool PAIR_LOOP = NT == FEW_THREADS && sizeof(Val) == 8;
 
   __syncthreads();
   int my_failed = 0;
@@ -1227,7 +1491,8 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
   int it = 0;
   int cur = 0;
 #ifdef FIXLANE_CLOCKS
-  long long stamp_ = clock64();
+  __shared__ long long stamp_;
+  if (tid == 0) stamp_ = clock64();
 #endif
 
   while (changed && it < max_sweeps && !failed) {
@@ -1310,6 +1575,9 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
         s.aub[i] = NEU_UB;
       }
       for (int a = tid; a < p.A1; a += nth) s.afail[a] = 0;
+      if (!PAIR_LOOP)                   // step (2)'s words, OR-ed in
+        for (int i = tid; i < (int)ad_mask_words(p.A1, N); i += nth)
+          ad_masks<Val>(p, s)[i] = 0;
     }
     FIXLANE_STAMP(PH_AD_STAGE);
 
@@ -1355,36 +1623,18 @@ __device__ LaneResult fixpoint_lane(const Tables<Val>& p, const Smem<Val>& s,
     __syncthreads();
     FIXLANE_STAMP(PH_CU_EVENTS);
 
-    // -- (2a) AllDifferent Hall intervals, one thread per (row, i, j) -------
+    // -- (2a) AllDifferent Hall intervals: the sparse sort and suffix
+    // counts, or the dense member bitmasks and one thread per (row, i, j)
     if (ad_sparse) block_sort<NT>(s.akey, s.aval, ad_sort_n(p));
     FIXLANE_STAMP(PH_AD_SORT);
-    if (ad_sparse) ad_sparse_hall<NT, Val>(p, s, ub);
-    if (ad_dense) {
-      const int NN = N * N;
-      for (int q = tid; q < A * NN; q += nth) {
-        const int a = q / NN, i = (q - a * NN) / N, j = q - a * NN - i * N;
-        const Val* ylr = s.yl + a * N;
-        const Val* yur = s.yu + a * N;
-        const Val lo = ylr[i], hi = yur[j];
-        if (lo > hi) continue;            // empty interval or padding
-        Val cnt = 0;
-        for (int k = 0; k < N; ++k) {
-          const Val kl = ylr[k], ku = yur[k];
-          cnt += (kl >= lo) & (ku <= hi) & (kl <= ku);
-        }
-        const Val width = hi - lo + 1;
-        if (cnt > width) {
-          s.afail[a] = 1;                 // benign race: all write 1
-        } else if (cnt == width) {        // Hall interval: push the others
-          for (int k = 0; k < N; ++k) {
-            const Val kl = ylr[k], ku = yur[k];
-            if (kl >= lo && ku <= hi && kl <= ku) continue;   // inside I
-            if (kl >= lo && kl <= hi) atomic_max(s.alb + a * N + k, hi + 1);
-            if (ku >= lo && ku <= hi) atomic_min(s.aub + a * N + k, lo - 1);
-          }
-        }
-      }
+    if (ad_dense && !PAIR_LOOP) {
+      ad_dense_masks<NT, Val>(p, s);
+      __syncthreads();
     }
+    FIXLANE_STAMP(PH_AD_MASKS);
+    if (ad_sparse) ad_sparse_hall<NT, Val>(p, s, ub);
+    if (ad_dense && !PAIR_LOOP) ad_dense_hall<NT, Val>(p, s);
+    if (ad_dense && PAIR_LOOP) ad_dense_pairs<NT, Val>(p, s);
     FIXLANE_STAMP(PH_AD_HALL);
 
     // -- (2c) Compact-Table: current tables --------------------------------

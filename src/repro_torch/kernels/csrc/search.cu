@@ -43,16 +43,28 @@
 // done flag is over all lanes), so the launch is cooperative
 // (cudaLaunchCooperativeKernel) and the grid, min(L, co-resident CTAs),
 // meets at two grid.sync() per superstep:
-//   1. each CTA writes the `want` flags of its lanes l = blockIdx.x +
+//   1. each CTA writes the `want` flags of lanes l = blockIdx.x +
 //      k·gridDim.x; grid.sync();
 //   2. every CTA scans all L flags itself (a block scan; L is a few
-//      thousand at most), so each knows its lanes' ranks and the new pool
-//      head without a second barrier; then it runs its lanes one after the
-//      other: load, `fixlane::fixpoint_lane` (fixpoint_lane.cuh, the body
-//      of fixpoint.cu) and commit, with the store in shared memory;
-//      it folds its lanes' best objective into a global cell with
-//      atomicMin and their done/solution flags into per-parity cells;
-//      grid.sync(); every CTA reads the new bound and done flag.
+//      thousand at most) and knows the new pool head without a second
+//      barrier; then the CTAs claim lanes one at a time from a per-parity
+//      atomic counter (cleared one superstep ahead, as the flag cells)
+//      until none is left, and run each: the claiming CTA computes the
+//      lane's rank from its own copy of the scan (dispatch folds into the
+//      claim, so no CTA reads another's next_sub), then load,
+//      `fixlane::fixpoint_lane` (fixpoint_lane.cuh, the body of
+//      fixpoint.cu) and commit, with the store in shared memory; it folds
+//      its lanes' best objective into a global cell with atomicMin and
+//      their done/solution flags into per-parity cells; grid.sync(); every
+//      CTA reads the new bound and done flag.
+// Claiming, not a fixed lane-to-CTA map, because a lane's sweeps per
+// superstep vary (1 to 64 on N-queens 32 mid-solve): a CTA whose lanes
+// converge early takes more, and the superstep ends when the work runs
+// out rather than when the CTA with the most sweeps does.  Which CTA runs
+// which lane changes nothing: a lane's work reads only its own state, the
+// pool and the previous superstep's bound, and every cross-lane fold (OR
+// of flags, min of the bound) commutes; the state a lane's CTA writes is
+// read by any CTA only after the next grid.sync.
 // The LaneState stays in device memory (the decision paths are [L, MD]);
 // only the lane's current store, the fixpoint scratch and a few scalars
 // live in shared memory.  Cross-CTA values are read with __ldcg (L2), and
@@ -81,13 +93,17 @@
 // Bound: per superstep the work is the lanes' fixpoint sweeps (integer ALU
 // and shared-memory traffic, as fixpoint.cu) plus a commit of O(V + B +
 // depth) per lane; the LaneState is read and written once per launch.
-// So integer operations bound it, and a CTA that owns several lanes runs
-// them in sequence.  On N-queens 32 the AllDifferent bank's endpoint
-// pairs take most of each sweep; on J120 and N-queens 256 the sparse
-// banks' sorts and scans.  The kernel is instantiated per layout pair of
-// the AllDifferent and Cumulative banks (dense or sparse), picked at
-// launch.  PERF.md has the times.  The kernel allocates nothing and
-// launches on the caller's stream.
+// So integer operations bound it, and a CTA runs the lanes it claims in
+// sequence.  A superstep lasts at least as long as its longest lane's
+// sweeps: on N-queens 32 mid-solve one lane runs 36 to 64 sweeps while
+// the mean is 2 to 6 (PERF.md, the `clocks` breakdown), so the time there
+// goes into the sweep itself, whose dense AllDifferent pass works on
+// member bitmasks (fixpoint_lane.cuh); on J120 and N-queens 256 the
+// sparse banks' sorts and scans take most of it.  The kernel is
+// instantiated per layout pair of the AllDifferent and Cumulative banks
+// (dense or sparse) and bitset code, picked at launch.  PERF.md has the
+// times.  The kernel allocates nothing and launches on the caller's
+// stream.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -122,12 +138,20 @@ enum { CELL_GBEST = 0, CELL_NOTDONE = 1, CELL_SOL = 3, N_CELLS = 5 };
 enum { TC_GBEST, TC_HEAD, TC_IT, TC_NOTDONE, TC_SOL, TC_N };
 // outputs, [4][NT] (NT = 1 for one queue)
 enum { OUT_GBEST = 0, OUT_IT = 1, OUT_HEAD = 2, OUT_STOP = 3 };
-// per-lane scalars shared by the CTA's threads; SC_TELL holds a Val (two
-// words at int64, at an even index so it is 8-byte aligned)
+// Scalars shared by the CTA's threads, in shared memory so that no
+// register holds them across a lane's fixpoint: the claimed lane's, then
+// the CTA's superstep state (the superstep of the launch, the lane tiles'
+// cell parity, ...); from SC_VALS, the Val slots (two words each at
+// int64, from an even index, so 8-byte aligned).
 enum {
   SC_LOAD, SC_SUB, SC_FRESH, SC_ACTIVE, SC_DEPTH, SC_BTL, SC_POS, SC_ANY,
-  SC_BETTER, SC_TELL = 10, N_SCALARS = 16
+  SC_BETTER, SC_LANE,
+  SC_K, SC_CUR, SC_HEAD, SC_HEAD0, SC_TOTAL, SC_IT, SC_BLK_ND, SC_BLK_SOL,
+  SC_VALS = 18, N_SCALARS = 32
 };
+// the Val slots: the lane's B&B tell, the running bound (one queue), the
+// CTA's least best objective of the superstep
+enum { SV_TELL, SV_GBEST, SV_BLK_BEST };
 
 __device__ __forceinline__ void flag_or(int32_t* a) { atomicOr(a, 1); }
 __device__ __forceinline__ void flag_or(int64_t* a) {
@@ -158,16 +182,63 @@ struct Params {
   const Val* subs_ub;           // [S, V]
   const Val* gbest_in;          // [1]
   const int32_t* head_in;       // [NT]
-  int32_t* want;                // [L] scratch
+  int32_t* want;                // [L + 2] scratch: flags, claim counters
   Val* cells;                   // [N_CELLS], lane tiles [TC_N][2][NT]
   Val* out;                     // [4][NT]
   int L, B, S, MD, obj_var, supersteps, cap, var_strategy, val_strategy,
       stop_on_first, it_in, tile, NT;
 };
 
-// Words of shared memory past the fixpoint's: the scan's per-thread
-// prefixes, its per-warp sums and the lane scalars.
+// Words of shared memory before the fixpoint's: the scan's per-thread
+// prefixes, its per-warp sums and the scalars (fixed offsets).
 constexpr int EXTRA_WORDS = THREADS + fixlane::SCAN_WORDS + N_SCALARS;
+
+// ---- the per-superstep clock breakdown (the `clocks` library only) ------
+//
+// Built with -DFIXLANE_CLOCKS (kernels/build.py variant `clocks`), a
+// barrier ends every phase of a superstep and thread 0 adds the SM clocks
+// since the previous stamp to the phase's slot of `search_clk`, summed
+// over CTAs (the lane's fixpoint also stamps its own phases into
+// fixlane::clocks).  Per superstep k of the launch (k < CLOCK_STEPS),
+// `search_steps[k]` gathers over CTAs the busy clocks (every phase but the
+// two grid-barrier waits: sum and max) and the largest sum of lane sweeps
+// of one CTA, and over lanes the sweeps (sum and max) and the lane count.
+// `search_clocks` reads and clears them all.
+enum SPhase {
+  SP_DISPATCH,    // want flags (lane tiles: the next parity's cells)
+  SP_SYNC_WANT,   // the wait at the first grid.sync
+  SP_RANKS,       // the scan, the lanes' pool indices and the cursor
+  SP_LOAD,        // the lane's store (and words) into shared memory
+  SP_FIXPOINT,    // the lane's fixpoint (its sweeps' own stamps inside)
+  SP_COMMIT,      // record, backtrack or branch, the store back
+  SP_SYNC_BOUND,  // the flag folds and the wait at the second grid.sync
+  N_SPHASES
+};
+enum {
+  ST_BUSY_SUM, ST_BUSY_MAX, ST_CTA_SWEEPS_MAX, ST_SWEEPS_SUM,
+  ST_SWEEPS_MAX, ST_LANES, N_STEP_STATS
+};
+constexpr int CLOCK_STEPS = 64;
+
+#ifdef FIXLANE_CLOCKS
+__device__ unsigned long long search_clk[N_SPHASES];
+__device__ unsigned long long search_steps[CLOCK_STEPS][N_STEP_STATS];
+#define SEARCH_STAMP(ph)                                                  \
+  do {                                                                    \
+    __syncthreads();                                                      \
+    if (threadIdx.x == 0) {                                               \
+      const long long now_ = clock64();                                   \
+      atomicAdd(&search_clk[ph], (unsigned long long)(now_ - sstamp_));   \
+      if ((ph) != SP_SYNC_WANT && (ph) != SP_SYNC_BOUND)                  \
+        busy_ += now_ - sstamp_;                                          \
+      sstamp_ = now_;                                                     \
+    }                                                                     \
+  } while (0)
+#else
+#define SEARCH_STAMP(ph) \
+  do {                   \
+  } while (0)
+#endif
 
 // Lane tiles: cell (kind, parity, tile).
 __device__ __forceinline__ Val* tcell(const Params& p, int kind, int par,
@@ -189,19 +260,43 @@ __device__ __forceinline__ int any_tile_live(const Params& p, int par) {
   return __syncthreads_or(live);
 }
 
+// Co-resident CTAs per SM each instance is built for (its minimum-blocks
+// launch bound: ptxas keeps it within 65536 / (THREADS · n) registers):
+// the CTAs per SM ptxas gave each instance before the bound existed, so
+// that no body change loses an instance a CTA per SM (a lost CTA costs
+// more than the change saves).  Without the bound ptxas picks an
+// occupancy per instance itself, differently with every change to the
+// shared body.  PERF.md §6 lists each instance's registers and spills.
 template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
-__global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
+constexpr int min_ctas() {
+  if constexpr (sizeof(Val) == 8) {
+    if (AD_SPARSE && CU_SPARSE && !DOM) return 3;
+    if (TILED ? AD_SPARSE && !CU_SPARSE && DOM
+              : !AD_SPARSE && CU_SPARSE && DOM)
+      return 3;
+    return 2;
+  }
+  return CU_SPARSE && !AD_SPARSE ? 2 : 3;
+}
+
+template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
+__global__ void __launch_bounds__(THREADS,
+                                  min_ctas<AD_SPARSE, CU_SPARSE, DOM>())
+    search_kernel(Params p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   const fixlane::Tables<Val>& t = p.t;
-  const fixlane::Smem<Val> s =
-      fixlane::carve<Val, AD_SPARSE, CU_SPARSE, DOM>(t, smem);
+  int32_t* const scan = (int32_t*)smem;
+  int32_t* const wsum = scan + THREADS;
+  int32_t* const sc = wsum + fixlane::SCAN_WORDS;
+  Val* const sv = (Val*)(sc + SC_VALS);
+  // carved here, not passed as fixpoint.cu's layout is: in this kernel
+  // ptxas spills more of the lane-tiled and int64 instances with a
+  // passed layout (PERF.md §6)
+  const fixlane::Smem<Val> s = fixlane::carve<Val, AD_SPARSE, CU_SPARSE, DOM>(
+      t, smem + sizeof(int32_t) * EXTRA_WORDS);
   const bool carry = DOM && t.carry_dom;
   const bool middle_out = DOM && p.val_strategy == VAL_MIDDLE_OUT;
-  int32_t* scan = (int32_t*)(smem + fixlane::smem_bytes(t));
-  int32_t* wsum = scan + THREADS;
-  int32_t* sc = wsum + 32;
-  Val* sc_tell = (Val*)(sc + SC_TELL);
   const State& st = p.st;
   const int tid = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int L = p.L, V = t.V, S = p.S, MD = p.MD;
@@ -209,9 +304,7 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
   fixlane::stage_tables<THREADS, Val, CU_SPARSE>(t, s);
 
   bool gdone;
-  Val gbest = 0;
-  int32_t head = 0;
-  int it = 0, cur = 0;
+  if (tid == 0) sc[SC_K] = sc[SC_CUR] = 0;
   if constexpr (TILED) {
     // Each owner CTA seeds its tiles' parity-0 cells from the incoming
     // state (nothing writes the state before the first grid.sync).
@@ -232,6 +325,7 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         *tcell(p, TC_SOL, 0, tt) = sol0;
       }
     }
+    if (b == 0 && tid == 0) p.want[L] = 0;   // the first superstep's claims
     grid.sync();
     gdone = !any_tile_live(p, 0);
   } else {
@@ -245,18 +339,26 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
     const int nd0 = __syncthreads_or(my_nd);
     const int sol0 = __syncthreads_or(my_sol);
     gdone = !nd0 || (p.stop_on_first && sol0);
-    gbest = *p.gbest_in;
-    head = *p.head_in;
-    it = p.it_in;
+    if (tid == 0) {
+      sv[SV_GBEST] = *p.gbest_in;
+      sc[SC_HEAD] = *p.head_in;
+      sc[SC_IT] = p.it_in;
+    }
     if (b == 0 && tid == 0) {
-      p.cells[CELL_GBEST] = gbest;
+      p.cells[CELL_GBEST] = *p.gbest_in;
       for (int i = CELL_NOTDONE; i < N_CELLS; ++i) p.cells[i] = 0;
+      p.want[L] = 0;                   // the first superstep's claims
     }
     grid.sync();
   }
+#ifdef FIXLANE_CLOCKS
+  long long sstamp_ = clock64(), busy_ = 0, cta_sweeps_ = 0;
+#endif
 
-  for (int k = 0; k < p.supersteps && !gdone; ++k) {
-    const int par = k & 1, nxt = cur ^ 1;
+  // the superstep k = sc[SC_K], its parity and (lane tiles) the cells'
+  // parity cur = sc[SC_CUR] are read again after every lane's fixpoint
+  while (!gdone && sc[SC_K] < p.supersteps) {
+    const int par = sc[SC_K] & 1, cur = sc[SC_CUR], nxt = cur ^ 1;
 
     // -- dispatch_pool_tile: want flags, then ranks in lane order --------
     for (int j = tid; b + j * G < L; j += THREADS) {
@@ -265,6 +367,7 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
       if constexpr (TILED) live = tile_live(p, cur, l / p.tile);
       p.want[l] = live && st.fresh[l] && !st.done[l] && st.next_sub[l] >= S;
     }
+    if (b == 0 && tid == 0) p.want[L + (par ^ 1)] = 0;   // k+1's claims
     if constexpr (TILED) {
       // seed the next parity: the bound carries over, the flags clear
       for (int tt = b + tid * G; tt < p.NT; tt += THREADS * G) {
@@ -273,41 +376,33 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         *tcell(p, TC_SOL, nxt, tt) = 0;
       }
     }
+    SEARCH_STAMP(SP_DISPATCH);
     grid.sync();
+    SEARCH_STAMP(SP_SYNC_WANT);
     const int per = (L + THREADS - 1) / THREADS;
     int cnt = 0;
     for (int i = tid * per; i < min(L, (tid + 1) * per); ++i)
       cnt += __ldcg(p.want + i);
     int total;
     scan[tid] = block_exclusive_scan<THREADS>(cnt, wsum, &total);
+    if (tid == 0) {
+      sc[SC_TOTAL] = total;
+      if constexpr (!TILED) {
+        sc[SC_HEAD0] = sc[SC_HEAD];     // this superstep's pool cursor
+        sc[SC_HEAD] = min(sc[SC_HEAD] + total, S);
+      }
+      sc[SC_BLK_ND] = sc[SC_BLK_SOL] = 0;
+      sv[SV_BLK_BEST] = BIG;
+    }
     __syncthreads();
     // wanting lanes before lane x (x <= L)
     auto prefix = [&](int x) {
-      if (x >= L) return total;
-      const int c = x / per;
+      if (x >= L) return sc[SC_TOTAL];
+      const int per_ = (L + THREADS - 1) / THREADS, c = x / per_;
       int r = scan[c];
-      for (int i = c * per; i < x; ++i) r += __ldcg(p.want + i);
+      for (int i = c * per_; i < x; ++i) r += __ldcg(p.want + i);
       return r;
     };
-    for (int j = tid; b + j * G < L; j += THREADS) {
-      const int l = b + j * G;
-      if (!__ldcg(p.want + l)) continue;
-      if constexpr (TILED) {
-        const int tt = l / p.tile;
-        const int slot = (int)__ldcg(tcell(p, TC_HEAD, cur, tt)) + prefix(l) -
-                         prefix(tt * p.tile);
-        const int idx = p.NT > 1 ? tt + p.NT * slot : slot;
-        if (idx < S) st.next_sub[l] = idx;
-        else st.done[l] = 1;
-      } else {
-        const int c = l / per;
-        int rank = scan[c];
-        for (int i = c * per; i < l; ++i) rank += __ldcg(p.want + i);
-        const int slot = head + rank;
-        if (slot < S) st.next_sub[l] = slot;
-        else st.done[l] = 1;
-      }
-    }
     if constexpr (TILED) {
       // each owner moves its tiles' cursor and superstep count
       for (int tt = b + tid * G; tt < p.NT; tt += THREADS * G) {
@@ -325,29 +420,47 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         }
       }
     } else {
-      head = min(head + total, S);
       if (b == 0 && tid == 0) {        // the other parity's flags, for k+1
         p.cells[CELL_NOTDONE + (par ^ 1)] = 0;
         p.cells[CELL_SOL + (par ^ 1)] = 0;
       }
     }
     __syncthreads();
+    SEARCH_STAMP(SP_RANKS);
 
-    // -- this CTA's lanes: load, fixpoint, commit ---------------------------
-    int blk_nd = 0, blk_sol = 0;
-    Val blk_best = BIG;
-    for (int l = b; l < L; l += G) {
-      Val lane_gbest = gbest;
-      if constexpr (TILED) {
-        const int tt = l / p.tile;
-        if (!tile_live(p, cur, tt)) continue;   // a stopped tile: identity
-        lane_gbest = __ldcg(tcell(p, TC_GBEST, cur, tt));
+    // -- lanes claimed one at a time: dispatch, load, fixpoint, commit ------
+    // (what a lane needs after its sweeps is read back from the scalars or
+    // recomputed, so no register holds it across them)
+    for (;;) {
+      __syncthreads();                 // the last lane's scalars are read
+      if (tid == 0) sc[SC_LANE] = atomicAdd(p.want + L + (sc[SC_K] & 1), 1);
+      __syncthreads();
+      if (sc[SC_LANE] >= L) break;
+      if constexpr (TILED) {           // a stopped tile: identity
+        if (!tile_live(p, sc[SC_CUR], sc[SC_LANE] / p.tile)) continue;
       }
-      const size_t row = (size_t)l * V;
-      const size_t drow = (size_t)l * MD;
       if (tid == 0) {
-        const int fresh = st.fresh[l], done = st.done[l];
-        const int nxt_sub = st.next_sub[l];
+        const int l = sc[SC_LANE];
+        Val lane_gbest;
+        if constexpr (TILED)
+          lane_gbest = __ldcg(tcell(p, TC_GBEST, sc[SC_CUR], l / p.tile));
+        else
+          lane_gbest = sv[SV_GBEST];
+        int done = st.done[l], nxt_sub = st.next_sub[l];
+        if (__ldcg(p.want + l)) {      // dispatch_pool_tile: the lane's rank
+          int idx;
+          if constexpr (TILED) {
+            const int tt = l / p.tile;
+            idx = (int)__ldcg(tcell(p, TC_HEAD, sc[SC_CUR], tt)) + prefix(l) -
+                  prefix(tt * p.tile);
+            if (p.NT > 1) idx = tt + p.NT * idx;
+          } else {
+            idx = sc[SC_HEAD0] + prefix(l);
+          }
+          if (idx < S) nxt_sub = idx;
+          else st.done[l] = done = 1;
+        }
+        const int fresh = st.fresh[l];
         const int load = fresh && nxt_sub < S;
         const int fresh2 = fresh && !load && !done;
         const int active = !done && !fresh2;
@@ -363,50 +476,70 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         sc[SC_ANY] = 0;
         sc[SC_BETTER] = 0;
         if (load) st.next_sub[l] = UNASSIGNED;      // consumed
-        *sc_tell = active ? bound : BIG;            // the B&B tell
+        sv[SV_TELL] = active ? bound : BIG;         // the B&B tell
       }
       __syncthreads();
-      const int load = sc[SC_LOAD];
-      const size_t srow = (size_t)sc[SC_SUB] * V;
-      const Val tell = *sc_tell;
-      for (int v = tid; v < V; v += THREADS) {
-        Val lo, hi;
-        if (load) {
-          lo = p.subs_lb[srow + v];
-          hi = p.subs_ub[srow + v];
-          st.root_lb[row + v] = lo;
-          st.root_ub[row + v] = hi;
-        } else {
-          lo = st.lb[row + v];
-          hi = st.ub[row + v];
-        }
-        if (v == p.obj_var) hi = min(hi, tell);
-        s.lb(0)[v] = lo;
-        s.ub(0)[v] = hi;
-      }
-      const int W = t.W;
-      const size_t dw0 = (size_t)l * V * W;
-      if (carry) {                     // a loaded lane's root words
-        for (int i = tid; i < V * W; i += THREADS) {
-          const int v = i / W;
-          uint32_t word;
+      {
+        const int l = sc[SC_LANE];
+        const size_t row = (size_t)l * V;
+        const int load = sc[SC_LOAD];
+        const size_t srow = (size_t)sc[SC_SUB] * V;
+        const Val tell = sv[SV_TELL];
+        for (int v = tid; v < V; v += THREADS) {
+          Val lo, hi;
           if (load) {
-            word = __ldg(t.dom_track + v)
-                       ? fixlane::range_word<Val>(p.subs_lb[srow + v],
-                                                  p.subs_ub[srow + v],
-                                                  __ldg(t.dom_off + v),
-                                                  i - v * W)
-                       : 0xffffffffu;
-            st.root_dom[dw0 + i] = word;
+            lo = p.subs_lb[srow + v];
+            hi = p.subs_ub[srow + v];
+            st.root_lb[row + v] = lo;
+            st.root_ub[row + v] = hi;
           } else {
-            word = st.dom[dw0 + i];
+            lo = st.lb[row + v];
+            hi = st.ub[row + v];
           }
-          s.dom(0)[i] = word;
+          if (v == p.obj_var) hi = min(hi, tell);
+          s.lb(0)[v] = lo;
+          s.ub(0)[v] = hi;
+        }
+        const int W = t.W;
+        const size_t dw0 = (size_t)l * V * W;
+        if (carry) {                     // a loaded lane's root words
+          for (int i = tid; i < V * W; i += THREADS) {
+            const int v = i / W;
+            uint32_t word;
+            if (load) {
+              word = __ldg(t.dom_track + v)
+                         ? fixlane::range_word<Val>(p.subs_lb[srow + v],
+                                                    p.subs_ub[srow + v],
+                                                    __ldg(t.dom_off + v),
+                                                    i - v * W)
+                         : 0xffffffffu;
+              st.root_dom[dw0 + i] = word;
+            } else {
+              word = st.dom[dw0 + i];
+            }
+            s.dom(0)[i] = word;
+          }
         }
       }
+      SEARCH_STAMP(SP_LOAD);
       const fixlane::LaneResult r =
           fixlane::fixpoint_lane<THREADS, Val, AD_SPARSE, CU_SPARSE, DOM>(
               t, s, p.cap);
+      SEARCH_STAMP(SP_FIXPOINT);
+#ifdef FIXLANE_CLOCKS
+      if (tid == 0 && sc[SC_K] < CLOCK_STEPS) {
+        unsigned long long* cs = search_steps[sc[SC_K]];
+        atomicAdd(cs + ST_SWEEPS_SUM, (unsigned long long)r.sweeps);
+        atomicMax(cs + ST_SWEEPS_MAX, (unsigned long long)r.sweeps);
+        atomicAdd(cs + ST_LANES, 1ull);
+        cta_sweeps_ += r.sweeps;
+      }
+#endif
+      const int l = sc[SC_LANE];
+      const size_t row = (size_t)l * V;
+      const size_t drow = (size_t)l * MD;
+      const int W = t.W;
+      const size_t dw0 = (size_t)l * V * W;
       Val* flb = s.lb(r.cur);
       Val* fub = s.ub(r.cur);
 
@@ -442,15 +575,15 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         st.has_sol[l] = had || solved;
         sc[SC_BETTER] = better;
         if constexpr (TILED) {
-          const int tt = l / p.tile;
-          if (!st.done[l]) flag_or(tcell(p, TC_NOTDONE, nxt, tt));
-          if (had || solved) flag_or(tcell(p, TC_SOL, nxt, tt));
-          if (best < lane_gbest)
-            fixlane::atomic_min(tcell(p, TC_GBEST, nxt, tt), best);
+          const int tt = l / p.tile, cur_ = sc[SC_CUR];
+          if (!st.done[l]) flag_or(tcell(p, TC_NOTDONE, cur_ ^ 1, tt));
+          if (had || solved) flag_or(tcell(p, TC_SOL, cur_ ^ 1, tt));
+          if (best < __ldcg(tcell(p, TC_GBEST, cur_, tt)))
+            fixlane::atomic_min(tcell(p, TC_GBEST, cur_ ^ 1, tt), best);
         } else {
-          blk_nd |= !st.done[l];
-          blk_sol |= had || solved;
-          blk_best = min(blk_best, best);
+          sc[SC_BLK_ND] |= !st.done[l];
+          sc[SC_BLK_SOL] |= had || solved;
+          sv[SV_BLK_BEST] = min(sv[SV_BLK_BEST], best);
         }
       }
       // the deepest open level (unflipped, below depth), for backtracking
@@ -626,28 +759,51 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
         st.fresh[l] = fresh || overflow;
         if (overflow) st.incomplete[l] = 1;
       }
-      __syncthreads();                 // shared buffers and scalars reused
+      SEARCH_STAMP(SP_COMMIT);
     }
+#ifdef FIXLANE_CLOCKS
+    if (tid == 0 && sc[SC_K] < CLOCK_STEPS) {
+      unsigned long long* cs = search_steps[sc[SC_K]];
+      atomicAdd(cs + ST_BUSY_SUM, (unsigned long long)busy_);
+      atomicMax(cs + ST_BUSY_MAX, (unsigned long long)busy_);
+      atomicMax(cs + ST_CTA_SWEEPS_MAX, (unsigned long long)cta_sweeps_);
+    }
+    busy_ = cta_sweeps_ = 0;
+#endif
+    // every thread reads the superstep's parity before the grid barrier;
+    // thread 0 moves the superstep on after it
     if constexpr (TILED) {
       grid.sync();
-      cur = nxt;
-      gdone = !any_tile_live(p, cur);
-    } else {
       if (tid == 0) {
-        if (blk_nd) flag_or(&p.cells[CELL_NOTDONE + par]);
-        if (blk_sol) flag_or(&p.cells[CELL_SOL + par]);
-        if (blk_best < gbest)
-          fixlane::atomic_min(&p.cells[CELL_GBEST], blk_best);
+        sc[SC_CUR] ^= 1;
+        ++sc[SC_K];
+      }
+      __syncthreads();
+      gdone = !any_tile_live(p, sc[SC_CUR]);
+      SEARCH_STAMP(SP_SYNC_BOUND);
+    } else {
+      const int par = sc[SC_K] & 1;
+      if (tid == 0) {
+        if (sc[SC_BLK_ND]) flag_or(&p.cells[CELL_NOTDONE + par]);
+        if (sc[SC_BLK_SOL]) flag_or(&p.cells[CELL_SOL + par]);
+        if (sv[SV_BLK_BEST] < sv[SV_GBEST])
+          fixlane::atomic_min(&p.cells[CELL_GBEST], sv[SV_BLK_BEST]);
       }
       grid.sync();
-      gbest = __ldcg(p.cells + CELL_GBEST);
       const int nd = __ldcg(p.cells + CELL_NOTDONE + par);
       const int sol = __ldcg(p.cells + CELL_SOL + par);
       gdone = !nd || (p.stop_on_first && sol);
-      ++it;
+      if (tid == 0) {
+        sv[SV_GBEST] = __ldcg(p.cells + CELL_GBEST);
+        ++sc[SC_IT];
+        ++sc[SC_K];
+      }
+      __syncthreads();
+      SEARCH_STAMP(SP_SYNC_BOUND);
     }
   }
   if constexpr (TILED) {
+    const int cur = sc[SC_CUR];
     for (int tt = b + tid * G; tt < p.NT; tt += THREADS * G) {
       p.out[OUT_GBEST * p.NT + tt] = __ldcg(tcell(p, TC_GBEST, cur, tt));
       p.out[OUT_IT * p.NT + tt] = __ldcg(tcell(p, TC_IT, cur, tt));
@@ -655,9 +811,9 @@ __global__ void __launch_bounds__(THREADS) search_kernel(Params p) {
       p.out[OUT_STOP * p.NT + tt] = !tile_live(p, cur, tt);
     }
   } else if (b == 0 && tid == 0) {
-    p.out[OUT_GBEST] = gbest;
-    p.out[OUT_IT] = it;
-    p.out[OUT_HEAD] = head;
+    p.out[OUT_GBEST] = sv[SV_GBEST];
+    p.out[OUT_IT] = sc[SC_IT];
+    p.out[OUT_HEAD] = sc[SC_HEAD];
     p.out[OUT_STOP] = gdone;
   }
 }
@@ -741,6 +897,23 @@ int search_grid(int L, const void* const* tables, const int* dims,
   return grid_of(t, L, search_smem_bytes(t));
 }
 
+// Co-resident CTAs per SM of the instance (ad_sparse, cu_sparse, dom) at
+// `smem` bytes of dynamic shared memory (grid_for's occupancy query), or
+// a negative cudaError_t.
+int search_occupancy(int ad_sparse, int cu_sparse, int dom, int smem) {
+  fixlane::Tables<Val> t = {};
+  t.ad_sparse = ad_sparse;
+  t.cu_sparse = cu_sparse;
+  t.carry_dom = dom;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  const int g = grid_of(t, 0x7fffffff, smem);
+  return g < 0 ? g : g / sms;
+}
+
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // `tables`: the fixlane::N_TABLES fixpoint tables and `dims`: the
 // fixlane::N_DIMS sizes, both in fixlane::Tables order; `state`: the 21
@@ -787,6 +960,30 @@ int search_launch(const void* const* tables, const int* dims,
   return fixlane::uses_dom(p.t) ? launch_dom<true>(p, smem, st)
                                 : launch_dom<false>(p, smem, st);
 }
+
+#ifdef FIXLANE_CLOCKS
+// The `clocks` library only: copy to host memory `out` the sweep phases'
+// clock sums and lane-sweep count (fixlane::Phase order, N_PHASES + 1
+// values), the superstep phases' clock sums (SPhase order, N_SPHASES) and
+// the per-superstep records (CLOCK_STEPS x N_STEP_STATS), and clear them
+// all.  Synchronises the device first.
+int search_clocks(unsigned long long* out) {
+  const size_t n0 = sizeof(unsigned long long) * (fixlane::N_PHASES + 1);
+  const size_t n1 = sizeof(search_clk), n2 = sizeof(search_steps);
+  static const unsigned long long zeros[CLOCK_STEPS * N_STEP_STATS] = {};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, fixlane::clocks, n0);
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol((char*)out + n0, search_clk, n1);
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol((char*)out + n0 + n1, search_steps, n2);
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(fixlane::clocks, zeros, n0);
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(search_clk, zeros, n1);
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(search_steps, zeros, n2);
+  return (int)err;
+}
+#endif
 
 const char* search_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

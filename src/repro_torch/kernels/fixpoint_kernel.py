@@ -13,9 +13,9 @@ their wrappers.
   pool queue (``lane_tile=0``) and lane tiles (``lane_tile=N``, the
   reference's ``n_tiles > 1``): K whole supersteps of the search per
   launch.  Source ``csrc/search.cu``: a cooperative persistent grid whose
-  CTAs run their lanes through the same per-lane fixpoint
-  (``csrc/fixpoint_lane.cuh``) and meet at two grid barriers per
-  superstep.  Its plain version is `search_plain`.
+  CTAs claim lanes one at a time and run each through the same per-lane
+  fixpoint (``csrc/fixpoint_lane.cuh``), and meet at two grid barriers
+  per superstep.  Its plain version is `search_plain`.
 
 Both cover every bank (``csrc/fixpoint_lane.cuh``): ReifLinLe, the
 AllDifferent and Cumulative banks in both layouts, dense and sparse, and
@@ -55,8 +55,9 @@ FEW_THREADS = 1024
 # a block scan's per-warp sums (fixlane::SCAN_WORDS)
 SCAN_WORDS = 32
 # csrc/search.cu EXTRA_WORDS: the scan's per-thread prefixes (one per
-# thread of its 256-thread CTA), its per-warp sums and 16 lane scalars
-SEARCH_EXTRA_WORDS = THREADS + SCAN_WORDS + 16
+# thread of its 256-thread CTA), its per-warp sums and 32 words of lane
+# and CTA scalars
+SEARCH_EXTRA_WORDS = THREADS + SCAN_WORDS + 32
 
 
 def instance_threads(n_lanes: int, n_sms: int) -> int:
@@ -79,6 +80,13 @@ def _region(n: int, item: int, width: int) -> int:
     """Bytes of a region of `n` items of `item` bytes, rounded up to the
     value width (``fixlane::region``)."""
     return -(-n * item // width) * width
+
+
+def ad_mask_words(A1: int, N: int) -> int:
+    """Words of the dense AllDifferent bank's member bitmasks
+    (``fixlane::ad_mask_words``): four sets per member of each of the A1
+    rows of N members and one per row, each ceil(N / 32) words."""
+    return (4 * N + 1) * A1 * -(-N // 32)
 
 
 def bank_bytes(cm, dom: bool = False) -> dict:
@@ -110,7 +118,8 @@ def bank_bytes(cm, dom: bool = False) -> dict:
               "candidates": 2 * M * vb, "row flags": i32(A1)}
     else:
         ad = {"member bounds": 2 * A1 * N * vb,
-              "candidates": 2 * A1 * N * vb, "row flags": i32(A1)}
+              "candidates": 2 * A1 * N * vb, "row flags": i32(A1),
+              "member bitmasks": i32(ad_mask_words(A1, N))}
     if cm.cu_layout == "sparse":
         n, M = sort_size(2 * cm.cu_packed), cm.cu_packed
         cu = {"event keys": kb * n, "profile": vb * n,
@@ -142,7 +151,8 @@ def smem_budget(cm, resident: bool = False, dom: bool = False) -> dict:
     * ``stores``     — current and next lb/ub, ``4·V`` values;
     * ``linear``     — the ``[P+1, K+1]`` candidate pair (values);
     * ``alldiff``    — dense layout: the shifted member bounds and the
-      candidate pair, four ``[A+1, N]`` arrays, and a fail flag per row;
+      candidate pair, four ``[A+1, N]`` arrays, a fail flag per row and
+      the Hall pass's member bitmasks (`ad_mask_words`);
       sparse layout: the sort keys and member indices over the next
       power of two of the Mad packed slots, the sorted bounds, the two
       Hall folds and the candidate pair over Mad, a fail flag per row;
@@ -268,6 +278,8 @@ def _lib(dtype: str, clocks: bool = False):
         lib.fixpoint_launch.restype = i32
         lib.fixpoint_error_string.argtypes = [i32]
         lib.fixpoint_error_string.restype = ctypes.c_char_p
+        lib.fixpoint_occupancy.argtypes = [i32] * 5
+        lib.fixpoint_occupancy.restype = i32
         if clocks:
             lib.fixpoint_clocks.argtypes = [ptr]
             lib.fixpoint_clocks.restype = i32
@@ -477,15 +489,23 @@ def search_plain(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
             torch.tensor(all(stops), device=dev))
 
 
-def _search_lib(dtype: str, tiles: bool):
+def _search_lib(dtype: str, tiles: bool, clocks: bool = False):
+    """The search library of a model's width and mode, or with `clocks`
+    the one whose supersteps and sweeps stamp every phase
+    (``search_clocks``)."""
     from repro_torch.kernels.build import load, variant
-    lib = load("search", variant(dtype, tiles))
+    lib = load("search", variant(dtype, tiles, clocks))
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.search_launch.argtypes = [ptr] * 6
         lib.search_launch.restype = i32
         lib.search_grid.argtypes = [i32, ptr, ptr, i32]
         lib.search_grid.restype = i32
+        lib.search_occupancy.argtypes = [i32] * 4
+        lib.search_occupancy.restype = i32
+        if clocks:
+            lib.search_clocks.argtypes = [ptr]
+            lib.search_clocks.restype = i32
         lib.search_error_string.argtypes = [i32]
         lib.search_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -578,13 +598,33 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
                             pool_head, **kw)
     if dev.type != "cuda":
         raise ValueError(f"search_cuda: unsupported device {dev}")
+    out = launch_search(_search_lib(cm.dtype, lane_tile not in (0, None)),
+                        cm, subs_lb, subs_ub, st, gbest, it, pool_head, **kw)
+    search_cuda.launches += 1
+    return out
+
+
+search_cuda.launches = 0
+
+
+def launch_search(lib, cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
+                  pool_head, *, supersteps: int = 16, lane_tile: int = 0,
+                  max_sweeps: int = 16384, max_fixpoint_iters=None,
+                  var_strategy: str = S.INPUT_ORDER,
+                  val_strategy: str = S.VAL_MIN,
+                  stop_on_first: bool = False):
+    """One launch of `lib`'s search kernel (`_search_lib`) on CUDA
+    tensors, with `search_cuda`'s arguments, counted nowhere: the body of
+    `search_cuda`, and of the superstep clock breakdown of
+    ``chip_smoke.py`` on the ``clocks`` library.  Returns `search_cuda`'s
+    outputs."""
     _check_search(cm, subs_lb, subs_ub, st, var_strategy, val_strategy)
     fit_smem(cm, resident=True, dom=st.dom is not None)
     cap = max_sweeps if max_fixpoint_iters is None else max_fixpoint_iters
     if cap < 0:
         raise ValueError(f"search_cuda: the sweep cap must be >= 0, got "
                          f"{cap}")
-    L = st.lb.shape[0]
+    dev, L = st.lb.device, st.lb.shape[0]
     tiled = lane_tile not in (0, None)
     tile, NT = lane_tiles(L, lane_tile) if tiled else (L, 1)
     vt = cm.tdtype
@@ -597,7 +637,8 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
     head_in = torch.as_tensor(pool_head, device=dev).to(torch.int32)
     head_in = (head_in.reshape(-1).expand(NT).contiguous() if tiled
                else head_in.reshape(1))
-    want = torch.empty(L, dtype=torch.int32, device=dev)
+    # the want flags, then a lane-claim counter per superstep parity
+    want = torch.empty(L + 2, dtype=torch.int32, device=dev)
     # one queue: 5 cells; lane tiles: 5 kinds x 2 parities x NT
     cells = torch.empty(10 * NT if tiled else 5, dtype=vt, device=dev)
     res = torch.empty((4, NT), dtype=vt, device=dev)
@@ -612,7 +653,6 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
         return (ctypes.c_void_p * len(ts))(
             *(None if t is None else t.data_ptr() for t in ts))
 
-    lib = _search_lib(cm.dtype, tiled)
     err = lib.search_launch(
         *_c_tables(cm), ptrs([out[f] for f in _STATE_FIELDS]), ptrs(io),
         (ctypes.c_int * len(ints))(*ints),
@@ -620,7 +660,6 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
     if err != 0:
         raise RuntimeError("search_cuda: launch failed: "
                            + lib.search_error_string(err).decode())
-    search_cuda.launches += 1
     st_out = S.LaneState(**{f: (out[f] != 0 if f in _BOOL_FIELDS
                                 else out[f]) for f in _STATE_FIELDS})
     if tiled:
@@ -628,9 +667,6 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
                 res[2].to(torch.int32), (res[3] != 0).all())
     return (st_out, res[0, 0], res[1, 0].to(torch.int32),
             res[2, 0].to(torch.int32), res[3, 0] != 0)
-
-
-search_cuda.launches = 0
 
 
 def search_grid(cm, n_lanes: int, dom: bool = False,

@@ -100,18 +100,25 @@ def test_shared_memory_budget():
 
 
 def test_alldiff_shared_memory_budget():
-    """The AllDifferent part: yl, yu and the candidate pair ``[A+1, N]``
-    and a fail flag per row (``alldiff_words`` in
-    ``csrc/fixpoint_lane.cuh``); none for a model without the bank."""
+    """The AllDifferent part: yl, yu and the candidate pair ``[A+1, N]``,
+    a fail flag per row and the Hall pass's member bitmasks, (4·N + 1)
+    sets of ceil(N / 32) words per row (``alldiff_bytes`` and
+    ``ad_mask_words`` in ``csrc/fixpoint_lane.cuh``); none for a model
+    without the bank.  A forced-dense row of more than 32 members takes
+    two words per set."""
     assert K.smem_budget(_rcpsp(SMALL))["alldiff"] == 0
-    for cm in (_nqueens(32), _coloring_small()):
+    wide = _nqueens(33, bank_layout="dense")
+    for cm in (_nqueens(32), _coloring_small(), wide):
         A1, N = cm.ad_vars.shape
         b = K.fit_smem(cm)
         assert cm.n_alldiff == A1 - 1 > 0
-        assert b["alldiff"] == 4 * (4 * A1 * N + A1)
+        assert b["alldiff"] == 4 * (4 * A1 * N + A1
+                                    + (4 * N + 1) * A1 * -(-N // 32))
         assert b["total"] == sum(v for k, v in b.items() if k != "total")
-    assert K.smem_budget(_nqueens(32))["alldiff"] == 2064     # [4, 32]
-    with pytest.raises(ValueError, match="alldiff 2,064"):
+    assert wide.ad_layout == "dense" and wide.ad_vars.shape[1] > 32
+    # [4, 32]: 2064 bytes of bounds, pair and flags, 516 mask words
+    assert K.smem_budget(_nqueens(32))["alldiff"] == 2064 + 4 * 516
+    with pytest.raises(ValueError, match="alldiff 4,128"):
         K.fit_smem(_nqueens(32), limit_bytes=1024)
 
 
@@ -141,7 +148,7 @@ def test_sparse_shared_memory_budget():
                                        alldiff=30928, cumulative=52,
                                        table=0, dom=0, search=0,
                                        total=35164)
-    assert K.fit_smem(j120, resident=True)["total"] == 113552 + 4 * 304
+    assert K.fit_smem(j120, resident=True)["total"] == 113552 + 4 * 320
     with pytest.raises(ValueError, match=r"cumulative 22,248 \(sparse: "
                        r"event keys 8,192, profile 4,096, task table"):
         K.fit_smem(j120, limit_bytes=100_000)
@@ -182,7 +189,7 @@ def test_table_shared_memory_budget():
     assert K.smem_budget(cf, dom=True) == dict(
         stores=800, linear=792, alldiff=0, cumulative=52, table=7372,
         dom=2400, search=0, total=11416)
-    assert K.fit_smem(cf, resident=True, dom=True)["total"] == 11416 + 1216
+    assert K.fit_smem(cf, resident=True, dom=True)["total"] == 11416 + 1280
     with pytest.raises(ValueError, match=r"table 7,372 \(Compact-Table: "
                        r"member supports 776, current tables 388"):
         K.fit_smem(cf, limit_bytes=10_000, dom=True)
@@ -196,8 +203,8 @@ def test_search_shared_memory_budget():
     plain = K.smem_budget(cm)
     b = K.fit_smem(cm, resident=True)
     assert plain["search"] == 0
-    # csrc/search.cu: fixpoint words + THREADS + 32 + 16 scalars
-    assert b["total"] == plain["total"] + 4 * (256 + 32 + 16)
+    # csrc/search.cu: fixpoint words + THREADS + 32 + 32 scalars
+    assert b["total"] == plain["total"] + 4 * (256 + 32 + 32)
     assert b["total"] < K.SMEM_LIMIT_BYTES
     with pytest.raises(ValueError, match="search_cuda: .* shared memory"):
         K.fit_smem(cm, limit_bytes=b["total"] - 1, resident=True)
@@ -229,7 +236,7 @@ def test_int64_shared_memory_budget():
                                        alldiff=0, cumulative=41216,
                                        table=0, dom=0, search=0,
                                        total=223824)
-    assert K.fit_smem(j120, resident=True)["total"] == 223824 + 4 * 304
+    assert K.fit_smem(j120, resident=True)["total"] == 223824 + 4 * 320
     assert K.fit_smem(j120, resident=True)["total"] < K.SMEM_LIMIT_BYTES
     j60 = _rcpsp(dict(n_tasks=60, n_resources=4), force_dtype="int64",
                  bank_layout="dense")
@@ -406,7 +413,8 @@ def cuda():
 
 def _gpu_models(device):
     """(model, seed) of the card-only tests: RCPSP (ReifLinLe and dense
-    Cumulative) and N-queens 8 and coloring small (dense AllDifferent);
+    Cumulative) and N-queens 8, coloring small and N-queens 33 forced
+    dense (dense AllDifferent; 34 members, two mask words per set);
     then forced-sparse compiles: RCPSP J30 class and jobshop small
     (sparse Cumulative), N-queens 9 (sparse AllDifferent), and N-queens
     36 (sparse by the crossover)."""
@@ -415,6 +423,7 @@ def _gpu_models(device):
         yield _rcpsp(kw, seed=seed, device=device), seed
     yield _nqueens(8, device=device), 3
     yield _coloring_small(device=device), 4
+    yield _nqueens(33, device=device, bank_layout="dense"), 9
     yield _rcpsp(dict(n_tasks=30), seed=0, device=device,
                  bank_layout="sparse"), 5
     yield _nqueens(9, device=device, bank_layout="sparse"), 6
@@ -460,14 +469,17 @@ def test_kernel_raises_on_unsupported_input_on_gpu(cuda):
 
 
 def _search_cases(device):
-    """(what, cm, inputs, kwargs) at J30 class, and on N-queens 8 and
-    coloring small, and on forced-sparse J30 and N-queens 9: from fresh
+    """(what, cm, inputs, kwargs) at J30 class, and on N-queens 8,
+    coloring small and N-queens 33 forced dense (two mask words), and on
+    forced-sparse J30 and N-queens 9: from fresh
     lanes and from the state after 5 plain
     supersteps, under prove, the capped fixpoint and stop_on_first."""
     opts = S.SearchOptions(var_strategy="min_lb", max_depth=64)
     models = [("j30", _rcpsp(dict(n_tasks=30), device=device), 512),
               ("nqueens8", _nqueens(8, device=device), 256),
               ("coloring", _coloring_small(device=device), 64),
+              ("nqueens33 dense", _nqueens(33, device=device,
+                                           bank_layout="dense"), 256),
               ("j30 sparse", _rcpsp(dict(n_tasks=30), device=device,
                                     bank_layout="sparse"), 512),
               ("nqueens9 sparse", _nqueens(9, device=device,
@@ -495,6 +507,28 @@ def test_search_kernel_matches_plain_on_gpu(cuda, supersteps):
         torch.cuda.synchronize()
         assert K.search_cuda.launches == before + 1
         assert search_diff(ref, got) == [], what
+
+
+def test_search_kernel_matches_plain_from_a_deep_state_on_gpu(cuda):
+    """N-queens 32 as the main path runs it (preset prove, min_dom/split,
+    1024 lanes, EPS pool of 4096) after 200 plain supersteps: long
+    decision paths, backtracking by recomputation from the root, an
+    incumbent, and lanes that still load subproblems; K = 16."""
+    from repro_torch.solver import SolveConfig
+    cm = _nqueens(32, device=cuda)
+    opts = SolveConfig.preset("prove", var_strategy="min_dom",
+                              val_strategy="split").search_options()
+    kw = dict(var_strategy="min_dom", val_strategy="split",
+              max_fixpoint_iters=opts.max_fixpoint_iters)
+    slb, sub, st, gbest, head = search_inputs(cm, 1024, 4096, opts)
+    start = K.search_plain(cm, slb, sub, st, gbest, 0, head,
+                           supersteps=200, **kw)[:4]
+    assert int(start[2]) == 200 and not bool(start[0].done.all())
+    assert int(start[0].depth.max()) > 32 and int(start[0].n_fails.sum())
+    ref = K.search_plain(cm, slb, sub, *start, supersteps=16, **kw)
+    got = K.search_cuda(cm, slb, sub, *start, supersteps=16, **kw)
+    torch.cuda.synchronize()
+    assert search_diff(ref, got) == []
 
 
 def test_search_kernel_raises_on_unsupported_input_on_gpu(cuda):
