@@ -228,7 +228,38 @@ exit code and no result line:
    ``fixpoint_batch`` on the same stores, and the decomposition replayed
    with the plain results, whose pool (the pool through
    ``fixpoint_batch``) must equal the pool through ``fixpoint_cuda`` bit
-   for bit.
+   for bit;
+30. the resident kernel's slot axis (``search_slots_cuda``, one launch
+   over the slots of a ``LaneBatch``) against its plain version: four
+   J60 instances of one shape (``rcpsp.generate(60, n_resources=4,
+   seed=0)`` and the same project with its durations permuted by
+   ``np.random.default_rng(s)`` for s = 1, 2, 3), 1024 lanes and an EPS
+   pool of 4096 each, at K = 1, 4 and 16, from fresh lanes and after 5
+   plain supersteps with slot 2 idle (frozen) and slot 3 stopped (every
+   lane done): every field of every slot equal to ``search_plain`` on the
+   slot and to a single-instance ``search_cuda`` launch on it; then the
+   same in lane tiles of 256 per slot, on crossword large at seeds 0-3
+   (the bitset store) and on two J60 slots forced to int64; and one
+   4-slot K=16 launch timed against the four single launches (CUDA
+   events) beside its bound (the sum of the slots' bounds);
+31. ``Solver.solve_many`` on the card: phase 30's four J60 instances
+   (``prove``, 1024 lanes, eps_target 4096, at most 4096 supersteps)
+   through ``cuda_resident`` (K=16) and ``cuda``: each slot's status,
+   objective and every counter equal to a sequential ``Solver.solve`` on
+   its pool through the same backend, and the backends equal; seed 0
+   proves 82, every solution is ground-checked, and the launch counters
+   read around the call show one ``search_cuda`` launch per quantum, not
+   one per slot; the wall time beside the four sequential solves';
+32. the solver service on the card: a ``SolverScheduler``
+   (``cuda_resident``, 1024 lanes, eps_target 4096, ``max_batch`` 4,
+   ``min_dom``/``split``) driven by ``serve.loadgen.run_open_loop``
+   through ``poisson_trace(16, 8.0, seed=0)`` over N-queens 32, knapsack
+   20 and crossword 8 (weights 1, 2, 1; seed-stable shapes) with
+   deadlines (None, 120, 600): every request that completes equals a
+   sequential ``Solver.solve`` of its pool padded to the bucket's size on
+   every counter and is ground-checked;
+   latency and time-to-first-incumbent percentiles, mean occupancy,
+   builds and EPS seconds per bucket, and the phase's wall time.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -330,6 +361,25 @@ FLASH_CASES = (("prefill", 4, 2048, 32, 8, 128, True),
                ("MQA", 4, 2048, 32, 1, 128, True),
                ("head_dim 64", 4, 2048, 32, 8, 64, True))
 FLASH_BLOCKS = ((128, 128), (64, 128))
+# phases 30-32: batched solving.  Slots 1-3 of phase 30's J60 batch
+# permute seed 0's durations with np.random.default_rng(s) (one shape
+# signature); after 5 plain supersteps slot SLOT_IDLE is frozen idle and
+# slot SLOT_STOPPED has every lane done; SLOT_TILE lanes per tile in the
+# tiled run; BATCH_CAP caps phase 31's supersteps
+SLOT_SEEDS = (1, 2, 3)
+SLOT_IDLE, SLOT_STOPPED = 2, 3
+SLOT_TILE = 256
+BATCH_CAP = 4096
+# phase 32: the service's trace, mix (every shape signature seed-stable),
+# deadlines (the reference's), slots per bucket and strategy pair (phase
+# 10's N-queens pair, under which N-queens 32 proves q0 = 0 in 338
+# supersteps)
+SERVE_REQUESTS, SERVE_RATE, SERVE_BATCH = 16, 8.0, 4
+SERVE_MIX = (("nqueens", dict(n=32), 1.0), ("knapsack", dict(n=20), 2.0),
+             ("crossword", dict(n=8), 1.0))
+SERVE_DEADLINES = (None, 120.0, 600.0)
+SERVE_STRATEGY = ("min_dom", "split")
+SERVE_MAX_WALL_S = 300.0
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_BF16_FLOP_S = 989e12
 # the phases of a sweep the clocks library stamps (fixlane::Phase order)
@@ -2389,6 +2439,317 @@ def phase_flash_times(card, qkv, launches, max_err):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+# --------------------------------------------------------------------------
+# phases 30-32: the slot axis, solve_many and the solver service
+# --------------------------------------------------------------------------
+
+def slot_batches(rcpsp, tables, int64):
+    """Phase 30's batches, each (tag, cases, lane tile): the four J60
+    instances (seed 0's case of phase 2, the permuted ones decomposed
+    now) in one queue and in lane tiles of SLOT_TILE, crossword large at
+    seeds 0-3, and J60 int64 with its durations permuted by seed 1 beside
+    it.  Every batch is of one shape signature."""
+    from repro_torch.core.api import shape_signature
+    from repro_torch.core.models import large_instance
+    from repro_torch.testing import permuted_durations
+    base = rcpsp["J60"]
+    j60 = [base] + [prepare(30, f"J60 durations permuted by seed {s}", load(
+        "rcpsp", permuted_durations(base.inst, s)), MAIN_EPS)
+        for s in SLOT_SEEDS]
+    cw = [tables["crossword_large"]] + [prepare(30, f"crossword large seed "
+                                                f"{s}", load("crossword",
+                                                large_instance("crossword",
+                                                               seed=s)),
+                                                MAIN_EPS)
+                                        for s in SLOT_SEEDS]
+    i64 = [int64["J60int64"], prepare(30, "J60int64 permuted by seed 1", load(
+        "rcpsp", permuted_durations(base.inst, 1), force_dtype="int64",
+        bank_layout="dense"), MAIN_EPS)]
+    out = [("J60", j60, 0), ("J60", j60, SLOT_TILE),
+           ("crossword large", cw, 0), ("J60 int64", i64, 0)]
+    for tag, cases, _ in out:
+        sigs = {shape_signature(c.cm) for c in cases}
+        if len(sigs) != 1:
+            fail(f"{tag}: the slots' shape signatures differ: {sigs}")
+    return out
+
+
+def freeze_slots(cms, args, n, idle, stopped):
+    """`args` (pools, state, bounds, counts, cursors of a launch over
+    slots) with slot `idle` frozen as `LaneBatch` freezes an idle slot
+    (every lane done, none fresh, an all-failed pool) and slot `stopped`
+    with every lane done."""
+    import torch
+    from repro_torch.core import eps
+    from repro_torch.core import search as S
+    slb, sub, st = args[0].clone(), args[1].clone(), args[2]
+    st = S.LaneState(*(None if a is None else a.clone() for a in st))
+    for i in (idle, stopped):
+        st.done[i * n:(i + 1) * n] = True
+    st.fresh[idle * n:(idle + 1) * n] = False
+    lb, ub = eps.failed_pool(cms[idle].lb0.cpu().numpy(),
+                             cms[idle].ub0.cpu().numpy(), slb.shape[1])
+    slb[idle] = torch.from_numpy(lb).to(slb.device)
+    sub[idle] = torch.from_numpy(ub).to(sub.device)
+    return (slb, sub, st) + tuple(args[3:])
+
+
+def phase_slots_vs_plain(card, peak_int32, batches):
+    """Phase 30.  Returns the max |err| and the timing entry's times."""
+    import torch
+    from repro_torch.kernels.fixpoint_kernel import (search_cuda,
+                                                     search_slots_cuda,
+                                                     search_slots_plain)
+    from repro_torch.testing import search_diff, slot_inputs, slot_part
+    n0 = (search_cuda.launches, search_cuda.slot_launches)
+    n, max_err, timing = MAIN_LANES, 0, None
+    for tag, cases, tile in batches:
+        cms = [c.cm for c in cases]
+        B = len(cms)
+        opts, kw = search_kwargs("prove")
+        kw["lane_tile"] = tile
+        fresh = slot_inputs(cms, n, opts, [c.pool for c in cases])
+        warm = search_slots_plain(cms, *fresh, supersteps=WARM_STEPS, **kw)
+        warm = fresh[:2] + warm[:4]
+        starts = [("fresh", fresh), (f"after {WARM_STEPS}", warm)]
+        if B > SLOT_STOPPED:
+            starts[1] = (f"after {WARM_STEPS}, slot {SLOT_IDLE} idle, slot "
+                         f"{SLOT_STOPPED} stopped", freeze_slots(
+                             cms, warm, n, SLOT_IDLE, SLOT_STOPPED))
+        mode = f"lane tiles of {tile}" if tile else "one queue per slot"
+        for what, args in starts:
+            for k in SEARCH_K:
+                ref = search_slots_plain(cms, *args, supersteps=k, **kw)
+                got = search_slots_cuda(cms, *args, supersteps=k, **kw)
+                torch.cuda.synchronize()
+                bad = search_diff(ref, got)
+                if bad:
+                    fail(f"{tag} {B} slots ({mode}) {what}, K={k}: "
+                         f"search_slots_cuda differs from search_slots_plain"
+                         f" in {', '.join(bad)}")
+                max_err = max(max_err, max_abs_diff(ref, got))
+                for i, cm in enumerate(cms):
+                    one = search_cuda(cm, args[0][i], args[1][i],
+                                      *slot_part(args[2:], i, n),
+                                      supersteps=k, **kw)
+                    bad = search_diff(one, slot_part(got, i, n))
+                    if bad:
+                        fail(f"{tag} ({mode}) {what}, K={k}: slot {i} "
+                             f"differs from a single search_cuda launch in "
+                             f"{', '.join(bad)}")
+                    if bool(args[2].done[i * n:(i + 1) * n].all()) and (
+                            int(got[2][i]) != int(args[4][i])
+                            or not bool(got[4][i])):
+                        fail(f"{tag} {what}: stopped slot {i} moved")
+            print(f"[30] {tag}, {B} slots x {n} lanes, {mode}, {what}: K="
+                  f"{','.join(map(str, SEARCH_K))} equal to search_slots_"
+                  f"plain and to {B} single launches on every field; after "
+                  f"K={SEARCH_K[-1]}: it={got[2].tolist()} "
+                  f"nodes={[int(x) for x in got[0].n_nodes.view(B, n).sum(1)]}"
+                  f" gbest={got[1].tolist()} stopped={got[4].tolist()}")
+        if tag == "J60" and not tile:
+            timing = time_slots(card, peak_int32, cms, warm, kw)
+    search_cuda.launches, search_cuda.slot_launches = n0
+    return max_err, timing
+
+
+def time_slots(card, peak_int32, cms, args, kw):
+    """One launch over the slots (K=MAIN_K, every slot live, the state
+    after WARM_STEPS supersteps) against the single launches of the same
+    slots, in turn by CUDA events, beside the bound: the sum over slots of
+    `search_bound_ms`' bytes and operations."""
+    from repro_torch.kernels.fixpoint_kernel import (search_cuda,
+                                                     search_slots_cuda,
+                                                     search_slots_plain)
+    from repro_torch.testing import slot_part
+    n, B = MAIN_LANES, len(cms)
+
+    def slots():
+        return search_slots_cuda(cms, *args, supersteps=MAIN_K, **kw)
+
+    def singles():
+        return [search_cuda(cm, args[0][i], args[1][i],
+                            *slot_part(args[2:], i, n), supersteps=MAIN_K,
+                            **kw) for i, cm in enumerate(cms)]
+    out = slots()
+    ms = [cuda_ms(f, reps=10, warmup=2)
+          for f in (slots, singles, singles, slots)]
+    plain_ms = cuda_ms(lambda: search_slots_plain(
+        cms, *args, supersteps=MAIN_K, **kw), reps=1, warmup=0)
+    nbytes = ops = 0
+    for i, cm in enumerate(cms):
+        start = slot_part(args[2:], i, n)
+        b = search_bound_ms(cm, start, slot_part(out, i, n), peak_int32)
+        nbytes, ops = nbytes + b[2], ops + b[3]
+    bound_ms, bound_by = bound(nbytes, ops, peak_int32)
+    slot_ms = min(ms[0], ms[3])
+    print(f"[30] time, {B} J60 slots x {n} lanes, K={MAIN_K}, after "
+          f"{WARM_STEPS} (slots, singles, singles, slots): one launch over "
+          f"the slots {ms[0]:.4f}, {ms[3]:.4f} ms; {B} single launches "
+          f"{ms[1]:.4f}, {ms[2]:.4f} ms in all ({min(ms[1], ms[2]) / slot_ms:.2f}x"
+          f" the slot launch); plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} ops, the sum of "
+          f"the slots'; slot launch {slot_ms / bound_ms:.0f}x the bound); "
+          f"library: none on {card}")
+    return slot_ms, plain_ms, bound_ms, bound_by
+
+
+def launch_counts():
+    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda, search_cuda
+    return dict(fixpoint=fixpoint_cuda.launches,
+                few_lane=fixpoint_cuda.few_lane_launches,
+                search=search_cuda.launches, slots=search_cuda.slot_launches)
+
+
+def zero_launch_counts():
+    from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda, search_cuda
+    fixpoint_cuda.launches = fixpoint_cuda.few_lane_launches = 0
+    search_cuda.launches = search_cuda.slot_launches = 0
+
+
+def phase_solve_many(cases):
+    """Phase 31.  Returns the resident run's search_cuda launches."""
+    from repro_torch.core import eps
+    from repro_torch.core.api import _bucket
+    from repro_torch.core.models import ground_check
+    from repro_torch.solver import Solver
+    cms = [c.cm for c in cases]
+    # each slot's pool padded as solve_many pads it, for the sequential
+    # solves
+    size = _bucket(max(c.pool[0].shape[0] for c in cases))
+    pools = [eps.fit_pool(*c.pool, size) for c in cases]
+    got, resident_launches = {}, None
+    for backend in ("cuda_resident", "cuda"):
+        cfg = main_config(backend, max_supersteps=BATCH_CAP)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        many = Solver(cfg).solve_many(cms)
+        wall = time.perf_counter() - t0
+        n = launch_counts()
+        seq_wall = 0.0
+        for i, (c, res) in enumerate(zip(cases, many)):
+            t1 = time.perf_counter()
+            ref = Solver(cfg).solve(c.cm, subs=pools[i])
+            seq_wall += time.perf_counter() - t1
+            same_counters(31, f"slot {i} ({backend})",
+                          {"solve_many": res, "sequential": ref})
+            if ground_check(c.mod, c.inst, c.handles, res) is False:
+                fail(f"slot {i} ({backend}): the solution fails the ground "
+                     "check")
+        eps_s = sum(r.eps_s for r in many)
+        steps = [r.n_supersteps for r in many]
+        print(f"[31] solve_many, 4 J60 slots ({backend}): "
+              + "; ".join(f"slot {i} {r.status} {r.objective} nodes="
+                          f"{r.n_nodes} supersteps={r.n_supersteps}"
+                          for i, r in enumerate(many))
+              + f"; wall {wall:.3f} s (EPS {eps_s:.3f} s, search "
+              f"{wall - eps_s:.3f} s) against 4 sequential solves on the "
+              f"same pools {seq_wall:.3f} s; launches: fixpoint_cuda "
+              f"{n['fixpoint']} (few-lane {n['few_lane']}), search_cuda "
+              f"{n['search']} (over slots {n['slots']}) on "
+              f"{nvidia_smi('name,power.limit')}")
+        if many[0].status != "OPTIMAL" or many[0].objective != J60_OPTIMUM:
+            fail(f"slot 0 ({backend}): {many[0].status} {many[0].objective},"
+                 f" not OPTIMAL {J60_OPTIMUM}")
+        if backend == "cuda_resident":
+            quanta = -(-max(steps) // MAIN_K)
+            per_slot = sum(-(-s // MAIN_K) for s in steps)
+            if not n["search"] == n["slots"] == quanta:
+                fail(f"solve_many (cuda_resident): {n['search']} search_cuda"
+                     f" launches ({n['slots']} over slots) for {quanta} "
+                     "quanta; one launch per quantum expected")
+            print(f"[31] one search_cuda launch per quantum: {quanta} "
+                  f"launches (one per slot would be {per_slot})")
+            resident_launches = n["search"]
+        elif n["fixpoint"] - n["few_lane"] != sum(steps):
+            fail(f"solve_many (cuda): {n['fixpoint'] - n['few_lane']} "
+                 f"superstep launches for {sum(steps)} slot supersteps")
+        got[backend] = many
+    for i in range(len(cases)):
+        same_counters(31, f"slot {i}", {b: got[b][i] for b in got})
+    return resident_launches
+
+
+def phase_service():
+    """Phase 32.  Returns the run's search_cuda launches."""
+    from repro_torch.core import eps
+    from repro_torch.core.api import _bucket
+    from repro_torch.core.models import ZOO, ground_check
+    from repro_torch.serve import MetricsRecorder, SolverScheduler, loadgen
+    from repro_torch.solver import Solver
+
+    class PerBucket(MetricsRecorder):
+        """Also keeps each bucket's occupancy samples."""
+        def __init__(self):
+            super().__init__()
+            self.by_bucket = {}
+
+        def sample_occupancy(self, bucket, live, width):
+            super().sample_occupancy(bucket, live, width)
+            self.by_bucket.setdefault(bucket, []).append(live / width)
+
+    cfg = main_config("cuda_resident", SERVE_STRATEGY)
+    trace = loadgen.poisson_trace(SERVE_REQUESTS, SERVE_RATE, seed=SEED,
+                                  mix=SERVE_MIX, deadlines=SERVE_DEADLINES)
+    rec = PerBucket()
+    sched = SolverScheduler(cfg, max_batch=SERVE_BATCH, recorder=rec)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    handles = loadgen.run_open_loop(sched, trace, max_wall_s=SERVE_MAX_WALL_S)
+    wall = time.perf_counter() - t0
+    n = launch_counts()
+    if n["search"] != n["slots"] or not n["slots"]:
+        fail(f"service: {n['search']} search_cuda launches, {n['slots']} "
+             "over slots")
+    # the sequential reference solves the request's pool padded as its
+    # bucket pads it (padding adds failed nodes, never a solution)
+    seq, size = Solver(cfg), _bucket(cfg.resolved_eps_target())
+    n_checked = 0
+    eps_by_bucket = {}
+    for a, h in handles:
+        res = h.result()
+        rid = h.request.request_id
+        rec_r = rec.requests[rid]
+        eps_by_bucket.setdefault(rec_r.bucket, []).append(res.eps_s)
+        if rec_r.deadline_missed:
+            continue
+        inst = a.generate()
+        m, hd = ZOO[a.model].build_model(inst)
+        cm = m.compile(device=cfg.device)
+        pool = eps.fit_pool(*eps.decompose(cm, cfg.resolved_eps_target(),
+                                           cfg.search_options()), size)
+        same_counters(32, f"{rid} {a.model} seed {a.seed}",
+                      {"served": res, "sequential": seq.solve(cm,
+                                                              subs=pool)})
+        if ground_check(ZOO[a.model], inst, hd, res) is False:
+            fail(f"{rid}: the solution fails the ground check")
+        n_checked += 1
+    s = rec.summary()
+    print(f"[32] service: {SERVE_REQUESTS} requests at {SERVE_RATE}/s "
+          f"(seed {SEED}; {', '.join(f'{m} {kw}' for m, kw, _ in SERVE_MIX)})"
+          f", {cfg.var_strategy}/{cfg.val_strategy}, {cfg.n_lanes} lanes, "
+          f"eps_target {cfg.resolved_eps_target()}, max_batch "
+          f"{SERVE_BATCH}: {s['n_done']} done ({s['statuses']}), "
+          f"{s['n_deadline_missed']} deadline misses, {n_checked} equal to "
+          f"sequential solves and ground-checked; wall {wall:.2f} s")
+    for key in ("latency_s", "ttfi_s", "queue_wait_s", "tto_s"):
+        print(f"[32] {key}: {s[key]}")
+    print(f"[32] instances/s {s['instances_per_sec']}, span {s['span_s']} s;"
+          f" launches: search_cuda {n['search']} (all over slots), "
+          f"fixpoint_cuda {n['fixpoint']} (few-lane {n['few_lane']})")
+    for label, b in sched.buckets().items():
+        occ = rec.by_bucket.get(label, [0.0])
+        eps = eps_by_bucket.get(label, [0.0])
+        print(f"[32] bucket {label}: {b['n_requests']} requests, "
+              f"{rec.bucket_stats[label]['n_steps']} quanta, mean occupancy "
+              f"{sum(occ) / len(occ):.3f} of {b['width']} slots, builds "
+              f"{b['n_builds']} ({b['build_s']} s), EPS per admission mean "
+              f"{sum(eps) / len(eps):.3f} s max {max(eps):.3f} s")
+    if n_checked < s["n_done"] - s["n_deadline_missed"]:
+        fail("service: a completed request was not checked")
+    return n["search"]
+
+
 def mode_entry(base, mode, launches, err, times):
     """A {"kernels": [...]} entry of one kernel mode: `base`'s name,
     route, source and bank list, this mode's launches, max |err| and
@@ -2476,6 +2837,11 @@ def main():
         "nqueens256": (sparse["nqueens256"].cm, NQ256_STRATEGY),
         "crossword_large": (tables["crossword_large"].cm, None),
         "configuration_large": (tables["configuration_large"].cm, None)}))
+    batches = timed(30, slot_batches, rcpsp, tables, int64)
+    slot_err, slot_times = timed(30, phase_slots_vs_plain, card, peak_int32,
+                                 batches)
+    many_launches = timed(31, phase_solve_many, batches[0][1])
+    serve_launches = timed(32, phase_service)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
                                     sp_err, ct_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
@@ -2495,7 +2861,9 @@ def main():
                    i64_launches[("J120x1e7", "cuda_resident")][1],
                    i64_search_err, srch64),
         mode_entry(kernels[1], f"int32, lane tiles of {MAIN_TILE}",
-                   tile_launches, tile_err, tiled), flash]
+                   tile_launches, tile_err, tiled),
+        mode_entry(kernels[1], "int32, 4 slots of a LaneBatch (solve_many)",
+                   many_launches, slot_err, slot_times), flash]
     print("kernels: int64 main-path launches (fixpoint_cuda, search_cuda, "
           "few-lane fixpoint_cuda): "
           + ", ".join(f"{t} {b} {n}" for (t, b), n in i64_launches.items())
@@ -2509,6 +2877,8 @@ def main():
     print("kernels: table and middle_out main-path launches (fixpoint_cuda,"
           " search_cuda, few-lane fixpoint_cuda): " + ", ".join(
               f"{t} {b} {n}" for (t, b), n in ct_launches.items()))
+    print(f"kernels: slot launches of search_cuda: solve_many "
+          f"{many_launches}, the service {serve_launches}")
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,4 @@
-"""Session-oriented solver API — port of the single-instance part of
-``repro/core/api.py``.
+"""Session-oriented solver API — port of ``repro/core/api.py``.
 
 `SolveConfig` is one frozen, validated configuration with the
 reference's named presets (``prove``, ``first_solution``, ``fast``) and
@@ -21,13 +20,23 @@ reference's ``while_loop`` stops:
 
 Timeouts and ``max_supersteps`` are checked once per quantum.  PyTorch
 runs eagerly, so there is no compiled-runner cache.
+
+Batched solving: `LaneBatch` holds B same-shape instance *slots* (one
+request each) in one lane state, and `Solver.solve_many` drives one to
+the end; the serving scheduler (`repro_torch.serve`) admits requests
+into its slots.  Under ``cuda_resident`` one quantum of the batch is
+ONE launch of the resident search kernel over every slot
+(`kernels/fixpoint_kernel.search_slots_cuda`), the counterpart of the
+reference's vmapped ``search_pallas``; under ``gather`` and ``cuda`` a
+quantum runs `_run_chunk` on each live slot's rows in turn.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
+from typing import (Any, Dict, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -200,6 +209,17 @@ class SolveConfig:
         return (self.eps_target if self.eps_target is not None
                 else 4 * self.n_lanes)
 
+    def compile_key(self) -> tuple:
+        """The config half of a serving bucket's key: the fields that
+        shape a quantum (the reference keys its compiled runner on
+        them).  Budgets (timeout_s, max_supersteps), eps_target and
+        pad_pool are host-side only: configs that differ only there
+        share a bucket."""
+        return (self.n_lanes, self.chunk, self.backend,
+                self.supersteps_per_launch, self.lane_tile,
+                self.var_strategy, self.val_strategy, self.max_depth,
+                self.max_fixpoint_iters, self.stop_on_first, self.device)
+
 
 def shape_signature(cm: CompiledModel) -> tuple:
     """Every static field and table shape that shapes a solve — the
@@ -335,6 +355,7 @@ class Solver:
 
         solver = Solver(SolveConfig.preset("prove", n_lanes=1024))
         res = solver.solve(cm)
+        many = solver.solve_many(cms)       # N same-shape instances
         for ev in solver.solve_iter(cm):    # anytime incumbent stream
             ...
     """
@@ -435,3 +456,414 @@ class Solver:
                            wall_s=res.wall_s, final=True, result=res,
                            t_host=t0 + res.wall_s)
             return
+
+    # -- solve_many --------------------------------------------------------
+
+    def solve_many(self, cms: Sequence[CompiledModel], *,
+                   config: Optional[SolveConfig] = None,
+                   **overrides) -> List[SolveResult]:
+        """Solve N same-shape instances as the N slots of one `LaneBatch`.
+
+        Each instance gets its own ``n_lanes`` lane block, its own EPS
+        pool (pools padded to a common bucket with explicitly failed
+        stores, ``[N, S, V]``), its own bound and its own done flag, so
+        statuses, objectives and counters equal N sequential `solve`
+        calls.  Under ``cuda_resident`` a quantum is one launch over all
+        N slots.  Returns one `SolveResult` per instance, in input order;
+        ``wall_s`` is the shared batch wall clock and ``eps_s`` each
+        instance's own decomposition time.
+
+        The degenerate case of the lane-owning `LaneBatch`: splice every
+        instance up front, step until every slot is done, retire each.
+        The serving scheduler (`repro_torch.serve`) drives the same class
+        with continuous admission instead.
+        """
+        cms = list(cms)
+        if not cms:
+            return []
+        cfg = self._config_for(config, overrides)
+        opts = cfg.search_options()
+        t0 = time.time()
+        cms = [cm.to(cfg.device) for cm in cms]
+        sig = shape_signature(cms[0])
+        for k, cm in enumerate(cms[1:], 1):
+            if shape_signature(cm) != sig:
+                raise ValueError(
+                    f"solve_many needs same-shape instances: instance {k} "
+                    f"has signature {shape_signature(cm)} != {sig}")
+        pools, eps_s = [], []
+        for cm in cms:
+            t = time.time()
+            pools.append(eps.decompose(cm, cfg.resolved_eps_target(), opts))
+            eps_s.append(time.time() - t)
+        smax = max(p[0].shape[0] for p in pools)
+        size = _bucket(smax) if cfg.pad_pool else smax
+
+        batch = LaneBatch(self, cms[0], cfg, width=len(cms), pool_size=size)
+        for i, (cm, (pl, pu)) in enumerate(zip(cms, pools)):
+            batch.splice(i, cm, pl, pu, request_id=i, eps_s=eps_s[i])
+        while True:
+            snap = batch.step()
+            wall = time.time() - t0
+            if snap.gdone.all():
+                break
+            if cfg.timeout_s is not None and wall > cfg.timeout_s:
+                break
+            if (cfg.max_supersteps is not None
+                    and int(snap.superstep.max()) >= cfg.max_supersteps):
+                break
+        wall = time.time() - t0
+        return [batch.retire(i, wall_s=wall) for i in range(len(cms))]
+
+    # -- lane_batch: the continuous-batching scheduler core ----------------
+
+    def lane_batch(self, cm: CompiledModel, *, width: int,
+                   pool_size: Optional[int] = None,
+                   config: Optional[SolveConfig] = None,
+                   **overrides) -> "LaneBatch":
+        """A `LaneBatch` of ``width`` slots shaped for instances whose
+        signature equals ``cm``'s — the core the serving layer
+        (`repro_torch.serve`) admits requests into.  ``pool_size``
+        defaults to the bucket of the config's EPS target, which bounds
+        any `eps.decompose` pool for that target, so every admitted
+        request's pool fits."""
+        cfg = self._config_for(config, overrides)
+        if pool_size is None:
+            tgt = cfg.resolved_eps_target()
+            pool_size = _bucket(tgt) if cfg.pad_pool else tgt
+        return LaneBatch(self, cm, cfg, width=width, pool_size=pool_size)
+
+
+# --------------------------------------------------------------------------
+# LaneBatch: the lane-owning continuous-batching core
+# --------------------------------------------------------------------------
+
+_IDLE = object()          # slot-empty sentinel (request ids may be None)
+
+# the LaneState fields a retired slot's result and an incumbent read,
+# fetched to the host once per quantum
+_HOST_FIELDS = ("best_obj", "has_sol", "best_sol", "incomplete", "done",
+                "n_nodes", "n_fails", "n_sols", "n_sweeps")
+
+
+class BatchSnapshot(NamedTuple):
+    """Host-visible per-slot view of a `LaneBatch` after one quantum."""
+    superstep: np.ndarray    # i[B] per-slot cumulative superstep counters
+    gdone: np.ndarray        # bool[B] per-slot global-done flags
+    best_obj: np.ndarray     # [B] per-slot incumbent bound (min over lanes)
+    has_sol: np.ndarray      # bool[B]
+    n_nodes: np.ndarray      # i[B] per-slot node totals
+    n_sols: np.ndarray       # i[B]
+    t_host: float            # host wall clock (time.time()) at snapshot
+
+
+class LaneBatch:
+    """A fixed-width batch of same-shape instance *slots*: one
+    `LaneState` over ``width · n_lanes`` lanes, slot i the rows ``[i·n,
+    (i+1)·n)``, with per-slot pools ``[width, pool_size, V]``, bounds,
+    superstep counts, done flags and pool cursor(s), and each slot's own
+    `CompiledModel`.  The slot's ``request_id`` threads lane ownership
+    back to a serving request.
+
+    Slots join (`splice`) and leave (`retire`) at quantum boundaries at
+    fixed shape.  An idle slot is frozen: its done flag is set, its lanes
+    are all ``done`` and its pool rows are explicitly failed stores
+    (`eps.failed_pool`), so it cannot explore phantom subproblems.  A
+    retired or evicted slot derives its result from the live state
+    before the freeze, so it claims OPTIMAL or UNSAT only when its search
+    was exhausted.
+
+    A quantum (`step`): under ``cuda_resident``, ONE launch of the
+    resident search kernel over every slot (K supersteps; stopped and
+    idle slots run identity supersteps); under ``gather`` and ``cuda``,
+    `_run_chunk` on each live slot's rows in turn (up to ``chunk``
+    supersteps each), which leaves a finished slot's state as the
+    reference's vmapped loop does.  Each quantum ends with one
+    device-to-host copy of the fields a result reads (`_HOST_FIELDS`),
+    reused by `snapshot`, `retire` and `incumbent`.
+
+    Nothing here compiles a runner.  ``n_builds`` and ``build_s`` count
+    the kernel libraries the batch's quanta made `kernels/build.py`
+    compile (`Built.seconds > 0`) and their seconds: 0 under ``gather``,
+    and 0 for a bucket whose kernels an earlier batch built.
+    """
+
+    def __init__(self, session: Solver, cm0: CompiledModel,
+                 cfg: SolveConfig, *, width: int, pool_size: int):
+        if width < 1 or pool_size < 1:
+            raise ValueError(f"LaneBatch needs width >= 1 and pool_size >= "
+                             f"1, got {width}, {pool_size}")
+        self.session = session
+        self.cfg = cfg
+        self.width = int(width)
+        self.pool_size = int(pool_size)
+        self.opts = cfg.search_options()
+        cm0 = cm0.to(cfg.device)
+        self.device = cm0.device
+        self.signature = shape_signature(cm0)
+        self._cm0 = cm0
+        self._obj_var, self._n_vars = cm0.obj_var, cm0.n_vars
+        B, n = self.width, cfg.n_lanes
+        # the live-slot template: what a spliced slot's lanes are reset to
+        self._st1 = S.init_lanes(cm0, n, self.opts)
+        il, iu = eps.failed_pool(cm0.lb0.cpu().numpy(),
+                                 cm0.ub0.cpu().numpy(), self.pool_size)
+        self._idle_lb = torch.from_numpy(il).to(self.device)
+        self._idle_ub = torch.from_numpy(iu).to(self.device)
+        self.subs_lb = self._idle_lb.repeat(B, 1, 1)
+        self.subs_ub = self._idle_ub.repeat(B, 1, 1)
+        st = S.LaneState(*(None if a is None else
+                           a.repeat(B, *(1,) * (a.dim() - 1))
+                           for a in self._st1))
+        self.st = st._replace(done=torch.ones_like(st.done),
+                              fresh=torch.zeros_like(st.fresh))
+        self._big = torch.iinfo(cm0.tdtype).max // 4
+        self.gbest = torch.full((B,), self._big, dtype=cm0.tdtype,
+                                device=self.device)
+        self.heads = torch.zeros((B,) + _carry_heads(cfg, cm0),
+                                 dtype=torch.int32, device=self.device)
+        self.it = np.zeros(B, np.int64)
+        self.gdone = np.ones(B, bool)
+        self.request_ids: List[Any] = [_IDLE] * B
+        self._cms: List[Optional[CompiledModel]] = [None] * B
+        self._eps_s = [0.0] * B
+        self._host: Optional[Dict[str, np.ndarray]] = None
+        self.n_spliced = 0
+        self.n_retired = 0
+        self.n_builds = 0
+        self.build_s = 0.0
+
+    # -- occupancy ---------------------------------------------------------
+
+    def idle_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.request_ids) if r is _IDLE]
+
+    def live_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.request_ids) if r is not _IDLE]
+
+    @property
+    def occupancy(self) -> int:
+        return self.width - len(self.idle_slots())
+
+    @property
+    def obj_var(self) -> int:
+        """The bucket's objective column (``< 0`` for satisfaction
+        models)."""
+        return self._obj_var
+
+    def request_id(self, i: int):
+        rid = self.request_ids[i]
+        return None if rid is _IDLE else rid
+
+    def _rows(self, i: int) -> slice:
+        n = self.cfg.n_lanes
+        return slice(i * n, (i + 1) * n)
+
+    # -- join / leave at quantum boundaries --------------------------------
+
+    def splice(self, i: int, cm: CompiledModel, subs_lb, subs_ub, *,
+               request_id=None, eps_s: float = 0.0) -> None:
+        """Admit an instance into idle slot ``i`` at fixed shape: its
+        model becomes the slot's, its pool is padded to the bucket
+        (`eps.fit_pool`) and its lanes, bound, superstep count and
+        cursor(s) are reset to a fresh live state.  Takes effect at the
+        next `step`.  ``eps_s`` (the seconds its pool took) is carried
+        into its result."""
+        if self.request_ids[i] is not _IDLE:
+            raise ValueError(f"slot {i} is occupied by request "
+                             f"{self.request_ids[i]!r}")
+        cm = cm.to(self.device)
+        if shape_signature(cm) != self.signature:
+            raise ValueError(
+                f"instance signature {shape_signature(cm)} does not match "
+                f"this batch's bucket {self.signature}")
+        lb, ub = eps.fit_pool(np.asarray(subs_lb), np.asarray(subs_ub),
+                              self.pool_size)
+        self.subs_lb[i].copy_(torch.from_numpy(np.array(lb)))
+        self.subs_ub[i].copy_(torch.from_numpy(np.array(ub)))
+        rows = self._rows(i)
+        for a, one in zip(self.st, self._st1):
+            if a is not None:
+                a[rows].copy_(one)
+        self.gbest[i] = self._big
+        self.heads[i] = 0
+        self.it[i] = 0
+        self.gdone[i] = False
+        self.request_ids[i] = request_id
+        self._cms[i] = cm
+        self._eps_s[i] = float(eps_s)
+        self._host = None
+        self.n_spliced += 1
+
+    def retire(self, i: int, *, wall_s: float,
+               improvements: Tuple[Improvement, ...] = ()) -> SolveResult:
+        """Retire slot ``i``: derive its `SolveResult` from the slot's
+        lanes (per-slot exhaustion, per-slot superstep count), then
+        freeze the slot idle.  Valid whether the slot finished or is
+        being evicted early (a deadline miss): the result is derived
+        before the freeze, so an incomplete search never claims OPTIMAL
+        or UNSAT."""
+        if self.request_ids[i] is _IDLE:
+            raise ValueError(f"slot {i} is idle")
+        h = self._host_state()
+        rows = self._rows(i)
+        f = {k: v[rows] for k, v in h.items()}
+        res = derive_result(
+            self._cms[i], f["best_obj"], f["has_sol"], f["best_sol"],
+            f["incomplete"], bool(f["done"].all()), int(f["n_nodes"].sum()),
+            int(f["n_fails"].sum()), int(f["n_sols"].sum()),
+            int(f["n_sweeps"].sum()), int(self.it[i]), wall_s,
+            tuple(improvements), self._eps_s[i])
+        self._freeze(i)
+        self.request_ids[i] = _IDLE
+        self._cms[i] = None
+        self.n_retired += 1
+        return res
+
+    def _freeze(self, i: int) -> None:
+        """Park slot ``i``: done flag, all lanes done, all-failed pool —
+        every later superstep on the slot is an identity."""
+        rows = self._rows(i)
+        self.st.done[rows] = True
+        self.st.fresh[rows] = False
+        self.gdone[i] = True
+        self.subs_lb[i].copy_(self._idle_lb)
+        self.subs_ub[i].copy_(self._idle_ub)
+        self._host = None
+
+    # -- stepping ----------------------------------------------------------
+
+    def step(self) -> BatchSnapshot:
+        """Run ONE quantum over the batch (one launch over every slot
+        under ``cuda_resident``; up to ``cfg.chunk`` supersteps per live
+        slot otherwise) and return the host-visible snapshot."""
+        from repro_torch.kernels.build import build
+        built0, built_s0 = build.compiled, build.compiled_s
+        cfg = self.cfg
+        extra = ()
+        if cfg.backend == "cuda_resident":
+            cms = [c if c is not None else self._cm0 for c in self._cms]
+            st, gbest, it, heads, stopped = get_backend(
+                cfg.backend, lane_tile=cfg.lane_tile).superstep_launch(
+                    cms, self.subs_lb, self.subs_ub, self.st, self.gbest,
+                    self.it.tolist(), self.heads, opts=self.opts,
+                    supersteps=cfg.resolved_supersteps())
+            self.st, self.gbest, self.heads = st, gbest, heads
+            extra = (("it", it), ("stopped", stopped))
+        else:
+            for i in range(self.width):
+                if self.request_ids[i] is _IDLE or self.gdone[i]:
+                    continue
+                rows = self._rows(i)
+                carry = _run_chunk(
+                    self.opts, cfg.stop_on_first, cfg.chunk, self._cms[i],
+                    self.subs_lb[i], self.subs_ub[i],
+                    Carry(S.LaneState(*(None if a is None else a[rows]
+                                        for a in self.st)),
+                          self.gbest[i], False, int(self.it[i]),
+                          self.heads[i]))
+                for a, new in zip(self.st, carry.st):
+                    if a is not None:
+                        a[rows].copy_(new)
+                self.gbest[i] = carry.gbest
+                self.heads[i] = carry.pool_head
+                self.it[i] = carry.it
+                self.gdone[i] = carry.gdone
+        self._host = self._fetch(extra)
+        if extra:
+            self.it[:] = self._host.pop("it")
+            self.gdone |= self._host.pop("stopped")
+        self.n_builds += build.compiled - built0
+        self.build_s += build.compiled_s - built_s0
+        return self.snapshot()
+
+    def _fetch(self, extra=()) -> Dict[str, np.ndarray]:
+        """The `_HOST_FIELDS` of the state (and the named tensors of
+        `extra`) on the host, in ONE device-to-host copy."""
+        parts = [(k, getattr(self.st, k)) for k in _HOST_FIELDS]
+        parts += list(extra)
+        flat = torch.cat([t.reshape(-1).to(torch.int64) for _, t in parts])
+        flat = flat.cpu().numpy()
+        out, at = {}, 0
+        for k, t in parts:
+            n = t.numel()
+            # each field back at its own dtype (int32 or int64, bool)
+            out[k] = flat[at:at + n].reshape(tuple(t.shape)).astype(
+                torch.empty(0, dtype=t.dtype).numpy().dtype)
+            at += n
+        return out
+
+    def _host_state(self) -> Dict[str, np.ndarray]:
+        if self._host is None:          # after a splice or a freeze
+            self._host = self._fetch()
+        return self._host
+
+    def snapshot(self) -> BatchSnapshot:
+        h = self._host_state()
+        B = self.width
+
+        def per_slot(k):
+            return h[k].reshape(B, -1)
+        return BatchSnapshot(
+            superstep=self.it.copy(),
+            gdone=self.gdone.copy(),
+            best_obj=per_slot("best_obj").min(axis=1),
+            has_sol=per_slot("has_sol").any(axis=1),
+            n_nodes=per_slot("n_nodes").sum(axis=1),
+            n_sols=per_slot("n_sols").sum(axis=1),
+            t_host=time.time())
+
+    def incumbent(self, i: int):
+        """Slot ``i``'s current best ``(objective, solution)`` —
+        ``(None, None)`` while no solution exists; the objective is None
+        for satisfaction models.  The lane pick of `derive_result`."""
+        h = self._host_state()
+        rows = self._rows(i)
+        has = h["has_sol"][rows]
+        if not has.any():
+            return None, None
+        sols = h["best_sol"][rows]
+        if self._obj_var >= 0:
+            objs = h["best_obj"][rows]
+            k = int(objs.argmin())
+            return int(objs[k]), sols[k]
+        return None, sols[int(has.argmax())]
+
+
+# --------------------------------------------------------------------------
+# Module-level convenience: one shared default session
+# --------------------------------------------------------------------------
+
+_default_solver: Optional[Solver] = None
+
+
+def default_solver() -> Solver:
+    """The process-wide session of the module-level `solve`,
+    `solve_iter` and `solve_many`, built on first use with
+    ``SolveConfig()`` (on the card: it raises without one)."""
+    global _default_solver
+    if _default_solver is None:
+        _default_solver = Solver(SolveConfig())
+    return _default_solver
+
+
+def _session(config: Optional[SolveConfig]) -> Solver:
+    """The default session, or, given a `config`, a session of it (a
+    session holds nothing but its config, so it is the default session
+    solving with ``config=``, without building the default config)."""
+    return default_solver() if config is None else Solver(config)
+
+
+def solve(cm: CompiledModel, *, subs=None, config=None,
+          **overrides) -> SolveResult:
+    return _session(config).solve(cm, subs=subs, **overrides)
+
+
+def solve_many(cms: Sequence[CompiledModel], *, config=None,
+               **overrides) -> List[SolveResult]:
+    return _session(config).solve_many(cms, **overrides)
+
+
+def solve_iter(cm: CompiledModel, *, subs=None, config=None,
+               **overrides) -> Iterator[Progress]:
+    return _session(config).solve_iter(cm, subs=subs, **overrides)

@@ -86,9 +86,11 @@ class CudaResidentBackend(CudaBackend):
         self.lane_tile = lane_tile or 0
 
     def n_tiles(self, cm, n_lanes: int) -> int:
-        """Tiles of a launch over `n_lanes` lanes: 1 in the one-queue
-        mode, else ceil(n_lanes / tile).  The host scheduler sizes the
-        carry's pool cursors with it (`api._init_carry`)."""
+        """Tiles of a launch over `n_lanes` lanes (of a slot's, in a
+        `LaneBatch`): 1 in the one-queue mode, else ceil(n_lanes /
+        tile).  The host scheduler sizes the carry's pool cursors with it
+        (`api._init_carry`), and `LaneBatch` its per-slot cursors
+        ``[B, n_tiles]``."""
         if not self.lane_tile:
             return 1
         from repro_torch.kernels.fixpoint_kernel import lane_tiles
@@ -97,9 +99,20 @@ class CudaResidentBackend(CudaBackend):
     def superstep_launch(self, cm, subs_lb, subs_ub, st, gbest, it,
                          pool_head, *, opts, supersteps: int):
         """One launch of K = `supersteps` supersteps; returns
-        ``(st', gbest', it', pool_head', stopped)``."""
-        from repro_torch.kernels.fixpoint_kernel import search_cuda
-        return search_cuda(
+        ``(st', gbest', it', pool_head', stopped)``.
+
+        `cm` is one model (`search_cuda`: the state of its lanes, a pool
+        ``[S, V]``, a 0-d bound, the superstep count and the cursor(s)),
+        or a `LaneBatch`'s batch: a list of one model per slot
+        (`search_slots_cuda`: the stacked state of every slot's lanes,
+        the pools ``[B, S, V]``, bounds ``[B]``, superstep counts
+        ``[B]`` and cursors, ``[B]`` or ``[B, n_tiles]``), one launch over
+        every slot, whose outputs are per slot."""
+        from repro_torch.kernels.fixpoint_kernel import (search_cuda,
+                                                         search_slots_cuda)
+        launch = (search_slots_cuda if isinstance(cm, (list, tuple))
+                  else search_cuda)
+        return launch(
             cm, subs_lb, subs_ub, st, gbest, it, pool_head,
             supersteps=supersteps, lane_tile=self.lane_tile,
             max_fixpoint_iters=opts.max_fixpoint_iters,

@@ -32,6 +32,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -49,6 +50,7 @@ VARIANTS = {"": (), "i64": ("-DFIXLANE_VAL=int64_t",),
 # p in registers, so ptxas warns in its log of any spill or local memory
 SOURCE_FLAGS = {"flash_attention": ("-Xptxas", "-warn-spills",
                                     "-Xptxas", "-warn-lmem-usage")}
+_COUNT_LOCK = threading.Lock()
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
 
 
@@ -132,7 +134,16 @@ def build(name: str, variant: str = "") -> Built:
                            f"{proc.returncode}):\n{proc.stdout}")
     log.write_text(proc.stdout)
     os.replace(tmp, lib)              # atomic: a reader sees all or nothing
+    with _COUNT_LOCK:                 # build_all builds from threads
+        build.compiled += 1
+        build.compiled_s += seconds
     return Built(name, lib, proc.stdout, seconds)
+
+
+# the libraries this process compiled (`Built.seconds > 0`) and their
+# seconds: what `core/api.LaneBatch` reports as its bucket's builds
+build.compiled = 0
+build.compiled_s = 0.0
 
 
 def build_all(specs) -> list:

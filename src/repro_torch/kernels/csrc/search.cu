@@ -80,6 +80,18 @@
 // path) are left out: a model keeps every bound inside that range
 // (compile.py headroom) at either width, so they change nothing.
 //
+// Slots (the lane-tiled library only): the lanes are NB slots of LS lanes
+// each, slot s rows [s·LS, (s+1)·LS), one request of a LaneBatch each: the
+// counterpart of the reference's `search_pallas` under `jax.vmap` over the
+// batch axis (src/repro/core/api.py, LaneBatch).  Each slot has its own
+// model tables (NB fixlane::Tables in the kernel's parameters, read per
+// claimed lane; every slot has the dims of the launch, `shape_signature`;
+// a launch takes at most MAX_SLOTS slots), branch
+// variables, pool ([NB, S, V]), bound, superstep count and TPS tiles (one
+// for one queue per slot), whose cursors stride over the slot's pool only.
+// A slot is a run of tiles, so a slot's outputs are those of a launch on
+// the slot alone; a launch without slots is one slot of all L lanes.
+//
 // Lane tiles: the same two grid.sync() per superstep, every tile in
 // lockstep.  The per-tile state lives in device memory, double-buffered
 // by superstep parity ([2][NT] each: bound, cursor, superstep count, "some
@@ -124,6 +136,12 @@ using fixlane::THREADS;
 using Val = FIXLANE_VAL;
 
 constexpr bool TILED = SEARCH_LANE_TILES != 0;
+// Slots of one lane-tiled launch: their tables ride in the kernel's
+// parameters (read with constant-bank loads, which ptxas may repeat
+// rather than hold a table's dims in registers through the fixpoint, as
+// for one queue's tables; a device array of them cost the tiled
+// instances up to 52 more spill bytes), and 8 fit the 4 KB of them.
+constexpr int MAX_SLOTS = TILED ? 8 : 1;
 constexpr Val BIG = fixlane::Lim<Val>::BIG;
 constexpr int32_t UNASSIGNED = 0x7fffffff / 2;   // search.UNASSIGNED
 
@@ -147,7 +165,8 @@ enum {
   SC_LOAD, SC_SUB, SC_FRESH, SC_ACTIVE, SC_DEPTH, SC_BTL, SC_POS, SC_ANY,
   SC_BETTER, SC_LANE,
   SC_K, SC_CUR, SC_HEAD, SC_HEAD0, SC_TOTAL, SC_IT, SC_BLK_ND, SC_BLK_SOL,
-  SC_VALS = 18, N_SCALARS = 32
+  SC_SLOT, SC_STAGED,
+  SC_VALS = 20, N_SCALARS = 32
 };
 // the Val slots: the lane's B&B tell, the running bound (one queue), the
 // CTA's least best objective of the superstep
@@ -175,19 +194,30 @@ struct State {
 };
 
 struct Params {
-  fixlane::Tables<Val> t;
+  fixlane::Tables<Val> t;       // slot 0's (the dims of every slot)
   State st;
-  const int32_t* branch_vars;   // [B]
-  const Val* subs_lb;           // [S, V]
-  const Val* subs_ub;           // [S, V]
-  const Val* gbest_in;          // [1]
+  const int32_t* branch_vars;   // [NB, B]
+  const Val* subs_lb;           // [NB, S, V]
+  const Val* subs_ub;           // [NB, S, V]
+  const Val* gbest_in;          // [NB]
   const int32_t* head_in;       // [NT]
   int32_t* want;                // [L + 2] scratch: flags, claim counters
   Val* cells;                   // [N_CELLS], lane tiles [TC_N][2][NT]
   Val* out;                     // [4][NT]
   int L, B, S, MD, obj_var, supersteps, cap, var_strategy, val_strategy,
-      stop_on_first, it_in, tile, NT;
+      stop_on_first, it_in, tile, NT, LS, TPS;
+  int its_in[MAX_SLOTS];                    // lane tiles: superstep counts
+  fixlane::Tables<Val> tabs[MAX_SLOTS];     // lane tiles: each slot's tables
 };
+static_assert(sizeof(Params) <= 4096, "kernel parameters above 4 KB");
+
+// The kernel's parameters: lane tiles index their slots' tables with the
+// claimed lane's slot, so they stay in the parameter space (no local copy)
+#if SEARCH_LANE_TILES
+#define SEARCH_PARAMS const __grid_constant__ Params
+#else
+#define SEARCH_PARAMS Params
+#endif
 
 // Words of shared memory before the fixpoint's: the scan's per-thread
 // prefixes, its per-warp sums and the scalars (fixed offsets).
@@ -245,6 +275,20 @@ __device__ __forceinline__ Val* tcell(const Params& p, int kind, int par,
                                       int t) {
   return p.cells + ((size_t)kind * 2 + par) * p.NT + t;
 }
+// Lane tiles: the tile of lane l, and the lanes [first, end) of tile tt
+// (slot tt / TPS, the slot's tile tt % TPS; a slot's last tile is short
+// when `tile` does not divide LS).
+__device__ __forceinline__ int tile_of(const Params& p, int l) {
+  const int s = l / p.LS;
+  return s * p.TPS + (l - s * p.LS) / p.tile;
+}
+__device__ __forceinline__ int tile_first(const Params& p, int tt) {
+  const int s = tt / p.TPS;
+  return s * p.LS + (tt - s * p.TPS) * p.tile;
+}
+__device__ __forceinline__ int tile_end(const Params& p, int tt) {
+  return min((tt / p.TPS + 1) * p.LS, tile_first(p, tt) + p.tile);
+}
 // Lane tiles: whether tile t runs the superstep that reads parity `par`
 // (some lane not done, and no solution under stop_on_first).
 __device__ __forceinline__ bool tile_live(const Params& p, int par, int t) {
@@ -258,6 +302,15 @@ __device__ __forceinline__ int any_tile_live(const Params& p, int par) {
   for (int t = threadIdx.x; t < p.NT && !live; t += THREADS)
     live = tile_live(p, par, t);
   return __syncthreads_or(live);
+}
+
+// The tables of the claimed lane's slot (sc[SC_SLOT]): lane tiles read
+// them from the kernel parameters' array of the slots' tables, one queue
+// has p.t.
+__device__ __forceinline__ const fixlane::Tables<Val>& lane_t(
+    const Params& p, const int32_t* sc) {
+  if constexpr (TILED) return p.tabs[sc[SC_SLOT]];
+  else return p.t;
 }
 
 // Co-resident CTAs per SM each instance is built for (its minimum-blocks
@@ -282,9 +335,11 @@ constexpr int min_ctas() {
 template <bool AD_SPARSE, bool CU_SPARSE, bool DOM>
 __global__ void __launch_bounds__(THREADS,
                                   min_ctas<AD_SPARSE, CU_SPARSE, DOM>())
-    search_kernel(Params p) {
+    search_kernel(SEARCH_PARAMS p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
+  // the dims of every slot; lane tiles read a claimed lane's own tables
+  // from p.tabs (`lane_t` below), one queue p.t
   const fixlane::Tables<Val>& t = p.t;
   int32_t* const scan = (int32_t*)smem;
   int32_t* const wsum = scan + THREADS;
@@ -301,15 +356,20 @@ __global__ void __launch_bounds__(THREADS,
   const int tid = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int L = p.L, V = t.V, S = p.S, MD = p.MD;
 
-  fixlane::stage_tables<THREADS, Val, CU_SPARSE>(t, s);
+  // one queue stages its tables now; lane tiles at each CTA's first lane
+  // of a slot (SC_STAGED)
+  if constexpr (!TILED) fixlane::stage_tables<THREADS, Val, CU_SPARSE>(t, s);
 
   bool gdone;
-  if (tid == 0) sc[SC_K] = sc[SC_CUR] = 0;
+  if (tid == 0) {
+    sc[SC_K] = sc[SC_CUR] = 0;
+    sc[SC_STAGED] = -1;
+  }
   if constexpr (TILED) {
     // Each owner CTA seeds its tiles' parity-0 cells from the incoming
     // state (nothing writes the state before the first grid.sync).
     for (int tt = b; tt < p.NT; tt += G) {
-      const int l0 = tt * p.tile, l1 = min(L, l0 + p.tile);
+      const int l0 = tile_first(p, tt), l1 = tile_end(p, tt);
       int my_nd = 0, my_sol = 0;
       for (int l = l0 + tid; l < l1; l += THREADS) {
         my_nd |= !st.done[l];
@@ -318,9 +378,9 @@ __global__ void __launch_bounds__(THREADS,
       const int nd0 = __syncthreads_or(my_nd);
       const int sol0 = __syncthreads_or(my_sol);
       if (tid == 0) {
-        *tcell(p, TC_GBEST, 0, tt) = *p.gbest_in;
+        *tcell(p, TC_GBEST, 0, tt) = p.gbest_in[tt / p.TPS];
         *tcell(p, TC_HEAD, 0, tt) = p.head_in[tt];
-        *tcell(p, TC_IT, 0, tt) = p.it_in;
+        *tcell(p, TC_IT, 0, tt) = p.its_in[tt / p.TPS];
         *tcell(p, TC_NOTDONE, 0, tt) = nd0;
         *tcell(p, TC_SOL, 0, tt) = sol0;
       }
@@ -364,7 +424,7 @@ __global__ void __launch_bounds__(THREADS,
     for (int j = tid; b + j * G < L; j += THREADS) {
       const int l = b + j * G;
       bool live = true;
-      if constexpr (TILED) live = tile_live(p, cur, l / p.tile);
+      if constexpr (TILED) live = tile_live(p, cur, tile_of(p, l));
       p.want[l] = live && st.fresh[l] && !st.done[l] && st.next_sub[l] >= S;
     }
     if (b == 0 && tid == 0) p.want[L + (par ^ 1)] = 0;   // k+1's claims
@@ -409,8 +469,10 @@ __global__ void __launch_bounds__(THREADS,
         const int h = (int)__ldcg(tcell(p, TC_HEAD, cur, tt));
         const int n = (int)__ldcg(tcell(p, TC_IT, cur, tt));
         if (tile_live(p, cur, tt)) {
-          const int l0 = tt * p.tile, l1 = min(L, l0 + p.tile);
-          const int shard = p.NT > 1 ? (S - tt + p.NT - 1) / p.NT : S;
+          const int l0 = tile_first(p, tt), l1 = tile_end(p, tt);
+          // the slot's pool indices tile tt % TPS owns
+          const int st_ = tt % p.TPS;
+          const int shard = p.TPS > 1 ? (S - st_ + p.TPS - 1) / p.TPS : S;
           *tcell(p, TC_HEAD, nxt, tt) =
               min(h + prefix(l1) - prefix(l0), shard);
           *tcell(p, TC_IT, nxt, tt) = n + 1;
@@ -437,23 +499,31 @@ __global__ void __launch_bounds__(THREADS,
       __syncthreads();
       if (sc[SC_LANE] >= L) break;
       if constexpr (TILED) {           // a stopped tile: identity
-        if (!tile_live(p, sc[SC_CUR], sc[SC_LANE] / p.tile)) continue;
+        if (!tile_live(p, sc[SC_CUR], tile_of(p, sc[SC_LANE]))) continue;
+        // a lane of another slot than the CTA's last: stage its tables
+        // (the previous lane's fixpoint is over: the barrier above)
+        const int slot = sc[SC_LANE] / p.LS;
+        if (slot != sc[SC_STAGED]) {
+          fixlane::stage_tables<THREADS, Val, CU_SPARSE>(p.tabs[slot], s);
+          __syncthreads();
+          if (tid == 0) sc[SC_STAGED] = slot;
+        }
       }
       if (tid == 0) {
         const int l = sc[SC_LANE];
         Val lane_gbest;
         if constexpr (TILED)
-          lane_gbest = __ldcg(tcell(p, TC_GBEST, sc[SC_CUR], l / p.tile));
+          lane_gbest = __ldcg(tcell(p, TC_GBEST, sc[SC_CUR], tile_of(p, l)));
         else
           lane_gbest = sv[SV_GBEST];
         int done = st.done[l], nxt_sub = st.next_sub[l];
         if (__ldcg(p.want + l)) {      // dispatch_pool_tile: the lane's rank
           int idx;
           if constexpr (TILED) {
-            const int tt = l / p.tile;
+            const int tt = tile_of(p, l);
             idx = (int)__ldcg(tcell(p, TC_HEAD, sc[SC_CUR], tt)) + prefix(l) -
-                  prefix(tt * p.tile);
-            if (p.NT > 1) idx = tt + p.NT * idx;
+                  prefix(tile_first(p, tt));
+            if (p.TPS > 1) idx = tt % p.TPS + p.TPS * idx;
           } else {
             idx = sc[SC_HEAD0] + prefix(l);
           }
@@ -469,6 +539,7 @@ __global__ void __launch_bounds__(THREADS,
         const Val bound = inc < BIG ? inc - 1 : BIG;
         sc[SC_LOAD] = load;
         sc[SC_SUB] = min(max(nxt_sub, 0), S - 1);
+        if constexpr (TILED) sc[SC_SLOT] = l / p.LS;
         sc[SC_FRESH] = fresh2;
         sc[SC_ACTIVE] = active;
         sc[SC_DEPTH] = load ? 0 : st.depth[l];
@@ -480,10 +551,13 @@ __global__ void __launch_bounds__(THREADS,
       }
       __syncthreads();
       {
+        const fixlane::Tables<Val>& lt = lane_t(p, sc);
         const int l = sc[SC_LANE];
         const size_t row = (size_t)l * V;
         const int load = sc[SC_LOAD];
-        const size_t srow = (size_t)sc[SC_SUB] * V;
+        // the slot's pool row (its subproblem index is slot-local)
+        size_t srow = (size_t)sc[SC_SUB] * V;
+        if constexpr (TILED) srow += (size_t)sc[SC_SLOT] * S * V;
         const Val tell = sv[SV_TELL];
         for (int v = tid; v < V; v += THREADS) {
           Val lo, hi;
@@ -507,10 +581,10 @@ __global__ void __launch_bounds__(THREADS,
             const int v = i / W;
             uint32_t word;
             if (load) {
-              word = __ldg(t.dom_track + v)
+              word = __ldg(lt.dom_track + v)
                          ? fixlane::range_word<Val>(p.subs_lb[srow + v],
                                                     p.subs_ub[srow + v],
-                                                    __ldg(t.dom_off + v),
+                                                    __ldg(lt.dom_off + v),
                                                     i - v * W)
                          : 0xffffffffu;
               st.root_dom[dw0 + i] = word;
@@ -524,7 +598,7 @@ __global__ void __launch_bounds__(THREADS,
       SEARCH_STAMP(SP_LOAD);
       const fixlane::LaneResult r =
           fixlane::fixpoint_lane<THREADS, Val, AD_SPARSE, CU_SPARSE, DOM>(
-              t, s, p.cap);
+              lane_t(p, sc), s, p.cap);
       SEARCH_STAMP(SP_FIXPOINT);
 #ifdef FIXLANE_CLOCKS
       if (tid == 0 && sc[SC_K] < CLOCK_STEPS) {
@@ -575,7 +649,7 @@ __global__ void __launch_bounds__(THREADS,
         st.has_sol[l] = had || solved;
         sc[SC_BETTER] = better;
         if constexpr (TILED) {
-          const int tt = l / p.tile, cur_ = sc[SC_CUR];
+          const int tt = tile_of(p, l), cur_ = sc[SC_CUR];
           if (!st.done[l]) flag_or(tcell(p, TC_NOTDONE, cur_ ^ 1, tt));
           if (had || solved) flag_or(tcell(p, TC_SOL, cur_ ^ 1, tt));
           if (best < __ldcg(tcell(p, TC_GBEST, cur_, tt)))
@@ -624,16 +698,17 @@ __global__ void __launch_bounds__(THREADS,
         if (carry)
           for (int i = tid; i < V * W; i += THREADS) nd[i] = 0;
         __syncthreads();
+        const fixlane::Tables<Val>& lt = lane_t(p, sc);
         for (int i = tid; i <= btl; i += THREADS) {
           const int v = st.dec_var[drow + i];
           const Val m = st.dec_val[drow + i];
           const bool flip = i == btl || st.dec_flip[drow + i];
-          if (middle_out && __ldg(t.dom_track + v)) {
+          if (middle_out && __ldg(lt.dom_track + v)) {
             if (!flip) {
               fixlane::atomic_min(&nub[v], m);
               fixlane::atomic_max(&nlb[v], m);
             } else {
-              const Val bit = m - __ldg(t.dom_off + v);
+              const Val bit = m - __ldg(lt.dom_off + v);
               if (bit >= 0 && bit < 32 * W)
                 atomicAdd(&nd[v * W + (bit >> 5)], 1u << (bit & 31));
             }
@@ -654,12 +729,14 @@ __global__ void __launch_bounds__(THREADS,
         new_depth = btl + 1;
       } else if (active && r.conv) {
         // select_branch: min over (key, position) breaks ties by position
+        const int32_t* bvars = p.branch_vars;
+        if constexpr (TILED) bvars += (size_t)sc[SC_SLOT] * p.B;
         if (tid < 32) {
           int any = 0;
           if constexpr (sizeof(Val) == 4) {
             long long best = 0x7fffffffffffffffLL;
             for (int pos = tid; pos < p.B; pos += 32) {
-              const int v = p.branch_vars[pos];
+              const int v = bvars[pos];
               const Val lo = flb[v], hi = fub[v];
               const int unf = lo < hi;
               any |= unf;
@@ -680,7 +757,7 @@ __global__ void __launch_bounds__(THREADS,
             long long bkey = 0x7fffffffffffffffLL;
             int bpos = 0x7fffffff;
             for (int pos = tid; pos < p.B; pos += 32) {
-              const int v = p.branch_vars[pos];
+              const int v = bvars[pos];
               const Val lo = flb[v], hi = fub[v];
               const int unf = lo < hi;
               any |= unf;
@@ -712,16 +789,17 @@ __global__ void __launch_bounds__(THREADS,
             overflow = 1;
           } else {
             if (tid == 0) {
-              const int var = p.branch_vars[sc[SC_POS]];
+              const int var = bvars[sc[SC_POS]];
               const Val vlb = flb[var], vub = fub[var];
               const Val mid = fixlane::fdiv<Val>(vlb + vub, 2);
               Val m = p.val_strategy == VAL_MIN ? vlb : mid;
-              const bool tracked = middle_out && __ldg(t.dom_track + var);
+              const fixlane::Tables<Val>& lt = lane_t(p, sc);
+              const bool tracked = middle_out && __ldg(lt.dom_track + var);
               if (tracked) {
                 // the live value nearest mid: score 2·|v − mid| + (v > mid),
                 // the first (lowest) of equal scores; none live: bit 0
                 const uint32_t* dw = s.dom(r.cur) + var * W;
-                const Val off = __ldg(t.dom_off + var);
+                const Val off = __ldg(lt.dom_off + var);
                 Val best = BIG;
                 int pos = 0;
                 for (int k = 0; k < 32 * W; ++k) {
@@ -914,20 +992,29 @@ int search_occupancy(int ad_sparse, int cu_sparse, int dom, int smem) {
   return g < 0 ? g : g / sms;
 }
 
+// Slots one launch of this library takes (`search_launch`'s NB).
+int search_max_slots() { return MAX_SLOTS; }
+
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// `tables`: the fixlane::N_TABLES fixpoint tables and `dims`: the
-// fixlane::N_DIMS sizes, both in fixlane::Tables order; `state`: the 21
-// LaneState fields in State order (dom and root_dom null when no bitset
-// store is carried); `io`: branch_vars, subs_lb, subs_ub,
-// gbest_in, head_in, want, cells, out; `ints`: L, B, S, MD, obj_var,
-// supersteps, cap, var_strategy, val_strategy, stop_on_first, it_in,
-// tile, NT (lane tiles; L and 1 for one queue).  Values (stores, pool,
-// bound, cells, out) are of the library's width.
+// `tables`: the fixlane::N_TABLES fixpoint tables of each of the NB slots
+// (NB · N_TABLES pointers, slot by slot) and `dims`: the fixlane::N_DIMS
+// sizes, equal for every slot, both in fixlane::Tables order; `state`: the
+// 21 LaneState fields in State order over all NB · LS lanes (dom and
+// root_dom null when no bitset store is carried); `io`: branch_vars
+// [NB, B], subs_lb and subs_ub [NB, S, V], gbest_in [NB], head_in [NT],
+// want, cells, out; `ints`: L, B, S, MD, obj_var, supersteps, cap,
+// var_strategy, val_strategy, stop_on_first, it_in (slot 0's superstep
+// count), tile, NT (lane tiles; L and 1 for one queue), NB, LS, TPS
+// (tiles per slot; one queue: 1, L, 1), then the superstep counts of
+// slots 1 to NB - 1.  Values (stores, pool, bound, cells, out) are of the
+// library's width.  NB is at most search_max_slots(): 1 for the one-queue
+// library.
 int search_launch(const void* const* tables, const int* dims,
                   void* const* state, void* const* io, const int* ints,
                   void* stream) {
   Params p;
-  p.t = fixlane::tables_from<Val>(tables, dims, state[19] != nullptr);
+  const int carry_dom = state[19] != nullptr;
+  p.t = fixlane::tables_from<Val>(tables, dims, carry_dom);
   int32_t* const* sf = (int32_t* const*)state;
   Val* const* sv = (Val* const*)state;
   p.st = State{sv[0],  sv[1],  sv[2],  sv[3],  sf[4],  sv[5],  sf[6],
@@ -955,6 +1042,16 @@ int search_launch(const void* const* tables, const int* dims,
   p.it_in = ints[10];
   p.tile = ints[11];
   p.NT = ints[12];
+  const int NB = ints[13];
+  p.LS = ints[14];
+  p.TPS = ints[15];
+  if (NB < 1 || NB > MAX_SLOTS || p.LS * NB != p.L || p.TPS * NB != p.NT)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < NB; ++i) {
+    p.tabs[i] = fixlane::tables_from<Val>(
+        tables + (size_t)i * fixlane::N_TABLES, dims, carry_dom);
+    p.its_in[i] = i ? ints[15 + i] : p.it_in;
+  }
   const size_t smem = search_smem_bytes(p.t);
   cudaStream_t st = (cudaStream_t)stream;
   return fixlane::uses_dom(p.t) ? launch_dom<true>(p, smem, st)

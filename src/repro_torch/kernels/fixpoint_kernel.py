@@ -16,6 +16,9 @@ their wrappers.
   CTAs claim lanes one at a time and run each through the same per-lane
   fixpoint (``csrc/fixpoint_lane.cuh``), and meet at two grid barriers
   per superstep.  Its plain version is `search_plain`.
+  `search_slots_cuda` is the reference's third mode, ``search_pallas``
+  vmapped over a `LaneBatch`'s slots: one launch over B independent
+  searches (plain version `search_slots_plain`).
 
 Both cover every bank (``csrc/fixpoint_lane.cuh``): ReifLinLe, the
 AllDifferent and Cumulative banks in both layouts, dense and sparse, and
@@ -30,7 +33,8 @@ refused launch).  It never falls back.
 ``fixpoint_cuda.launches`` and ``search_cuda.launches`` count kernel
 launches (and nothing else), so a run can show that the main path went
 through the kernels; ``fixpoint_cuda.few_lane_launches`` counts those of
-the few-lane instance among the first.
+the few-lane instance among the first, ``search_cuda.slot_launches``
+those over slots among the second.
 """
 
 from __future__ import annotations
@@ -508,6 +512,8 @@ def _search_lib(dtype: str, tiles: bool, clocks: bool = False):
             lib.search_clocks.restype = i32
         lib.search_error_string.argtypes = [i32]
         lib.search_error_string.restype = ctypes.c_char_p
+        lib.search_max_slots.argtypes = []
+        lib.search_max_slots.restype = i32
         lib._typed = True
     return lib
 
@@ -604,7 +610,165 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
     return out
 
 
+# every launch, and those over a batch of slots among them
+# (`search_slots_cuda`)
 search_cuda.launches = 0
+search_cuda.slot_launches = 0
+
+
+def _check_slots(cms, subs_lb, subs_ub, st, gbest, var_strategy,
+                 val_strategy):
+    """What a launch over slots needs besides `_check_search`'s checks on
+    the whole state and slot 0's model: one model per slot, all of one
+    shape signature (so every size of the launch is one value), the
+    lanes split evenly, a pool ``[NB, S, V]`` and a bound per slot."""
+    from repro_torch.core.api import shape_signature
+    NB = len(cms)
+    if NB < 1:
+        raise ValueError("search_cuda: no slots")
+    sig = shape_signature(cms[0])
+    for i, c in enumerate(cms[1:], 1):
+        if shape_signature(c) != sig:
+            raise ValueError(
+                f"search_cuda: slot {i}'s shape signature "
+                f"{shape_signature(c)} differs from slot 0's {sig}")
+        if c.device != cms[0].device:
+            raise ValueError(f"search_cuda: slot {i}'s model on {c.device}, "
+                             f"slot 0's on {cms[0].device}")
+    if subs_lb.dim() != 3 or subs_lb.shape[0] != NB \
+            or subs_ub.shape != subs_lb.shape:
+        raise ValueError(f"search_cuda: the pools must be [{NB}, S, V], got "
+                         f"{tuple(subs_lb.shape)}/{tuple(subs_ub.shape)}")
+    _check_search(cms[0], subs_lb[0], subs_ub[0], st, var_strategy,
+                  val_strategy)
+    L = st.lb.shape[0]
+    if L % NB:
+        raise ValueError(f"search_cuda: {L} lanes do not split into {NB} "
+                         "slots")
+    if tuple(torch.as_tensor(gbest).shape) != (NB,):
+        raise ValueError(f"search_cuda: the bounds must be [{NB}], got "
+                         f"{tuple(torch.as_tensor(gbest).shape)}")
+
+
+def _slot_heads(pool_head, NB, TPS, dev):
+    """The cursors ``[NB]`` (one queue per slot) or ``[NB, TPS]`` (lane
+    tiles; ``[NB]`` gives each slot's cursor to every tile of it)."""
+    h = torch.as_tensor(pool_head, device=dev).to(torch.int32)
+    if TPS == 0:
+        return h.reshape(NB)
+    return h.reshape(NB, -1).expand(NB, TPS)
+
+
+def search_slots_plain(cms, subs_lb, subs_ub, st: S.LaneState, gbest, it,
+                       pool_head, *, supersteps: int = 16,
+                       lane_tile: int = 0, max_sweeps: int = 16384,
+                       max_fixpoint_iters=None,
+                       var_strategy: str = S.INPUT_ORDER,
+                       val_strategy: str = S.VAL_MIN,
+                       stop_on_first: bool = False):
+    """The plain version of `search_slots_cuda`: `search_plain` run slot
+    by slot, on slot i's rows ``[i·n, (i+1)·n)`` of the state (n = L /
+    NB), its model ``cms[i]``, its pool ``subs_lb[i]``, bound
+    ``gbest[i]``, superstep count ``it[i]`` and cursor(s)
+    ``pool_head[i]``.  Returns ``(st', gbest' [NB], it' [NB], pool_head'
+    ([NB], or [NB, TPS] with lane tiles), stopped [NB])``."""
+    NB, dev = len(cms), st.lb.device
+    n = st.lb.shape[0] // NB
+    its = torch.as_tensor(it).reshape(NB).tolist()
+    TPS = lane_tiles(n, lane_tile)[1] if lane_tile not in (0, None) else 0
+    heads = _slot_heads(pool_head, NB, TPS, dev)
+    kw = dict(supersteps=supersteps, lane_tile=lane_tile,
+              max_sweeps=max_sweeps, max_fixpoint_iters=max_fixpoint_iters,
+              var_strategy=var_strategy, val_strategy=val_strategy,
+              stop_on_first=stop_on_first)
+    outs = []
+    for i, cm in enumerate(cms):
+        rows = slice(i * n, (i + 1) * n)
+        st_i = S.LaneState(*(None if a is None else a[rows] for a in st))
+        outs.append(search_plain(cm, subs_lb[i], subs_ub[i], st_i,
+                                 torch.as_tensor(gbest)[i], its[i],
+                                 heads[i], **kw))
+    st_out = S.LaneState(*(None if f[0] is None else torch.cat(f)
+                           for f in zip(*(o[0] for o in outs))))
+    return (st_out, torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]).to(torch.int32),
+            torch.stack([o[3] for o in outs]).to(torch.int32),
+            torch.stack([o[4] for o in outs]))
+
+
+def search_slots_cuda(cms, subs_lb, subs_ub, st: S.LaneState, gbest, it,
+                      pool_head, *, supersteps: int = 16,
+                      lane_tile: int = 0, max_sweeps: int = 16384,
+                      max_fixpoint_iters=None,
+                      var_strategy: str = S.INPUT_ORDER,
+                      val_strategy: str = S.VAL_MIN,
+                      stop_on_first: bool = False):
+    """K = `supersteps` supersteps of NB = len(cms) independent searches
+    in ONE launch of ``csrc/search.cu``'s lane-tiled library (one per 8
+    slots of a wider batch: the slots' tables ride in the kernel's
+    parameters, ``search_max_slots``): the counterpart of the
+    reference's ``search_pallas`` under ``jax.vmap`` over a
+    `LaneBatch`'s slots.  Slot i holds lanes ``[i·n, (i+1)·n)`` of
+    `st` (n = L / NB) and has its own model ``cms[i]`` (every slot of one
+    shape signature), pool ``subs_lb[i]`` (``[NB, S, V]``), bound
+    ``gbest[i]``, superstep count ``it[i]``, cursor ``pool_head[i]`` (with
+    ``lane_tile=N`` one per tile of the slot, ``[NB, TPS]``) and stop
+    flag; one queue per slot without `lane_tile`.  A stopped or idle
+    slot (every lane done) runs identity supersteps.
+
+    Returns `search_slots_plain`'s outputs, equal to them on the same
+    inputs, and each slot's equal to a `search_cuda` launch on that slot
+    alone.  On CPU tensors it runs `search_slots_plain`; on CUDA tensors
+    it launches or raises.  The inputs are left untouched."""
+    if supersteps < 0:
+        raise ValueError(f"search_cuda: supersteps must be >= 0, got "
+                         f"{supersteps}")
+    _check_slots(cms, subs_lb, subs_ub, st, gbest, var_strategy,
+                 val_strategy)
+    kw = dict(supersteps=supersteps, lane_tile=lane_tile,
+              max_sweeps=max_sweeps, max_fixpoint_iters=max_fixpoint_iters,
+              var_strategy=var_strategy, val_strategy=val_strategy,
+              stop_on_first=stop_on_first)
+    dev = st.lb.device
+    if dev.type == "cpu":
+        return search_slots_plain(cms, subs_lb, subs_ub, st, gbest, it,
+                                  pool_head, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"search_cuda: unsupported device {dev}")
+    NB, L = len(cms), st.lb.shape[0]
+    n = L // NB
+    tiled = lane_tile not in (0, None)
+    tile, TPS = lane_tiles(n, lane_tile) if tiled else (n, 1)
+    heads = _slot_heads(pool_head, NB, TPS if tiled else 0, dev)
+    heads = heads.reshape(NB, TPS)
+    its = torch.as_tensor(it).reshape(NB).tolist()
+    gbest = torch.as_tensor(gbest, device=dev)
+    lib = _search_lib(cms[0].dtype, True)
+    # a launch takes at most `m` slots (their tables ride in the kernel's
+    # parameters): a wider batch takes one launch per `m` slots
+    m = lib.search_max_slots()
+    parts, outs = [], []
+    for a in range(0, NB, m):
+        b = min(NB, a + m)
+        rows = slice(a * n, b * n)
+        st_ab = S.LaneState(*(None if x is None else x[rows] for x in st))
+        st_out, res = _launch(
+            lib, True, list(cms[a:b]), subs_lb[a:b], subs_ub[a:b], st_ab,
+            gbest[a:b], its[a:b], heads[a:b].reshape(-1), tile,
+            (b - a) * TPS, supersteps, max_sweeps, max_fixpoint_iters,
+            var_strategy, val_strategy, stop_on_first)
+        search_cuda.launches += 1
+        search_cuda.slot_launches += 1
+        parts.append(st_out)
+        outs.append(res.reshape(4, b - a, TPS))
+    st_out = (parts[0] if len(parts) == 1 else
+              S.LaneState(*(None if f[0] is None else torch.cat(f)
+                            for f in zip(*parts))))
+    res = torch.cat(outs, dim=1)
+    heads_out = res[2].to(torch.int32)
+    return (st_out, res[0].min(1).values, res[1].max(1).values.to(torch.int32),
+            heads_out if tiled else heads_out[:, 0],
+            (res[3] != 0).all(1))
 
 
 def launch_search(lib, cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
@@ -619,42 +783,73 @@ def launch_search(lib, cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
     ``chip_smoke.py`` on the ``clocks`` library.  Returns `search_cuda`'s
     outputs."""
     _check_search(cm, subs_lb, subs_ub, st, var_strategy, val_strategy)
+    tiled = lane_tile not in (0, None)
+    L = st.lb.shape[0]
+    tile, NT = lane_tiles(L, lane_tile) if tiled else (L, 1)
+    dev = st.lb.device
+    head = torch.as_tensor(pool_head, device=dev).to(torch.int32)
+    head = head.reshape(-1).expand(NT) if tiled else head.reshape(1)
+    st_out, res = _launch(lib, tiled, [cm], subs_lb[None], subs_ub[None],
+                          st, torch.as_tensor(gbest, device=dev).reshape(1),
+                          [int(it)], head, tile, NT, supersteps, max_sweeps,
+                          max_fixpoint_iters, var_strategy, val_strategy,
+                          stop_on_first)
+    if tiled:
+        return (st_out, res[0].min(), res[1].max().to(torch.int32),
+                res[2].to(torch.int32), (res[3] != 0).all())
+    return (st_out, res[0, 0], res[1, 0].to(torch.int32),
+            res[2, 0].to(torch.int32), res[3, 0] != 0)
+
+
+def _launch(lib, tiled, cms, subs_lb, subs_ub, st, gbest, its, heads,
+            tile, NT, supersteps, max_sweeps, max_fixpoint_iters,
+            var_strategy, val_strategy, stop_on_first):
+    """One launch of `lib` (the lane-tiled library if `tiled`) over
+    NB = len(cms) slots of L / NB lanes each (at most
+    ``lib.search_max_slots()``: one in the one-queue library), every slot
+    in NT / NB tiles of `tile` lanes: the pools ``[NB, S, V]``, the bounds ``[NB]``, the superstep
+    counts `its` (NB ints) and the cursors ``[NT]`` on the card.  Returns
+    (the LaneState after the launch, the ``[4, NT]`` outputs: bound,
+    superstep count, cursor and stop flag of each tile)."""
+    cm = cms[0]
     fit_smem(cm, resident=True, dom=st.dom is not None)
     cap = max_sweeps if max_fixpoint_iters is None else max_fixpoint_iters
     if cap < 0:
         raise ValueError(f"search_cuda: the sweep cap must be >= 0, got "
                          f"{cap}")
     dev, L = st.lb.device, st.lb.shape[0]
-    tiled = lane_tile not in (0, None)
-    tile, NT = lane_tiles(L, lane_tile) if tiled else (L, 1)
+    NB = len(cms)
     vt = cm.tdtype
     # the kernel updates copies in place; bools travel as int32 0/1
     out = {f: (None if getattr(st, f) is None
                else getattr(st, f).to(torch.int32) if f in _BOOL_FIELDS
                else getattr(st, f).clone(memory_format=torch.contiguous_format))
            for f in _STATE_FIELDS}
-    gbest_in = torch.as_tensor(gbest, device=dev).to(vt).reshape(1)
-    head_in = torch.as_tensor(pool_head, device=dev).to(torch.int32)
-    head_in = (head_in.reshape(-1).expand(NT).contiguous() if tiled
-               else head_in.reshape(1))
+    gbest_in = gbest.to(device=dev, dtype=vt).contiguous()
+    heads = heads.to(device=dev, dtype=torch.int32).contiguous()
     # the want flags, then a lane-claim counter per superstep parity
     want = torch.empty(L + 2, dtype=torch.int32, device=dev)
     # one queue: 5 cells; lane tiles: 5 kinds x 2 parities x NT
     cells = torch.empty(10 * NT if tiled else 5, dtype=vt, device=dev)
     res = torch.empty((4, NT), dtype=vt, device=dev)
     subs_lb, subs_ub = subs_lb.contiguous(), subs_ub.contiguous()
-    bv = cm.branch_vars.to(torch.int32).contiguous()
-    io = (bv, subs_lb, subs_ub, gbest_in, head_in, want, cells, res)
-    ints = (L, bv.shape[0], subs_lb.shape[0], st.dec_var.shape[1],
+    bv = torch.stack([c.branch_vars.to(torch.int32) for c in cms]) \
+        .contiguous()
+    io = (bv, subs_lb, subs_ub, gbest_in, heads, want, cells, res)
+    ints = (L, bv.shape[1], subs_lb.shape[1], st.dec_var.shape[1],
             cm.obj_var, supersteps, cap, _VAR_CODES[var_strategy],
-            _VAL_CODES[val_strategy], int(stop_on_first), int(it), tile, NT)
+            _VAL_CODES[val_strategy], int(stop_on_first), int(its[0]), tile,
+            NT, NB, L // NB, NT // NB, *map(int, its[1:]))
+    ctab = [_c_tables(c) for c in cms]
+    tables = (ctypes.c_void_p * (NB * len(ctab[0][0])))(
+        *(p for c, _ in ctab for p in c))
 
     def ptrs(ts):
         return (ctypes.c_void_p * len(ts))(
             *(None if t is None else t.data_ptr() for t in ts))
 
     err = lib.search_launch(
-        *_c_tables(cm), ptrs([out[f] for f in _STATE_FIELDS]), ptrs(io),
+        tables, ctab[0][1], ptrs([out[f] for f in _STATE_FIELDS]), ptrs(io),
         (ctypes.c_int * len(ints))(*ints),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -662,11 +857,7 @@ def launch_search(lib, cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
                            + lib.search_error_string(err).decode())
     st_out = S.LaneState(**{f: (out[f] != 0 if f in _BOOL_FIELDS
                                 else out[f]) for f in _STATE_FIELDS})
-    if tiled:
-        return (st_out, res[0].min(), res[1].max().to(torch.int32),
-                res[2].to(torch.int32), (res[3] != 0).all())
-    return (st_out, res[0, 0], res[1, 0].to(torch.int32),
-            res[2, 0].to(torch.int32), res[3, 0] != 0)
+    return st_out, res
 
 
 def search_grid(cm, n_lanes: int, dom: bool = False,

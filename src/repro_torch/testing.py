@@ -218,3 +218,63 @@ def search_diff(ref, got) -> list:
         if a.shape != b.shape or not torch.equal(a.long(), b.long()):
             bad.append(name)
     return bad
+
+
+def permuted_durations(inst, seed: int):
+    """An RCPSP instance with its durations permuted by
+    ``np.random.default_rng(seed)``: the same project re-estimated, whose
+    compile keeps the shape signature (a batch's slots need one)."""
+    import dataclasses
+    return dataclasses.replace(
+        inst, durations=np.random.default_rng(seed).permutation(
+            inst.durations))
+
+
+def slot_inputs(cms, n_lanes: int, opts, pools, *, idle=(), done=()):
+    """The inputs of one launch over slots, as `LaneBatch` makes them:
+    slot i fresh with model ``cms[i]`` and pool ``pools[i]`` (host
+    arrays), every pool padded with failed stores to the bucket of the
+    largest; slots in `idle` frozen as `LaneBatch` freezes an idle slot
+    (every lane done, an all-failed pool), slots in `done` with every
+    lane done (a finished search).  Returns (subs_lb [B, S, V], subs_ub,
+    st over B · n_lanes lanes, gbest [B], it [B], pool_head [B])."""
+    import torch
+
+    from repro_torch.core import eps
+    from repro_torch.core import search as S
+    from repro_torch.core.api import _bucket
+    size = _bucket(max(p[0].shape[0] for p in pools))
+    lbs, ubs, sts = [], [], []
+    for i, (cm, (lb, ub)) in enumerate(zip(cms, pools)):
+        if i in idle:
+            lb, ub = eps.failed_pool(cm.lb0.cpu().numpy(),
+                                     cm.ub0.cpu().numpy(), size)
+        lb, ub = eps.pad_pool(np.asarray(lb), np.asarray(ub), size)
+        lbs.append(lb)
+        ubs.append(ub)
+        st = S.init_lanes(cm, n_lanes, opts)
+        if i in idle or i in done:
+            st = st._replace(done=torch.ones_like(st.done))
+        if i in idle:
+            st = st._replace(fresh=torch.zeros_like(st.fresh))
+        sts.append(st)
+    cm, B = cms[0], len(cms)
+    dev = cm.device
+    big = torch.iinfo(cm.tdtype).max // 4
+    return (torch.from_numpy(np.stack(lbs)).to(dev),
+            torch.from_numpy(np.stack(ubs)).to(dev),
+            S.LaneState(*(None if f[0] is None else torch.cat(f)
+                          for f in zip(*sts))),
+            torch.full((B,), big, dtype=cm.tdtype, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev))
+
+
+def slot_part(out, i: int, n_lanes: int):
+    """Slot i's part of a launch over slots (`search_slots_cuda`'s
+    outputs): its lanes' state, bound, superstep count, cursor(s) and
+    stop flag, in the form of a single-instance `search_cuda` launch's."""
+    from repro_torch.core import search as S
+    rows = slice(i * n_lanes, (i + 1) * n_lanes)
+    return (S.LaneState(*(None if a is None else a[rows] for a in out[0])),
+            ) + tuple(a[i] for a in out[1:])

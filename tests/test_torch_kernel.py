@@ -33,9 +33,10 @@ from repro_torch.core.models import (ZOO, bench_instance, coloring, jobshop,
                                      small_instance)
 from repro_torch.kernels import build
 from repro_torch.kernels import fixpoint_kernel as K
-from repro_torch.testing import (CT_HAND_MODELS, random_dom_stores,
-                                 random_substores, search_diff,
-                                 search_inputs)
+from repro_torch.testing import (CT_HAND_MODELS, permuted_durations,
+                                 random_dom_stores, random_substores,
+                                 search_diff, search_inputs, slot_inputs,
+                                 slot_part)
 
 torch.set_num_threads(1)      # tiny tensors: thread hand-offs cost more
 
@@ -304,6 +305,70 @@ def test_search_wrapper_checks():
     with pytest.raises(ValueError, match="no lanes"):
         K._check_search(cm, slb, sub, S.LaneState(
             *(None if a is None else a[:0] for a in st)), "min_lb", "min")
+
+
+def _slot_models(kw, device="cpu", seeds=(0, 1, 2), **compile_kw):
+    """RCPSP `kw` at seed 0 and the same project with its durations
+    permuted by each further seed: one shape signature."""
+    inst = rcpsp.generate(**kw, seed=0)
+    insts = [inst] + [permuted_durations(inst, s) for s in seeds[1:]]
+    return [rcpsp.build_model(i)[0].compile(device=device, **compile_kw)
+            for i in insts]
+
+
+def _slot_args(cms, n_lanes, target, opts, **slots):
+    from repro_torch.core import eps
+    pools = [eps.decompose(cm, target, opts) for cm in cms]
+    return slot_inputs(cms, n_lanes, opts, pools, **slots)
+
+
+def test_slot_wrapper_refuses_mixed_shapes_and_bad_batches():
+    """What `search_slots_cuda` refuses before it launches (on CPU
+    tensors; on the card the same checks guard the launch)."""
+    opts = S.SearchOptions(var_strategy="min_lb", max_depth=64)
+    cms = _slot_models(SMALL)
+    args = _slot_args(cms, 4, 8, opts)
+    K._check_slots(cms, *args[:4], "min_lb", "min")         # accepted
+    other = _rcpsp(BENCH)                       # another shape signature
+    with pytest.raises(ValueError, match="shape signature"):
+        K.search_slots_cuda(cms[:2] + [other], *args)
+    with pytest.raises(ValueError, match="no slots"):
+        K.search_slots_cuda([], *args)
+    with pytest.raises(ValueError, match=r"pools must be \[3, S, V\]"):
+        K.search_slots_cuda(cms, args[0][0], args[1][0], *args[2:])
+    with pytest.raises(ValueError, match="do not split"):
+        st = S.LaneState(*(None if a is None else a[:11] for a in args[2]))
+        K.search_slots_cuda(cms, args[0], args[1], st, *args[3:])
+    with pytest.raises(ValueError, match=r"bounds must be \[3\]"):
+        K.search_slots_cuda(cms, *args[:3], args[3][:2], *args[4:])
+
+
+@pytest.mark.parametrize("lane_tile", [0, 2])
+def test_slot_search_on_cpu_is_each_slot_alone(lane_tile):
+    """On CPU tensors `search_slots_cuda` is `search_slots_plain`, and
+    each slot's outputs are `search_plain`'s on that slot alone; an
+    idle and a finished slot stand still, their superstep counts too."""
+    opts = S.SearchOptions(var_strategy="min_lb", max_depth=64)
+    cms = _slot_models(SMALL, seeds=(0, 1, 2, 3))
+    args = _slot_args(cms, 4, 8, opts, idle=(2,), done=(3,))
+    kw = dict(var_strategy="min_lb", lane_tile=lane_tile)
+    before = K.search_cuda.launches
+    warm = K.search_slots_cuda(cms, *args, supersteps=3, **kw)
+    assert K.search_cuda.launches == before
+    args = args[:2] + warm[:4]
+    got = K.search_slots_cuda(cms, *args, supersteps=4, **kw)
+    assert search_diff(K.search_slots_plain(cms, *args, supersteps=4, **kw),
+                       got) == []
+    for i, cm in enumerate(cms):
+        one = K.search_plain(cm, args[0][i], args[1][i],
+                             *slot_part(args[2:], i, 4), supersteps=4, **kw)
+        assert search_diff(one, slot_part(got, i, 4)) == [], i
+    assert got[2].tolist()[2:] == [0, 0] and got[4].tolist()[2:] == [True,
+                                                                    True]
+    assert int(got[2][0]) > 3 and int(got[2][1]) > 3
+    for i in (2, 3):              # idle and finished: they stand still
+        assert search_diff(slot_part(args[2:], i, 4)[:3] + (0, True),
+                           slot_part(got, i, 4)[:3] + (0, got[4][i])) == []
 
 
 @pytest.mark.parametrize("supersteps", [1, 16])
@@ -735,6 +800,87 @@ def test_tiled_search_kernel_matches_plain_on_gpu(cuda, lane_tile):
             torch.cuda.synchronize()
             assert got[3].shape == (-(-n // lane_tile),)
             assert search_diff(ref, got) == [], (what, k)
+
+
+# ---- on the card only: the search kernel's slot axis ----------------------
+
+def _slot_cases(device):
+    """(what, models, lanes per slot, inputs, kwargs) of launches over
+    slots: J30 class with permuted durations, B = 3 (one live, one idle,
+    one finished after 5 plain supersteps, and all fresh) and B = 1;
+    stop_on_first; int64; B = 10 (two launches); the bitset store
+    (crossword bench at seeds 0-2) and middle_out (N-queens 8)."""
+    n = 128
+    opts = S.SearchOptions(var_strategy="min_lb", max_depth=64)
+    kw = dict(var_strategy="min_lb")
+    j30 = _slot_models(dict(n_tasks=30), device)
+    args = _slot_args(j30, n, 512, opts)
+    yield "j30 B=3 fresh", j30, n, args, kw
+    warm = K.search_slots_plain(j30, *args, supersteps=5, **kw)
+    rows = slice(2 * n, 3 * n)
+    done = warm[0].done.clone()
+    done[rows] = True
+    idle = _slot_args(j30, n, 512, opts, idle=(1,))
+    st = S.LaneState(*(None if a is None else a.clone() for a in warm[0]))
+    for a, b in zip(st, idle[2]):
+        if a is not None:
+            a[n:2 * n] = b[n:2 * n]
+    args5 = (idle[0], idle[1], st._replace(done=done)) + warm[1:4]
+    yield "j30 B=3 after 5, slot 1 idle, slot 2 finished", j30, n, args5, kw
+    one = _slot_args(j30[:1], n, 512, opts)
+    yield "j30 B=1", j30[:1], n, one, kw
+    yield ("j30 B=3 first", j30, n, args,
+           dict(kw, stop_on_first=True))
+    wide = _slot_models(dict(n_tasks=30), device, force_dtype="int64")
+    yield "j30 int64 B=3", wide, n, _slot_args(wide, n, 512, opts), kw
+    cw = [ZOO["crossword"].build_model(bench_instance(
+        "crossword", seed=s))[0].compile(device=device) for s in (0, 1, 2)]
+    copts = S.SearchOptions(var_strategy="min_dom", max_depth=64)
+    yield ("crossword bench B=3 (bitset store)", cw, 64,
+           _slot_args(cw, 64, 128, copts), dict(var_strategy="min_dom"))
+    many = _slot_models(dict(n_tasks=30), device, seeds=range(10))
+    yield ("j30 B=10 (two launches: 8 slots and 2)", many, 16,
+           _slot_args(many, 16, 64, opts, idle=(3,), done=(8,)), kw)
+    q8 = [_nqueens(8, device=device)] * 3
+    mopts = S.SearchOptions(var_strategy="min_dom",
+                            val_strategy="middle_out", max_depth=64)
+    yield ("nqueens8 B=3 middle_out", q8, 64,
+           _slot_args(q8, 64, 256, mopts, idle=(1,)),
+           dict(var_strategy="min_dom", val_strategy="middle_out"))
+
+
+@pytest.mark.parametrize("lane_tile", [0, 32, 48])
+def test_slot_search_kernel_matches_plain_and_single_on_gpu(cuda, lane_tile):
+    """One launch over slots against `search_slots_plain` and, slot by
+    slot, against a single-instance `search_cuda` launch on the slot
+    alone (one queue per slot, or lane tiles of 32 and 48 lanes, a short
+    last tile, per slot), K = 1 and 16: every field, the per-slot bound,
+    superstep count, cursors and stop flag.  Idle and finished slots keep
+    their state and superstep count."""
+    for what, cms, n, args, kw in _slot_cases(cuda):
+        kw = dict(kw, lane_tile=lane_tile)
+        for k in (1, 16):
+            ref = K.search_slots_plain(cms, *args, supersteps=k, **kw)
+            before = (K.search_cuda.launches, K.search_cuda.slot_launches)
+            got = K.search_slots_cuda(cms, *args, supersteps=k, **kw)
+            torch.cuda.synchronize()
+            n_launch = -(-len(cms) // 8)       # 8 slots per launch
+            assert (K.search_cuda.launches,
+                    K.search_cuda.slot_launches) == (before[0] + n_launch,
+                                                     before[1] + n_launch)
+            assert search_diff(ref, got) == [], (what, k)
+            for i, cm in enumerate(cms):
+                one = K.search_cuda(cm, args[0][i], args[1][i],
+                                    *slot_part(args[2:], i, n),
+                                    supersteps=k, **kw)
+                assert search_diff(one, slot_part(got, i, n)) == [], \
+                    (what, k, i)
+                if bool(args[2].done[i * n:(i + 1) * n].all()):
+                    # stopped: state, bound and superstep count stand still
+                    assert search_diff(
+                        slot_part(args[2:], i, n)[:3] + (0, True),
+                        slot_part(got, i, n)[:3] + (0, got[4][i])) == [], \
+                        (what, i)
 
 
 # ---- on the card only: the few-lane instance ------------------------------
