@@ -260,6 +260,31 @@ exit code and no result line:
    every counter and is ground-checked;
    latency and time-to-first-incumbent percentiles, mean occupancy,
    builds and EPS seconds per bucket, and the phase's wall time.
+33. the scatter oracle on the card: on J60 (dense Cumulative), J120
+   (sparse Cumulative), N-queens 32 (dense AllDifferent), N-queens 256
+   (sparse AllDifferent), crossword large (Compact-Table; the bitset
+   store carried and transient, and its EPS pool) and J120 × 10⁷
+   (int64), the ``scatter`` backend's ``fixpoint_batch`` (PyTorch
+   ``scatter_reduce`` joins, CUDA tensors in and out) against ``cuda``
+   on the 1024 random stores of the kernel phases: equal failed masks
+   and, on every lane that did not fail, equal stores, bitset stores,
+   sweeps and convergence flags; ``kernels.ops.batched_fixpoint(
+   impl="cuda")`` against ``kernels.ref.fixpoint_ref`` on the last 64
+   of them; the scatter form's ms against ``fixpoint_cuda``'s per model;
+   J30 seed 0 solved through ``SolveConfig(backend="scatter")`` with
+   ``cuda``'s counters (and the JAX package's);
+34. the paper's comparison: RCPSP J30 seeds 0-3, J60 and J120 seed 0
+   (``rcpsp.generate(n, n_resources=4, seed)``), ``prove``, 1024 lanes,
+   eps_target 4096, ``cuda_resident`` K=16 on the card against the
+   port's ``SequentialSolver`` on the host with the same
+   ``SearchOptions`` (60 s per instance): equal objectives where both
+   prove (J30 s0 34, J60 82, J120 157 on the card), the card's solutions
+   ground-checked, a cut baseline's incumbent never below the optimum;
+   one line per instance (statuses, objectives, nodes, wall s, nodes/s,
+   ``eps_s``, launches) beside the card line and the host CPU's model;
+35. the entry points: ``examples/torch_quickstart.py`` and
+   ``examples/torch_rcpsp_solve.py --n 8 --count 2`` as subprocesses on
+   the card, each exiting 0.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -380,6 +405,22 @@ SERVE_MIX = (("nqueens", dict(n=32), 1.0), ("knapsack", dict(n=20), 2.0),
 SERVE_DEADLINES = (None, 120.0, 600.0)
 SERVE_STRATEGY = ("min_dom", "split")
 SERVE_MAX_WALL_S = 300.0
+# phase 33: the random stores of each model (the last ones) the oracle
+# (`fixpoint_ref`) and `batched_fixpoint(impl="cuda")` run on
+SCATTER_REF_LANES = 64
+# phase 34: the paper's comparison, (tag, tasks, seed) of
+# rcpsp.generate(n, n_resources=4, seed), the optima the card must prove,
+# and the baseline's time limit per instance
+COMPARISON = (("J30 s0", 30, 0), ("J30 s1", 30, 1), ("J30 s2", 30, 2),
+              ("J30 s3", 30, 3), ("J60 s0", 60, 0), ("J120 s0", 120, 0))
+COMPARISON_OPTIMUM = {"J30 s0": J30_REFERENCE["objective"],
+                      "J60 s0": J60_OPTIMUM,
+                      "J120 s0": SPARSE_OPTIMUM["J120"]}
+BASELINE_TIMEOUT_S = 60.0
+# phase 35: the examples, run from the repository root
+EXAMPLES = (("examples/torch_quickstart.py",),
+            ("examples/torch_rcpsp_solve.py", "--n", "8", "--count", "2"))
+EXAMPLE_TIMEOUT_S = 300
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_BF16_FLOP_S = 989e12
 # the phases of a sweep the clocks library stamps (fixlane::Phase order)
@@ -2750,6 +2791,208 @@ def phase_service():
     return n["search"]
 
 
+# --------------------------------------------------------------------------
+# phase 33: the scatter oracle on the card
+# --------------------------------------------------------------------------
+
+def compare_scatter(cm, lb, ub, dom, what):
+    """The ``scatter`` backend against ``cuda`` (kernel 1) on one batch:
+    equal failed masks and, on every lane that did not fail, equal
+    stores, bitset stores, sweeps and convergence flags.  Returns (lanes
+    that failed, whether every output is equal on every lane, the
+    scatter call's ms by CUDA events)."""
+    import torch
+    from repro_torch.core.backend import get_backend
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    ref = get_backend("scatter").fixpoint_batch(cm, lb, ub, dom=dom)
+    t1.record()
+    got = get_backend("cuda").fixpoint_batch(cm, lb, ub, dom=dom)
+    torch.cuda.synchronize()
+    if not all(t.is_cuda for t in ref):
+        fail(f"{what}: the scatter outputs are not all CUDA tensors")
+    names = (("lb", "ub", "dom", "sweeps", "converged") if dom is not None
+             else ("lb", "ub", "sweeps", "converged"))
+    rfail = (ref[0] > ref[1]).any(1)
+    if not torch.equal(rfail, (got[0] > got[1]).any(1)):
+        fail(f"{what}: failed masks differ")
+    ok = ~rfail
+    for name, r, g in zip(names, ref, got):
+        if not torch.equal(r[ok], g[ok]):
+            fail(f"{what}: {name} differs on lanes that did not fail")
+    return (int(rfail.sum()), all(torch.equal(r, g) for r, g in zip(ref, got)),
+            t0.elapsed_time(t1))
+
+
+def phase_scatter_oracle(card, models, j30):
+    """Phase 33.  `models`: tag -> Case (with random stores, bitset
+    stores for a table model, and an EPS pool where one was made).
+    Returns the launches of `batched_fixpoint(impl="cuda")` and of the
+    J30 solves."""
+    import torch
+    from repro_torch.core import bitset as B
+    from repro_torch.core.backend import get_backend
+    from repro_torch.kernels.ops import batched_fixpoint
+    from repro_torch.kernels.ref import fixpoint_ref
+    from repro_torch.solver import SolveConfig
+    timings, ops_launches = [], 0
+    for tag, c in models.items():
+        cm = c.cm
+        lb = torch.from_numpy(c.lbs).cuda()
+        ub = torch.from_numpy(c.ubs).cuda()
+        batches = [("random", lb, ub, None)]
+        if c.doms is not None:
+            # the bitset store carried (random words), and transient
+            batches.insert(0, ("random, bitset store carried", lb, ub,
+                               torch.from_numpy(c.doms.view("int32")).cuda()))
+        if c.pool is not None:
+            plb = torch.from_numpy(c.pool[0][:N_RANDOM]).cuda()
+            pub = torch.from_numpy(c.pool[1][:N_RANDOM]).cuda()
+            pdom = (B.from_bounds(plb, pub, cm.dom_off, cm.n_words,
+                                  track=cm.dom_track.view(torch.int32))
+                    if c.doms is not None else None)
+            batches.append(("EPS pool", plb, pub, pdom))
+        for name, blb, bub, bdom in batches:
+            n_failed, whole, scatter_ms = compare_scatter(
+                cm, blb, bub, bdom, f"{tag} {name}: scatter vs cuda")
+            print(f"[33] {tag} {name}: scatter == cuda on {blb.shape[0]} "
+                  f"stores ({n_failed} failed; every output equal on every "
+                  f"lane: {whole})")
+            if name.startswith("random"):
+                kernel_ms = cuda_ms(lambda: get_backend("cuda").fixpoint_batch(
+                    cm, blb, bub, dom=bdom), reps=10, warmup=2)
+                timings.append((f"{tag} {name}", scatter_ms, kernel_ms))
+        # the oracle on the last 64 of the stores (past the overfull ones
+        # of an AllDifferent model), against the façade's kernel
+        n = SCATTER_REF_LANES
+        zero_launch_counts()
+        klb, kub = batched_fixpoint(cm, lb[-n:], ub[-n:], impl="cuda")
+        torch.cuda.synchronize()
+        ops_launches += launch_counts()["fixpoint"]
+        rlb, rub = fixpoint_ref(cm, lb[-n:], ub[-n:])
+        if not (rlb.is_cuda and rub.is_cuda):
+            fail(f"{tag}: fixpoint_ref's outputs are not CUDA tensors")
+        rfail = (rlb > rub).any(1)
+        if not torch.equal(rfail, (klb > kub).any(1)):
+            fail(f"{tag}: batched_fixpoint(impl='cuda') and fixpoint_ref "
+                 "disagree on the failed mask")
+        if not (torch.equal(rlb[~rfail], klb[~rfail])
+                and torch.equal(rub[~rfail], kub[~rfail])):
+            fail(f"{tag}: batched_fixpoint(impl='cuda') and fixpoint_ref "
+                 "disagree on a store that did not fail")
+        print(f"[33] {tag}: batched_fixpoint(impl='cuda') == fixpoint_ref on "
+              f"{n} stores ({int(rfail.sum())} failed)")
+    for what, scatter_ms, kernel_ms in timings:
+        print(f"[33] time, {what} [{N_RANDOM}, V] uncapped: scatter form "
+              f"{scatter_ms:.3f} ms (one call), fixpoint_cuda {kernel_ms:.4f} "
+              f"ms ({scatter_ms / kernel_ms:.1f}x) on {card}")
+    # a whole solve through the scatter backend on the card, phase 3's J30
+    got, launches = {}, {}
+    for backend in ("scatter", "cuda"):
+        cfg = SolveConfig.preset("prove", backend=backend, n_lanes=J30_LANES)
+        got[backend], launches[backend] = solve_case(
+            33, "J30", j30, cfg, J30_REFERENCE["objective"])
+        if backend == "scatter" and any(launches[backend]):
+            fail(f"J30 (scatter): kernel launches {launches[backend]}")
+    same_counters(33, "J30", got, J30_REFERENCE)
+    print(f"kernels: batched_fixpoint(impl='cuda') launches of fixpoint_cuda "
+          f"{ops_launches}; the J30 solves' (fixpoint_cuda, search_cuda, "
+          f"few-lane) launches: scatter {launches['scatter']}, cuda "
+          f"{launches['cuda']}")
+    return ops_launches, launches
+
+
+# --------------------------------------------------------------------------
+# phase 34: the paper's comparison, the card against the sequential baseline
+# --------------------------------------------------------------------------
+
+def cpu_model():
+    """The host CPU as /proc/cpuinfo gives it: the model name (a virtual
+    machine may report "unknown"), with the vendor, family, model number,
+    clock and processor count beside it."""
+    first, n = {}, 0
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            key = key.strip()
+            n += key == "processor"
+            first.setdefault(key, val.strip())
+    get = first.get
+    return (f"{get('model name', 'no model name')} ({get('vendor_id', '?')}"
+            f" family {get('cpu family', '?')} model {get('model', '?')}, "
+            f"{get('cpu MHz', '?')} MHz, {n} processors)")
+
+
+def phase_paper_comparison(card):
+    """Phase 34.  Returns {tag: (card result, baseline result, launches)}."""
+    from repro_torch.core.baseline import SequentialSolver
+    from repro_torch.core.models import rcpsp
+    from repro_torch.solver import Solver
+    cfg = main_config("cuda_resident")
+    host = cpu_model()
+    print(f"[34] card {card}; host CPU {host} (the baseline, one core); "
+          f"card: cuda_resident K={MAIN_K}, {cfg.n_lanes} lanes, eps_target "
+          f"{cfg.resolved_eps_target()}, prove; baseline: the same "
+          f"SearchOptions, {BASELINE_TIMEOUT_S:.0f} s per instance")
+    out = {}
+    for tag, n, seed in COMPARISON:
+        inst = rcpsp.generate(n, n_resources=4, seed=seed)
+        m, h = rcpsp.build_model(inst)
+        cm = m.compile(device="cuda")
+        zero_launch_counts()
+        par = Solver(cfg).solve(cm)
+        n_l = launch_counts()
+        seq = SequentialSolver(cm, cfg.search_options()).solve(
+            timeout_s=BASELINE_TIMEOUT_S)
+        if par.status != "OPTIMAL":
+            fail(f"{tag}: the card gave {par.status}, not OPTIMAL")
+        want = COMPARISON_OPTIMUM.get(tag)
+        if want is not None and par.objective != want:
+            fail(f"{tag}: the card proved {par.objective}, not {want}")
+        starts = par.solution[[v.idx for v in h["s"]]]
+        ok, mk = rcpsp.check_solution(inst, starts)
+        if not (ok and mk == par.objective):
+            fail(f"{tag}: the card's solution fails the ground check")
+        if seq.status == "OPTIMAL" and seq.objective != par.objective:
+            fail(f"{tag}: the baseline proved {seq.objective}, the card "
+                 f"{par.objective}")
+        if seq.objective is not None and seq.objective < par.objective:
+            fail(f"{tag}: the baseline's incumbent {seq.objective} is below "
+                 f"the proven optimum {par.objective}")
+        print(f"[34] {tag}: card {par.status} {par.objective} nodes="
+              f"{par.n_nodes} wall={par.wall_s:.3f} s "
+              f"({par.nodes_per_sec:.0f} nodes/s) eps_s={par.eps_s:.3f} "
+              f"launches fixpoint_cuda={n_l['fixpoint']} (few-lane "
+              f"{n_l['few_lane']}) search_cuda={n_l['search']} | baseline "
+              f"{seq.status} {seq.objective} nodes={seq.n_nodes} "
+              f"wall={seq.wall_s:.3f} s ({seq.nodes_per_sec:.0f} nodes/s) | "
+              f"ground check OK")
+        out[tag] = (par, seq, n_l)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 35: the entry points, as a user runs them
+# --------------------------------------------------------------------------
+
+def phase_examples():
+    """Phase 35: the port's examples as subprocesses on the card."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    for args in EXAMPLES:
+        t0 = time.time()
+        r = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                           capture_output=True, text=True,
+                           timeout=EXAMPLE_TIMEOUT_S)
+        if r.returncode != 0:
+            fail(f"{' '.join(args)} exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        for line in r.stdout.strip().splitlines():
+            print(f"[35] {os.path.basename(args[0])}: {line}")
+        print(f"[35] {' '.join(args)}: exit 0 in {time.time() - t0:.1f} s")
+
+
 def mode_entry(base, mode, launches, err, times):
     """A {"kernels": [...]} entry of one kernel mode: `base`'s name,
     route, source and bank list, this mode's launches, max |err| and
@@ -2842,6 +3085,13 @@ def main():
                                  batches)
     many_launches = timed(31, phase_solve_many, batches[0][1])
     serve_launches = timed(32, phase_service)
+    scatter_launches, _ = timed(33, phase_scatter_oracle, card, {
+        "J60": rcpsp["J60"], "J120": sparse["J120"],
+        "nqueens32": zoo["nqueens32"], "nqueens256": sparse["nqueens256"],
+        "crossword_large": tables["crossword_large"],
+        "J120x1e7": int64["J120x1e7"]}, rcpsp["J30"])
+    comparison = timed(34, phase_paper_comparison, card)
+    timed(35, phase_examples)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
                                     sp_err, ct_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
@@ -2879,6 +3129,11 @@ def main():
               f"{t} {b} {n}" for (t, b), n in ct_launches.items()))
     print(f"kernels: slot launches of search_cuda: solve_many "
           f"{many_launches}, the service {serve_launches}")
+    print("kernels: phase 34's (fixpoint_cuda, few-lane fixpoint_cuda, "
+          "search_cuda) launches: " + ", ".join(
+              f"{t} ({n['fixpoint']}, {n['few_lane']}, {n['search']})"
+              for t, (_, _, n) in comparison.items())
+          + f"; phase 33's batched_fixpoint(impl='cuda') {scatter_launches}")
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

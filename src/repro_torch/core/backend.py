@@ -3,10 +3,15 @@
 Search and EPS only need ``fixpoint_batch(cm, lb, ub, dom=None)``: a
 whole ``[n_lanes, V]`` store tensor (and, when search carries it, the
 ``[n_lanes, V, W]`` bitset store) to its per-lane fixed points in one
-call.
-Three backends register here:
+call.  ``fixpoint(cm, lb, ub)`` is the single-store view (one store to
+its least fixed point).  Four backends register here:
 
   ``gather``         the plain PyTorch sweep (`fixpoint.fixpoint_batch`);
+  ``scatter``        the propagator-centric scatter form
+                     (`fixpoint.sweep_scatter_batch`): each propagator
+                     joins its variables through ``scatter_reduce``
+                     (amin/amax), the paper's atomic-join reading; on
+                     CUDA tensors it runs on the card as PyTorch ops;
   ``cuda``           the hand-written Hopper kernel
                      (`kernels/fixpoint_kernel.fixpoint_cuda`),
                      counterpart of the reference's ``pallas`` backend;
@@ -19,8 +24,8 @@ On CPU tensors the kernel wrappers run their plain versions; on CUDA
 tensors they launch the kernel or raise — there is no fallback.  Every
 ``fixpoint_batch`` returns ``(lb', ub', sweeps[L], converged[L])``, with
 dom' before the counters when `dom` is given, and *per-lane* sweep
-counts, identical between the backends (and to the reference's gather
-and pallas backends).
+counts, identical between the backends (and to the reference's gather,
+scatter and pallas backends).
 """
 
 from __future__ import annotations
@@ -42,6 +47,11 @@ class PropagationBackend(Protocol):
 
     name: str
 
+    def fixpoint(self, cm: CompiledModel, lb: torch.Tensor,
+                 ub: torch.Tensor, *,
+                 max_iters: Optional[int] = None) -> FixpointResult:
+        ...
+
     def fixpoint_batch(self, cm: CompiledModel, lb: torch.Tensor,
                        ub: torch.Tensor, *, dom=None,
                        max_iters: Optional[int] = None) -> FixpointResult:
@@ -53,8 +63,25 @@ class GatherBackend:
 
     name = "gather"
 
+    def fixpoint(self, cm, lb, ub, *, max_iters=None):
+        return F.fixpoint(cm, lb, ub, max_iters=max_iters)
+
     def fixpoint_batch(self, cm, lb, ub, *, dom=None, max_iters=None):
         return F.fixpoint_batch(cm, lb, ub, dom, max_iters=max_iters)
+
+
+class ScatterBackend:
+    """The propagator-centric scatter-join form (the reference
+    semantics)."""
+
+    name = "scatter"
+
+    def fixpoint(self, cm, lb, ub, *, max_iters=None):
+        return F.fixpoint(cm, lb, ub, max_iters=max_iters, use_scatter=True)
+
+    def fixpoint_batch(self, cm, lb, ub, *, dom=None, max_iters=None):
+        return F.fixpoint_batch(cm, lb, ub, dom, max_iters=max_iters,
+                                use_scatter=True)
 
 
 class CudaBackend:
@@ -62,6 +89,11 @@ class CudaBackend:
     memory); replaces the reference's ``pallas`` backend."""
 
     name = "cuda"
+
+    def fixpoint(self, cm, lb, ub, *, max_iters=None):
+        nlb, nub, sweeps, conv = self.fixpoint_batch(
+            cm, lb[None], ub[None], max_iters=max_iters)
+        return nlb[0], nub[0], sweeps[0], conv[0]
 
     def fixpoint_batch(self, cm, lb, ub, *, dom=None, max_iters=None):
         from repro_torch.kernels.fixpoint_kernel import fixpoint_cuda
@@ -147,5 +179,6 @@ def get_backend(name: str, **opts) -> PropagationBackend:
 
 
 register_backend("gather", GatherBackend)
+register_backend("scatter", ScatterBackend)
 register_backend("cuda", CudaBackend)
 register_backend("cuda_resident", CudaResidentBackend)

@@ -22,7 +22,7 @@ and positions come back as int32.  The SWAR popcount then needs no
 wraparound: the int64 product ``x · 0x01010101`` keeps the count in bits
 24–31.
 
-The device half (`popcount` … `to_bounds`) works on tensors; the host
+The device half (`popcount` … `has_value`) works on tensors; the host
 half (`np_*`) mirrors the reference's numpy functions on ``uint32``
 arrays for the compiler and the tests.
 """
@@ -96,6 +96,21 @@ def join(a, b):
     return a & b
 
 
+def meet(a, b):
+    """⊓: union of value sets (OR)."""
+    return a | b
+
+
+def leq(a, b):
+    """a ≤ b in information order: b's value set ⊆ a's.  Per-var bool."""
+    return ((b & ~a) == 0).all(-1)
+
+
+def is_empty(dom):
+    """Top of the lattice per variable == failure (no value left)."""
+    return (dom == 0).all(-1)
+
+
 def count(dom):
     """|dom| per variable (int32)."""
     return popcount(dom).sum(-1, dtype=torch.int32)
@@ -140,6 +155,19 @@ def to_bounds(dom, off):
     """Interval hull (lo, hi) of the domain; lo > hi iff empty, and an
     empty domain yields ``(off + 32·W, off - 1)``."""
     return min_value(dom, off), max_value(dom, off)
+
+
+def has_value(dom, val, off):
+    """Membership test per var (`val`/`off` broadcastable int tensors)."""
+    W = dom.shape[-1]
+    bit = (torch.as_tensor(val, device=dom.device).long()
+           - torch.as_tensor(off, device=dom.device).long())
+    bit = bit.expand(torch.broadcast_shapes(bit.shape, dom.shape[:-1]))
+    ok = (bit >= 0) & (bit < W * WORD_BITS)
+    w = torch.clamp(bit >> 5, 0, W - 1)
+    word = torch.take_along_dim(
+        dom.expand(bit.shape + (W,)), w[..., None], -1)[..., 0]
+    return ok & (((unsigned(word) >> (bit & 31)) & 1) != 0)
 
 
 # --- host-side mirrors (numpy, uint32) --------------------------------------

@@ -24,6 +24,15 @@ store (``dom``, ``[L, V, W]`` int32 bit patterns, see `bitset`) rides
 through `sweep_tile`/`fixpoint_tile`/`fixpoint_batch` as in the
 reference.
 
+The semantics layer sits on the same kind tiles: the single-store
+`sweep`, the propagator-centric scatter form (`sweep_scatter`,
+`sweep_scatter_batch`: each propagator joins its variables through a
+scatter-min/max, the paper's atomic-join reading, selected with
+``use_scatter`` on `fixpoint`/`fixpoint_batch` and by the ``scatter``
+backend), and the sequential chaotic iteration (`apply_one`,
+`sequential_fixpoint`) of the paper's Prop. 3 and Thm. 6.  Gather and
+scatter sweeps are bit-identical per sweep, not only at the fixpoint.
+
 Integer dtype discipline: every reduction passes ``dtype=`` (torch widens
 int32 sums to int64, ``jnp`` does not), so stores stay in the model's
 dtype end to end.
@@ -31,6 +40,7 @@ dtype end to end.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -38,6 +48,7 @@ import torch
 from repro_torch.core import bitset as B
 from repro_torch.core import lattice as LT
 from repro_torch.core.compile import CompiledModel
+from repro_torch.core.model import TRUE_VAR
 
 
 def _neutrals(dtype: torch.dtype) -> Tuple[int, int]:
@@ -636,12 +647,125 @@ def model_statics(cm: CompiledModel) -> dict:
                 n_table=cm.n_table, n_words=cm.n_words)
 
 
+def propagator_candidates(cm: CompiledModel, lb, ub):
+    """Single-store view of `candidates_tile` (each ``[P+1, K+1]``): the
+    entry point of the linear scatter form and the sequential SELECT
+    semantics, which are defined on the ReifLinLe bank."""
+    cand_lb, cand_ub = candidates_tile(lb[None], ub[None], cm.vidx, cm.coef,
+                                       cm.rhs, cm.bidx)
+    return cand_lb[0], cand_ub[0]
+
+
+def sweep(cm: CompiledModel, lb, ub):
+    """One parallel iteration D(P₁) ⊔ … ⊔ D(Pₙ) applied to one store."""
+    nlb, nub = sweep_tile(lb[None], ub[None], *model_tables(cm),
+                          **model_statics(cm))
+    return nlb[0], nub[0]
+
+
+def sweep_batch(cm: CompiledModel, lb, ub, dom=None):
+    """Gather sweep over lane-batched ``[L, V]`` stores; pass `dom` to
+    carry the bitset store (3-tuple return)."""
+    return sweep_tile(lb, ub, *model_tables(cm), **model_statics(cm),
+                      dom=dom)
+
+
+def _scatter_join(lb, ub, cand_lb, cand_ub, v, box_lo, box_hi):
+    """Propagator-centric join of one bank's candidates ``[L, *v.shape]``
+    into ``[L, V]`` stores: each candidate, clamped into its variable's
+    box, is scatter-maxed (lb) or scatter-minned (ub) onto variable
+    ``v``.  Integer min/max is associative, so duplicate targets reduce
+    to the same value in any order."""
+    L = lb.shape[0]
+    v = v.reshape(-1).long()
+    idx = v.expand(L, -1)
+    c_lb = torch.minimum(cand_lb.reshape(L, -1), box_hi[v])
+    c_ub = torch.maximum(cand_ub.reshape(L, -1), box_lo[v])
+    return (lb.scatter_reduce(1, idx, c_lb, "amax", include_self=True),
+            ub.scatter_reduce(1, idx, c_ub, "amin", include_self=True))
+
+
+def sweep_scatter_batch(cm: CompiledModel, lb, ub, dom=None):
+    """Propagator-centric scatter form of the sweep over ``[L, V]``
+    stores: each propagator writes its variables through a join (the
+    paper's load/store formulation with atomic joins), here one
+    `scatter_reduce` per bank over every lane at once.  The banks reuse
+    the gather form's kind tiles and differ only in join strategy, so a
+    scatter sweep equals a gather sweep bit for bit (and equals the
+    reference's per-lane vmapped `sweep_scatter`: lanes never share a
+    row of the scatter).  With `dom` the bitset store is carried and
+    (lb', ub', dom') comes back."""
+    (vidx, coef, rhs, bidx, _, _, ad_vars, ad_offs, ad_mask, _, _, _,
+     ad_pk_var, ad_pk_off, ad_pk_seg, cu_svar, cu_dur, cu_dem, cu_cap, _,
+     _, _, cu_pk_svar, cu_pk_dur, cu_pk_dem, cu_pk_seg, ct_vars, ct_mask,
+     ct_supp, ct_occ_inst, ct_occ_pos, dom_off, dom_track, box_lo,
+     box_hi) = model_tables(cm)
+    cand_lb, cand_ub = candidates_tile(lb, ub, vidx, coef, rhs, bidx)
+    # plain rows (b == TRUE) must not scatter their (dis)entailment slot:
+    # the gather form has no TRUE-var occurrence for it, and a
+    # disentailed plain row always fails through term tightening in the
+    # same sweep; neutralising it keeps both forms bit-identical per sweep
+    neu_ub, neu_lb = _neutrals(lb.dtype)
+    plain = bidx == TRUE_VAR
+    cand_ub[:, :, -1].masked_fill_(plain, neu_ub)
+    cand_lb[:, :, -1].masked_fill_(plain, neu_lb)
+    tgt = torch.cat([vidx, bidx[:, None]], 1)              # [P1, K+1]
+    new_lb, new_ub = _scatter_join(lb, ub, cand_lb, cand_ub, tgt, box_lo,
+                                   box_hi)
+    if cm.n_alldiff:
+        if cm.ad_layout == "sparse":
+            ad_lb, ad_ub = alldiff_candidates_sparse_tile(
+                lb, ub, ad_pk_var, ad_pk_off, ad_pk_seg, cm.n_alldiff)
+            v = ad_pk_var
+        else:
+            ad_lb, ad_ub = alldiff_candidates_tile(lb, ub, ad_vars, ad_offs,
+                                                   ad_mask)
+            v = ad_vars
+        new_lb, new_ub = _scatter_join(new_lb, new_ub, ad_lb, ad_ub, v,
+                                       box_lo, box_hi)
+    if cm.n_cumulative:
+        if cm.cu_layout == "sparse":
+            cu_lb, cu_ub = cumulative_candidates_sparse_tile(
+                lb, ub, cu_pk_svar, cu_pk_dur, cu_pk_dem, cu_pk_seg, cu_cap,
+                cm.n_cumulative)
+            v = cu_pk_svar
+        else:
+            cu_lb, cu_ub = cumulative_candidates_tile(
+                lb, ub, cu_svar, cu_dur, cu_dem, cu_cap, cm.horizon)
+            v = cu_svar
+        new_lb, new_ub = _scatter_join(new_lb, new_ub, cu_lb, cu_ub, v,
+                                       box_lo, box_hi)
+    if cm.n_table:
+        d_in = dom if dom is not None else B.from_bounds(
+            lb, ub, dom_off, cm.n_words, track=dom_track)
+        ct_lb, ct_ub, ct_dm = ct_candidates_tile(
+            lb, ub, d_in, ct_vars, ct_mask, ct_supp, dom_off, cm.n_table)
+        new_lb, new_ub = _scatter_join(new_lb, new_ub, ct_lb, ct_ub, ct_vars,
+                                       box_lo, box_hi)
+        if dom is not None:
+            # the bitset join stays in gather form under the scatter
+            # strategy too: there is no scatter-AND, and ⊔-associativity
+            # makes the strategy irrelevant
+            dom = _gather_join_dom(ct_dm, ct_occ_inst, ct_occ_pos, dom)
+    if dom is None:
+        return new_lb, new_ub
+    return dom_normalize_tile(new_lb, new_ub, dom, dom_off, dom_track,
+                              box_lo, box_hi, cm.n_words)
+
+
+def sweep_scatter(cm: CompiledModel, lb, ub, dom=None):
+    """Single-store view of `sweep_scatter_batch` (the scatter oracle)."""
+    out = sweep_scatter_batch(cm, lb[None], ub[None],
+                              None if dom is None else dom[None])
+    return tuple(o[0] for o in out)
+
+
 def fixpoint_tile(lb, ub, *tables, horizon: int, n_alldiff: int = 0,
                   n_cumulative: int = 0, ad_layout: str = "dense",
                   cu_layout: str = "dense", n_table: int = 0,
                   n_words: int = 1, dom=None,
                   max_iters: Optional[int] = None,
-                  stop_on_fail: bool = True):
+                  stop_on_fail: bool = True, step=None):
     """Per-lane-masked fixpoint loop over a ``[L, V]`` tile.
 
     A lane takes part in a sweep iff its own condition (changed ∧
@@ -650,12 +774,21 @@ def fixpoint_tile(lb, ub, *tables, horizon: int, n_alldiff: int = 0,
     reference's masked sweep over all lanes, by idempotence of ⊔).
     With `dom` the bitset store is carried, and a sweep counts as
     changed when any domain word moved even if the hull did not.
+    `step` overrides the sweep (the scatter form passes its join
+    strategy here): ``step(lb, ub)``, or ``step(lb, ub, dom)`` when the
+    store is carried, over the live lanes only; the default is
+    `sweep_tile` on `tables`.
     Returns (lb', ub', sweeps i32[L], converged bool[L]), with dom'
     before the counters when it is carried.
     """
-    statics = dict(horizon=horizon, n_alldiff=n_alldiff,
-                   n_cumulative=n_cumulative, ad_layout=ad_layout,
-                   cu_layout=cu_layout, n_table=n_table, n_words=n_words)
+    if step is None:
+        statics = dict(horizon=horizon, n_alldiff=n_alldiff,
+                       n_cumulative=n_cumulative, ad_layout=ad_layout,
+                       cu_layout=cu_layout, n_table=n_table,
+                       n_words=n_words)
+
+        def step(lb_, ub_, dom_=None):
+            return sweep_tile(lb_, ub_, *tables, **statics, dom=dom_)
     L = lb.shape[0]
     dev = lb.device
     have_dom = dom is not None
@@ -676,11 +809,10 @@ def fixpoint_tile(lb, ub, *tables, horizon: int, n_alldiff: int = 0,
         olb, oub = lb[idx], ub[idx]
         if have_dom:
             odom = dom[idx]
-            nlb, nub, ndom = sweep_tile(olb, oub, *tables, **statics,
-                                        dom=odom)
+            nlb, nub, ndom = step(olb, oub, odom)
             dom[idx] = ndom
         else:
-            nlb, nub = sweep_tile(olb, oub, *tables, **statics)
+            nlb, nub = step(olb, oub)
         ch = ((nlb != olb) | (nub != oub)).any(1)
         if have_dom:
             ch |= (ndom != odom).any(2).any(1)
@@ -694,23 +826,66 @@ def fixpoint_tile(lb, ub, *tables, horizon: int, n_alldiff: int = 0,
 
 
 def fixpoint(cm: CompiledModel, lb, ub, max_iters: Optional[int] = None,
-             stop_on_fail: bool = True):
+             stop_on_fail: bool = True, use_scatter: bool = False):
     """One store to its least fixed point: (lb', ub', n_sweeps,
     converged), the single-lane view of `fixpoint_batch`."""
     nlb, nub, it, conv = fixpoint_batch(cm, lb[None], ub[None],
                                         max_iters=max_iters,
-                                        stop_on_fail=stop_on_fail)
+                                        stop_on_fail=stop_on_fail,
+                                        use_scatter=use_scatter)
     return nlb[0], nub[0], it[0], conv[0]
 
 
 def fixpoint_batch(cm: CompiledModel, lb, ub, dom=None,
                    max_iters: Optional[int] = None,
-                   stop_on_fail: bool = True):
-    """Lane-batched fixpoint over the whole ``[L, V]`` store tensor.
+                   stop_on_fail: bool = True, use_scatter: bool = False):
+    """Lane-batched fixpoint over the whole ``[L, V]`` store tensor, in
+    gather form or, with `use_scatter`, in scatter form.
 
     Returns (lb', ub', sweeps[L], converged[L]); with `dom` (``[L, V,
     W]`` int32) the carried bitset store comes back before the counters.
     """
+    step = partial(sweep_scatter_batch, cm) if use_scatter else None
     return fixpoint_tile(lb, ub, *model_tables(cm), **model_statics(cm),
                          dom=dom, max_iters=max_iters,
-                         stop_on_fail=stop_on_fail)
+                         stop_on_fail=stop_on_fail, step=step)
+
+
+# --------------------------------------------------------------------------
+# Sequential / chaotic iteration semantics: the paper's `seq P` (Prop. 3)
+# and fair schedules (Def. 5 / Thm. 6), on the ReifLinLe bank.
+# --------------------------------------------------------------------------
+
+def apply_one(cm: CompiledModel, lb, ub, p):
+    """Apply one guarded command (SELECT rule): one transition of ↪.
+    Row p's candidates, clamped into the box, join its terms and its
+    reified boolean (a plain row's disentailment lands on the TRUE
+    var)."""
+    p = int(p)
+    rows = slice(p, p + 1)
+    cand_lb, cand_ub = candidates_tile(lb[None], ub[None], cm.vidx[rows],
+                                       cm.coef[rows], cm.rhs[rows],
+                                       cm.bidx[rows])
+    tgt = torch.cat([cm.vidx[p], cm.bidx[rows]]).long()
+    row_lb = torch.minimum(cand_lb[0, 0], cm.box_hi[tgt])
+    row_ub = torch.maximum(cand_ub[0, 0], cm.box_lo[tgt])
+    return (lb.scatter_reduce(0, tgt, row_lb, "amax"),
+            ub.scatter_reduce(0, tgt, row_ub, "amin"))
+
+
+def sequential_fixpoint(cm: CompiledModel, lb, ub, order=None,
+                        max_rounds: int = 10_000):
+    """fix D(seq P) under the schedule `order` (default: program order):
+    rounds of `apply_one` over `order` until a round changes nothing.
+    Returns (lb', ub') on the model's device; raises when `max_rounds`
+    rounds do not converge."""
+    order = range(cm.n_props) if order is None else [int(p) for p in order]
+    lb = torch.as_tensor(lb, device=cm.device)
+    ub = torch.as_tensor(ub, device=cm.device)
+    for _ in range(max_rounds):
+        plb, pub = lb, ub
+        for p in order:
+            lb, ub = apply_one(cm, lb, ub, p)
+        if torch.equal(lb, plb) and torch.equal(ub, pub):
+            return lb, ub
+    raise RuntimeError("sequential fixpoint did not converge")

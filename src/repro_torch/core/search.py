@@ -64,7 +64,7 @@ class SearchOptions:
     max_fixpoint_iters: Optional[int] = None
     stop_on_first: bool = False      # satisfaction: stop at first solution
     # propagation backend for the superstep's lane-batched fixpoint:
-    # "cuda" | "cuda_resident" | "gather" (see core/backend.py)
+    # "cuda" | "cuda_resident" | "gather" | "scatter" (core/backend.py)
     backend: str = "cuda"
 
 
@@ -169,6 +169,11 @@ def dispatch_pool_tile(st: LaneState, pool_head, n_subs: int,
              else -((n_subs - tile_id) // -n_tiles))     # ceil shard size
     new_head = torch.clamp(pool_head + want.sum(dtype=I32), max=shard)
     return st._replace(next_sub=next_sub, done=done), new_head
+
+
+def dispatch_pool(st: LaneState, pool_head, n_subs: int):
+    """Single-queue view of `dispatch_pool_tile` (the unfused path)."""
+    return dispatch_pool_tile(st, pool_head, n_subs)
 
 
 def apply_path_tile(root_lb, root_ub, dec_var, dec_val, dec_flip, depth, *,

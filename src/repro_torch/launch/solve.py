@@ -10,7 +10,9 @@ supersteps per launch of the resident search kernel (K from
 ``--supersteps-per-launch``, default 16), in lane tiles of N lanes with
 ``--lane-tile N`` (each tile with its own strided pool shard, cursor,
 bound and done flag); ``--backend gather`` propagates with the plain
-PyTorch sweep.  ``--branch-value`` picks the value
+PyTorch sweep, ``--backend scatter`` with its scatter form (each
+propagator joins its variables through ``scatter_reduce``; PyTorch ops
+on the card).  ``--branch-value`` picks the value
 branching: ``min`` (x ≤ lb), ``split`` (bisect at the midpoint) or
 ``middle_out`` (x = m | x ≠ m on the remaining value nearest the
 midpoint; search then carries the bitset store).  ``--device cpu``

@@ -6,7 +6,8 @@
 and every counter are equal, and the solution passes the ground check.
 Also: the entry points run on the GPU unless asked for the CPU (and
 raise without one), the CLI runs with ``--device cpu``, and neither the
-package nor ``chip_smoke.py`` imports JAX or the JAX package.
+package, ``chip_smoke.py`` nor the examples ``examples/torch_*.py``
+import JAX or the JAX package.
 """
 
 import os
@@ -164,20 +165,26 @@ def test_cli_without_gpu_raises():
 
 
 def test_port_and_chip_smoke_import_no_jax():
+    examples = os.path.join(ROOT, "examples", "torch_*.py")
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, glob, pkgutil, importlib, runpy\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        f"paths = sorted(glob.glob({examples!r}))\n"
+        "for f in paths:\n"
+        "    runpy.run_path(f, run_name='example')\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print('LOADED', len(sys.modules), 'BAD', bad)\n")
+        "print('EXAMPLES', len(paths), 'LOADED', len(sys.modules), "
+        "'BAD', bad)\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr[-2000:]
     assert "BAD []" in r.stdout, r.stdout
+    assert "EXAMPLES 3 " in r.stdout, r.stdout
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
