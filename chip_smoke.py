@@ -282,9 +282,27 @@ exit code and no result line:
    ground-checked, a cut baseline's incumbent never below the optimum;
    one line per instance (statuses, objectives, nodes, wall s, nodes/s,
    ``eps_s``, launches) beside the card line and the host CPU's model;
-35. the entry points: ``examples/torch_quickstart.py`` and
-   ``examples/torch_rcpsp_solve.py --n 8 --count 2`` as subprocesses on
-   the card, each exiting 0.
+35. the entry points: ``examples/torch_quickstart.py``,
+   ``examples/torch_rcpsp_solve.py --n 8 --count 2`` and
+   ``examples/torch_planner_demo.py --timeout 20`` as subprocesses on the
+   card, each exiting 0;
+36. distributed EPS (``core/dist_solve.py``; every shard on the card, each
+   shard's superstep one ``fixpoint_cuda`` launch): J30 class (16 lanes
+   per shard, eps_target 64) at mesh 1, 2 and 4 through ``cuda`` and
+   ``gather``, equal to the JAX package's counters per mesh size and to
+   each other with the bound of every chunk; J60 class at full width
+   (1024 lanes per shard, eps_target 4096) at mesh 1 (every counter equal
+   to phase 3's solve), 2 and 4 (proving 82), and the J120 class at mesh
+   4 (proving 157), each ground-checked, with the launch counters set to 0
+   before and read after: wall and EPS seconds, supersteps, chunks,
+   launches (EPS's few-lane ones and one per shard and superstep) and ms
+   per mesh superstep after EPS; a steal on J60's pool with its second
+   half failed (mesh 2, chunk 1): at least one steal, the partition
+   invariant at every chunk boundary, the objective of a one-shard solve
+   of the same pool; a device loss (mesh 4, chunk 8, shard 1 lost after
+   chunk 1): one remesh from 4 to 3 shards that requeues work, OPTIMAL
+   82, a monotone bound; and ``launch/solve.py --mesh 4`` on J60 as a
+   subprocess.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -417,10 +435,36 @@ COMPARISON_OPTIMUM = {"J30 s0": J30_REFERENCE["objective"],
                       "J60 s0": J60_OPTIMUM,
                       "J120 s0": SPARSE_OPTIMUM["J120"]}
 BASELINE_TIMEOUT_S = 60.0
+# the planner demo's time per solve: its microbatch schedule proves no
+# optimum within the reference's 120 s on the CPU, so the card's run is
+# cut to this (it returns its best schedule)
+PLANNER_TIMEOUT_S = 20
 # phase 35: the examples, run from the repository root
 EXAMPLES = (("examples/torch_quickstart.py",),
-            ("examples/torch_rcpsp_solve.py", "--n", "8", "--count", "2"))
+            ("examples/torch_rcpsp_solve.py", "--n", "8", "--count", "2"),
+            ("examples/torch_planner_demo.py", "--timeout",
+             str(PLANNER_TIMEOUT_S)))
 EXAMPLE_TIMEOUT_S = 300
+# phase 36: distributed EPS.  RCPSP J30 class (rcpsp.generate(30,
+# n_resources=4, seed=0)), preset "prove", DIST_J30_LANES lanes per shard,
+# eps_target DIST_J30_EPS: the JAX package's counters per mesh size
+# (`dist_solve.solve_dist`, backend "gather", on fake CPU devices;
+# tests/test_torch_planner_ft.py recomputes them from the JAX package)
+DIST_J30_LANES, DIST_J30_EPS = 16, 64
+DIST_J30_REFERENCE = {
+    1: dict(status="OPTIMAL", objective=34, n_nodes=1680, n_fails=854,
+            n_sols=18, n_sweeps=937, n_supersteps=106),
+    2: dict(status="OPTIMAL", objective=34, n_nodes=1966, n_fails=1006,
+            n_sols=9, n_sweeps=960, n_supersteps=63),
+    4: dict(status="OPTIMAL", objective=34, n_nodes=3864, n_fails=1944,
+            n_sols=20, n_sweeps=1920, n_supersteps=62)}
+DIST_MESHES = (1, 2, 4)
+# the steal run (mesh, chunk) on J60's pool with its second half failed,
+# and the device-loss run (mesh, chunk, at_chunk, lost shard)
+DIST_STEAL = (2, 1)
+DIST_LOSS = (4, 8, 1, 1)
+DIST_CLI = ("--n", "60", "--lanes", str(MAIN_LANES), "--eps-target",
+            str(MAIN_EPS), "--mesh", "4")
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_BF16_FLOP_S = 989e12
 # the phases of a sweep the clocks library stamps (fixlane::Phase order)
@@ -2993,6 +3037,147 @@ def phase_examples():
         print(f"[35] {' '.join(args)}: exit 0 in {time.time() - t0:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# phase 36: distributed EPS on the card
+# --------------------------------------------------------------------------
+
+def dist_solve_case(card, tag, c, cfg, optimum=None, **kw):
+    """One `dist_solve.solve_dist` with the launch counters set to 0 just
+    before and read just after; the solution is ground-checked, and with
+    `optimum` the result must be OPTIMAL at it.  Returns (result, trace,
+    launches)."""
+    from repro_torch.core import dist_solve
+    from repro_torch.core.models import ground_check
+    zero_launch_counts()
+    res, tr = dist_solve.solve_dist(c.cm, cfg, **kw)
+    n = launch_counts()
+    if n["search"]:
+        fail(f"{tag}: {n['search']} search_cuda launches on the mesh path")
+    checked = ground_check(c.mod, c.inst, c.handles, res)
+    if checked is False:
+        fail(f"{tag}: the solution fails the ground check")
+    if optimum is not None and (res.status != "OPTIMAL"
+                                or res.objective != optimum):
+        fail(f"{tag}: expected OPTIMAL {optimum}, got {res.status} "
+             f"{res.objective}")
+    D = cfg.mesh_shards
+    search_s = res.wall_s - res.eps_s
+    print(f"[36] {tag} ({cfg.backend}, mesh {D}, {cfg.n_lanes} lanes per "
+          f"shard, eps_target {cfg.resolved_eps_target()}, chunk "
+          f"{cfg.chunk}): {res.status} objective={res.objective} nodes="
+          f"{res.n_nodes} fails={res.n_fails} sols={res.n_sols} sweeps="
+          f"{res.n_sweeps} supersteps={res.n_supersteps} chunks="
+          f"{tr.n_chunks} steals={tr.n_steals} remeshes="
+          f"{len(tr.remesh_events)}; wall {res.wall_s:.3f} s, EPS "
+          f"{res.eps_s:.3f} s, search {search_s * 1e3:.1f} ms "
+          f"({search_s / max(res.n_supersteps, 1) * 1e3:.3f} ms per mesh "
+          f"superstep after EPS); fixpoint_cuda launches {n['fixpoint']} "
+          f"(few-lane {n['few_lane']}); ground check "
+          f"{'OK' if checked else 'n/a'}; on {card}")
+    return res, tr, n
+
+
+def phase_distributed(card, j30, j60, j120, j60_cuda):
+    """Phase 36.  `j60_cuda` is phase 3's J60 `cuda` result.  Returns the
+    (256-thread, few-lane) fixpoint_cuda launches of the J60 and J120
+    mesh solves."""
+    import numpy as np
+    from repro_torch.ft.fault_tolerance import DeviceLoss
+    from repro_torch.solver import SolveConfig, Solver
+    print(f"[36] distributed EPS on {card}: every shard on cuda:0")
+    for D in DIST_MESHES:
+        got, traces = {}, {}
+        for backend in ("cuda", "gather"):
+            cfg = SolveConfig.preset(
+                "prove", backend=backend, n_lanes=DIST_J30_LANES,
+                eps_target=DIST_J30_EPS, mesh_shards=D)
+            got[backend], traces[backend], n = dist_solve_case(
+                card, f"J30 mesh {D}", j30, cfg)
+            if backend == "cuda" and n["fixpoint"] < D * got[
+                    backend].n_supersteps:
+                fail(f"J30 mesh {D}: {n['fixpoint']} fixpoint_cuda launches"
+                     f" for {got[backend].n_supersteps} supersteps")
+        same_counters(36, f"J30 mesh {D}", got, DIST_J30_REFERENCE[D])
+        if traces["cuda"].gbest_per_chunk != traces["gather"].gbest_per_chunk:
+            fail(f"J30 mesh {D}: the bound per chunk differs between cuda "
+                 "and gather")
+
+    launches = [0, 0]
+    full = ([("J60", j60, D, J60_OPTIMUM) for D in DIST_MESHES]
+            + [("J120", j120, 4, SPARSE_OPTIMUM["J120"])])
+    for tag, c, D, optimum in full:
+        cfg = main_config("cuda", mesh_shards=D)
+        res, tr, n = dist_solve_case(card, f"{tag} mesh {D}", c, cfg,
+                                     optimum)
+        if n["fixpoint"] - n["few_lane"] != D * res.n_supersteps:
+            fail(f"{tag} mesh {D}: {n['fixpoint'] - n['few_lane']} "
+                 f"256-thread launches for {D} shards x {res.n_supersteps} "
+                 "supersteps")
+        if tag == "J60" and D == 1:
+            same_counters(36, "J60 mesh 1 against phase 3's cuda solve",
+                          {"mesh 1": res, "phase 3": j60_cuda})
+        launches[0] += n["fixpoint"] - n["few_lane"]
+        launches[1] += n["few_lane"]
+
+    # a steal: J60's pool with its second half failed
+    D, chunk = DIST_STEAL
+    lb, ub = (np.array(a) for a in j60.pool)
+    half = (lb.shape[0] + 1) // 2
+    lb[half:, 0], ub[half:, 0] = 1, 0
+    cfg = main_config("cuda", mesh_shards=D, chunk=chunk)
+    res, tr, _ = dist_solve_case(card, "J60 steal", j60, cfg,
+                                 subs=(lb, ub))
+    single = Solver(main_config("cuda")).solve(j60.cm, subs=(lb, ub))
+    if not tr.n_steals:
+        fail("J60 steal: no steal fired")
+    for k, (owned, consumed) in enumerate(zip(tr.assignments,
+                                              tr.consumed_per_chunk)):
+        flat = [i for o in owned for i in o]
+        if (len(flat) != len(set(flat)) or not set(flat).isdisjoint(consumed)
+                or set(flat) | set(consumed) != set(tr.all_ids)):
+            fail(f"J60 steal: the pool is not a partition at chunk {k + 1}")
+    if res.objective != single.objective or res.status != single.status:
+        fail(f"J60 steal: {res.status} {res.objective}, a one-shard solve "
+             f"of the same pool {single.status} {single.objective}")
+    print(f"[36] J60 steal: {tr.n_steals} steals (first {tr.steal_events[0]})"
+          f"; the partition holds at all {tr.n_chunks} boundaries; "
+          f"{res.status} {res.objective} == one shard's {single.status} "
+          f"{single.objective}")
+
+    # a device loss
+    D, chunk, at, lost = DIST_LOSS
+    cfg = main_config("cuda", mesh_shards=D, chunk=chunk)
+    res, tr, _ = dist_solve_case(card, "J60 device loss", j60, cfg,
+                                 J60_OPTIMUM,
+                                 fault=DeviceLoss(at_chunk=at, shard=lost))
+    g = tr.gbest_per_chunk
+    ev = tr.remesh_events
+    if (len(ev) != 1 or (ev[0]["shards_before"], ev[0]["shards_after"])
+            != (D, D - 1) or ev[0]["n_requeued"] < 1):
+        fail(f"J60 device loss: remesh events {ev}")
+    if not res.complete or any(a < b for a, b in zip(g, g[1:])):
+        fail(f"J60 device loss: complete={res.complete}, bound per chunk {g}")
+    print(f"[36] J60 device loss: {ev[0]}; bound per chunk {g}")
+
+    # the CLI
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.solve",
+                        *DIST_CLI], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=EXAMPLE_TIMEOUT_S)
+    out = r.stdout
+    if (r.returncode != 0 or f"OPTIMAL objective={J60_OPTIMUM}" not in out
+            or "distributed: shards=4" not in out):
+        fail(f"launch/solve.py {' '.join(DIST_CLI)}: exit {r.returncode}: "
+             f"{out[-1000:]} {r.stderr[-2000:]}")
+    for line in out.strip().splitlines():
+        print(f"[36] launch/solve.py: {line}")
+    print(f"[36] launch/solve.py {' '.join(DIST_CLI)}: exit 0 in "
+          f"{time.time() - t0:.1f} s on {card}")
+    return launches
+
+
 def mode_entry(base, mode, launches, err, times):
     """A {"kernels": [...]} entry of one kernel mode: `base`'s name,
     route, source and bank list, this mode's launches, max |err| and
@@ -3092,6 +3277,9 @@ def main():
         "J120x1e7": int64["J120x1e7"]}, rcpsp["J30"])
     comparison = timed(34, phase_paper_comparison, card)
     timed(35, phase_examples)
+    dist_launches = timed(36, phase_distributed, card, rcpsp["J30"],
+                          rcpsp["J60"], sparse["J120"], cuda_res)
+    kernels[0]["launches"] += dist_launches[0]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
                                     sp_err, ct_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
@@ -3103,8 +3291,8 @@ def main():
     kernels[1]["mode"] = "int32, one queue"
     fix64_launches = i64_launches[("J120x1e7", "cuda")]
     kernels += [
-        mode_entry(kernels[0], "int32, few-lane: EPS, 1024 threads", few,
-                   few_err, few_times),
+        mode_entry(kernels[0], "int32, few-lane: EPS, 1024 threads",
+                   few + dist_launches[1], few_err, few_times),
         mode_entry(kernels[0], "int64, 256 threads",
                    fix64_launches[0] - fix64_launches[2], i64_err, fix64),
         mode_entry(kernels[1], "int64, one queue",
@@ -3134,6 +3322,9 @@ def main():
               f"{t} ({n['fixpoint']}, {n['few_lane']}, {n['search']})"
               for t, (_, _, n) in comparison.items())
           + f"; phase 33's batched_fixpoint(impl='cuda') {scatter_launches}")
+    print(f"kernels: phase 36's mesh solves (J60 mesh 1, 2, 4 and J120 mesh "
+          f"4) added {dist_launches[0]} 256-thread and {dist_launches[1]} "
+          "few-lane fixpoint_cuda launches to phase 3's")
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

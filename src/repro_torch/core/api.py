@@ -21,6 +21,15 @@ reference's ``while_loop`` stops:
 Timeouts and ``max_supersteps`` are checked once per quantum.  PyTorch
 runs eagerly, so there is no compiled-runner cache.
 
+Meshes: ``SolveConfig(mesh_shards=N)`` delegates to the distributed EPS
+engine (`core/dist_solve.py`); ``SolveConfig(mesh=..., lane_axes=...)``
+splits the lanes and the padded pool over the mesh's shards, each with
+its own cursor.  Both run `_run_mesh_chunk`: every shard's `lanes_step`,
+then one bound sync over the shards and one host read of the mesh's done
+flag per superstep.  The mesh is in-process: one host loop drives the
+shards, which ``mesh_shards`` puts all on the config's device and an
+explicit `distributed.sharding.Mesh` places on its own devices.
+
 Batched solving: `LaneBatch` holds B same-shape instance *slots* (one
 request each) in one lane state, and `Solver.solve_many` drives one to
 the end; the serving scheduler (`repro_torch.serve`) admits requests
@@ -46,6 +55,8 @@ from repro_torch.core import search as S
 from repro_torch.core.backend import available_backends, get_backend
 from repro_torch.core.compile import CompiledModel
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed.collectives import solver_bound_sync
+from repro_torch.distributed.sharding import Mesh, shard_tree
 
 # terminal statuses
 OPTIMAL = "OPTIMAL"
@@ -136,6 +147,16 @@ class SolveConfig:
     max_depth: int = 2048
     max_fixpoint_iters: Optional[int] = None
     stop_on_first: bool = False
+    # explicit mesh: the lanes and the pool split over the mesh axes
+    # `lane_axes` of a `distributed.sharding.Mesh`, n_lanes per shard
+    mesh: Optional[Mesh] = None
+    lane_axes: Tuple[str, ...] = ()
+    # distributed EPS (core/dist_solve.py): the pool sharded over a 1-D
+    # `solve` mesh of this many shards on `device`, with a bound sync per
+    # superstep, work stealing (`steal`) and device-loss recovery; the
+    # CLI's `--mesh N`.  None → one device
+    mesh_shards: Optional[int] = None
+    steal: bool = True
     # pad EPS pools to `_bucket` sizes with explicitly failed stores
     pad_pool: bool = True
     # where the tensors live: "cuda" (default) or "cpu"
@@ -147,6 +168,7 @@ class SolveConfig:
         def bad(msg):
             raise ValueError(f"SolveConfig: {msg}")
 
+        object.__setattr__(self, "lane_axes", tuple(self.lane_axes))
         for name in ("n_lanes", "chunk", "max_depth"):
             v = getattr(self, name)
             if not isinstance(v, int) or v < 1:
@@ -172,6 +194,29 @@ class SolveConfig:
         if self.val_strategy not in _VAL_STRATEGIES:
             bad(f"val_strategy {self.val_strategy!r} not in "
                 f"{_VAL_STRATEGIES}")
+        if self.mesh_shards is not None:
+            if not isinstance(self.mesh_shards, int) or self.mesh_shards < 1:
+                bad(f"mesh_shards must be None or a positive int, got "
+                    f"{self.mesh_shards!r}")
+            if self.mesh is not None:
+                bad("mesh_shards (the dist_solve engine) and mesh (the "
+                    "explicit-mesh path) are mutually exclusive")
+        if ((self.mesh is not None or self.mesh_shards is not None)
+                and self.backend == "cuda_resident"):
+            bad("backend 'cuda_resident' does not support mesh sharding: "
+                "the pool cursor lives inside the resident kernel (use "
+                "backend='cuda' on meshes)")
+        if self.lane_axes and self.mesh is None:
+            bad("lane_axes given without a mesh")
+        if self.mesh is not None:
+            if not self.lane_axes:
+                bad("mesh given without lane_axes (which mesh axes shard "
+                    "the lanes?)")
+            missing = [a for a in self.lane_axes
+                       if a not in self.mesh.axis_names]
+            if missing:
+                bad(f"lane_axes {missing} not in mesh axes "
+                    f"{tuple(self.mesh.axis_names)}")
         resolve_device(self.device)
 
     @classmethod
@@ -218,7 +263,17 @@ class SolveConfig:
         return (self.n_lanes, self.chunk, self.backend,
                 self.supersteps_per_launch, self.lane_tile,
                 self.var_strategy, self.val_strategy, self.max_depth,
-                self.max_fixpoint_iters, self.stop_on_first, self.device)
+                self.max_fixpoint_iters, self.stop_on_first, self.device,
+                self.mesh, self.lane_axes, self.mesh_shards)
+
+    def n_mesh_shards(self) -> int:
+        """Shards of the explicit mesh: the product of its `lane_axes`."""
+        return int(np.prod([self.mesh.shape[a] for a in self.lane_axes]))
+
+    def lane_rules(self) -> dict:
+        """The explicit mesh's rule table: lanes and pool over
+        `lane_axes`."""
+        return {"lanes": self.lane_axes, "pool": self.lane_axes}
 
 
 def shape_signature(cm: CompiledModel) -> tuple:
@@ -311,6 +366,90 @@ def _run_chunk(opts: S.SearchOptions, stop_on_first: bool, chunk: int,
     return Carry(st, gbest, gdone, it, pool_head)
 
 
+class MeshCarry(NamedTuple):
+    """Host-loop carry of a mesh solve: each shard's lane state and pool
+    cursor (on the shard's device, in mesh order), the global bound (0-d,
+    on the first shard's device), the mesh's done flag and its superstep
+    counter (host values)."""
+    st: List[S.LaneState]
+    gbest: torch.Tensor
+    gdone: bool
+    it: int
+    pool_head: List[torch.Tensor]
+
+
+def _init_mesh_carry(cms: Sequence[CompiledModel], state0: S.LaneState,
+                     mesh: Mesh, rules=None) -> MeshCarry:
+    """A fresh mesh carry: `state0` (``[D·L, …]``) split over the mesh's
+    shards, the bound at ``big`` and every cursor at 0.  ``cms[d]`` is
+    the model on shard d's device."""
+    cm = cms[0]
+    big = torch.iinfo(cm.tdtype).max // 4
+    return MeshCarry(
+        shard_tree(state0, mesh, rules=rules),
+        torch.tensor(big, dtype=cm.tdtype, device=cm.device), False, 0,
+        [torch.zeros((), dtype=torch.int32, device=c.device) for c in cms])
+
+
+def _run_mesh_chunk(opts: S.SearchOptions, stop_on_first: bool, chunk: int,
+                    cms: Sequence[CompiledModel], pools, carry: MeshCarry
+                    ) -> MeshCarry:
+    """The mesh form of `_run_chunk` (the reference's `_chunk_body` under
+    ``shard_map``): up to `chunk` mesh supersteps, each issuing
+
+    1. every shard's unchanged `search.lanes_step` on its own pool slice
+       (``pools[d]``, single-queue dispatch clamped at the slice's size)
+       and cursor, with the shared bound of the previous superstep;
+    2. ONE `solver_bound_sync` over the shards (min of the bounds, AND of
+       the done flags, OR of the has-solution flags);
+    3. ``gbest = min(gbest, best)`` and one superstep count;
+    4. ONE host read of the mesh's done flag,
+
+    so every shard stops on the same superstep.  Nothing reads the host
+    inside the shard loop, so shards on distinct cards overlap."""
+    sts, gbest, gdone, it, heads = carry
+    sts, heads = list(sts), list(heads)
+    for _ in range(chunk):
+        if gdone:
+            break
+        best, done, any_sol = [], [], []
+        for d, (cm, (lb, ub)) in enumerate(zip(cms, pools)):
+            g = gbest if gbest.device == cm.device else gbest.to(cm.device)
+            sts[d], heads[d] = S.lanes_step(cm, lb, ub, opts, sts[d], g,
+                                            heads[d])
+            best.append(S.lanes_best(sts[d]))
+            done.append(S.all_done(sts[d]))
+            any_sol.append(sts[d].has_sol.any())
+        best, done, any_sol = solver_bound_sync(best, done, any_sol)
+        gbest = torch.minimum(gbest, best)
+        it += 1
+        gdone = bool(done | any_sol if stop_on_first else done)
+    return MeshCarry(sts, gbest, gdone, it, heads)
+
+
+def _gather_state(sts: Sequence[S.LaneState]) -> S.LaneState:
+    """The shards' lane states as one ``[D·L, …]`` state in mesh order,
+    on the first shard's device."""
+    dev = sts[0].lb.device
+    return S.LaneState(*(None if parts[0] is None else
+                         torch.cat([p.to(dev) for p in parts])
+                         for parts in zip(*sts)))
+
+
+def _to_host(parts) -> Dict[str, np.ndarray]:
+    """Named tensors ``[(name, tensor), …]`` on the host, each at its own
+    dtype (int32, int64 or bool), in ONE device-to-host copy."""
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for _, t in parts])
+    flat = flat.cpu().numpy()
+    out, at = {}, 0
+    for k, t in parts:
+        n = t.numel()
+        out[k] = flat[at:at + n].reshape(tuple(t.shape)).astype(
+            torch.empty(0, dtype=t.dtype).numpy().dtype)
+        at += n
+    return out
+
+
 def derive_result(cm: CompiledModel, best_obj, has_sol, best_sol,
                   incomplete, done: bool, n_nodes: int, n_fails: int,
                   n_sols: int, n_sweeps: int, n_supersteps: int,
@@ -363,6 +502,8 @@ class Solver:
     def __init__(self, config: Optional[SolveConfig] = None, **overrides):
         base = config if config is not None else SolveConfig.preset("prove")
         self.config = base.replace(**overrides) if overrides else base
+        # the port runs eagerly: no runner cache, so only solves are counted
+        self.stats: Dict[str, Any] = {"solves": 0}
 
     def _config_for(self, config: Optional[SolveConfig],
                     overrides: dict) -> SolveConfig:
@@ -380,6 +521,8 @@ class Solver:
         size = subs_lb.shape[0]
         if cfg.pad_pool:
             size = _bucket(size)
+        if cfg.mesh is not None:
+            size += (-size) % cfg.n_mesh_shards()
         subs_lb, subs_ub = eps.pad_pool(subs_lb, subs_ub, size)
         return (torch.from_numpy(np.array(subs_lb)).to(cm.device),
                 torch.from_numpy(np.array(subs_ub)).to(cm.device))
@@ -399,23 +542,50 @@ class Solver:
                    config: Optional[SolveConfig] = None,
                    **overrides) -> Iterator[Progress]:
         """Anytime solve: a `Progress` event after every host chunk; the
-        final event carries the `SolveResult`."""
+        final event carries the `SolveResult`.
+
+        With ``mesh_shards`` it delegates to `dist_solve.solve_iter_dist`.
+        With ``mesh``/``lane_axes`` it runs the explicit-mesh path: the
+        pool, padded to its bucket and then to a multiple of the shard
+        count, is split into contiguous slices, one per shard with its
+        own cursor and ``n_lanes`` lanes, and every chunk is
+        `_run_mesh_chunk`."""
         cfg = self._config_for(config, overrides)
         cm = cm.to(cfg.device)
+        if cfg.mesh_shards is not None:
+            from repro_torch.core import dist_solve
+            yield from dist_solve.solve_iter_dist(self, cm, cfg, subs=subs)
+            return
+        self.stats["solves"] += 1
         opts = cfg.search_options()
         t0 = time.time()
         subs_lb, subs_ub = self._pool_for(cm, cfg, subs, opts)
         eps_s = time.time() - t0
-        carry = _init_carry(cm, cfg.n_lanes, opts, _carry_heads(cfg, cm))
+        mesh = cfg.mesh
+        if mesh is not None:
+            rules = cfg.lane_rules()
+            pools = shard_tree((subs_lb, subs_ub), mesh, axis="pool",
+                               rules=rules)
+            cms = [cm.to(lb.device) for lb, _ in pools]
+            carry = _init_mesh_carry(
+                cms, S.init_lanes(cm, cfg.n_lanes * len(cms), opts), mesh,
+                rules)
+        else:
+            carry = _init_carry(cm, cfg.n_lanes, opts, _carry_heads(cfg, cm))
 
         improvements: List[Improvement] = []
         best_seen = torch.iinfo(cm.tdtype).max // 4
         while True:
-            carry = _run_chunk(opts, cfg.stop_on_first, cfg.chunk, cm,
-                               subs_lb, subs_ub, carry,
-                               supersteps=cfg.resolved_supersteps(),
-                               lane_tile=cfg.lane_tile or 0)
-            st = carry.st
+            if mesh is not None:
+                carry = _run_mesh_chunk(opts, cfg.stop_on_first, cfg.chunk,
+                                        cms, pools, carry)
+                st = _gather_state(carry.st)
+            else:
+                carry = _run_chunk(opts, cfg.stop_on_first, cfg.chunk, cm,
+                                   subs_lb, subs_ub, carry,
+                                   supersteps=cfg.resolved_supersteps(),
+                                   lane_tile=cfg.lane_tile or 0)
+                st = carry.st
             wall = time.time() - t0
             superstep = carry.it
             n_nodes = int(st.n_nodes.sum())
@@ -482,8 +652,12 @@ class Solver:
         if not cms:
             return []
         cfg = self._config_for(config, overrides)
+        if cfg.mesh is not None or cfg.mesh_shards is not None:
+            raise ValueError("solve_many is single-device; it cannot be "
+                             "combined with a mesh config")
         opts = cfg.search_options()
         t0 = time.time()
+        self.stats["solves"] += 1
         cms = [cm.to(cfg.device) for cm in cms]
         sig = shape_signature(cms[0])
         for k, cm in enumerate(cms[1:], 1):
@@ -590,6 +764,10 @@ class LaneBatch:
 
     def __init__(self, session: Solver, cm0: CompiledModel,
                  cfg: SolveConfig, *, width: int, pool_size: int):
+        if cfg.mesh is not None or cfg.mesh_shards is not None:
+            raise ValueError("LaneBatch (and solve_many on top of it) is "
+                             "single-device; it cannot be combined with a "
+                             "mesh config")
         if width < 1 or pool_size < 1:
             raise ValueError(f"LaneBatch needs width >= 1 and pool_size >= "
                              f"1, got {width}, {pool_size}")
@@ -780,18 +958,8 @@ class LaneBatch:
     def _fetch(self, extra=()) -> Dict[str, np.ndarray]:
         """The `_HOST_FIELDS` of the state (and the named tensors of
         `extra`) on the host, in ONE device-to-host copy."""
-        parts = [(k, getattr(self.st, k)) for k in _HOST_FIELDS]
-        parts += list(extra)
-        flat = torch.cat([t.reshape(-1).to(torch.int64) for _, t in parts])
-        flat = flat.cpu().numpy()
-        out, at = {}, 0
-        for k, t in parts:
-            n = t.numel()
-            # each field back at its own dtype (int32 or int64, bool)
-            out[k] = flat[at:at + n].reshape(tuple(t.shape)).astype(
-                torch.empty(0, dtype=t.dtype).numpy().dtype)
-            at += n
-        return out
+        return _to_host([(k, getattr(self.st, k)) for k in _HOST_FIELDS]
+                        + list(extra))
 
     def _host_state(self) -> Dict[str, np.ndarray]:
         if self._host is None:          # after a splice or a freeze

@@ -23,6 +23,16 @@ command fails instead of moving to the CPU.  ``--file`` reads a PSPLIB
 ``--profile`` traces the EPS decomposition and the search apart with
 ``torch.profiler`` and prints, for each, the device time by kernel and
 the device's busy share of its wall time.
+
+``--mesh N`` runs distributed EPS (`core/dist_solve.py`): the pool in N
+shards, every shard on ``--device`` (one card, or the CPU), each mesh
+superstep one ``fixpoint_cuda`` launch per shard under ``cuda``, with a
+bound sync per superstep, work stealing and the solve's
+``distributed: shards=… chunks=… bound_syncs=… steals=… remeshes=…``
+line at the end:
+
+  PYTHONPATH=src python -m repro_torch.launch.solve --n 60 --lanes 1024 \
+      --eps-target 4096 --mesh 4
 """
 
 import argparse
@@ -60,6 +70,9 @@ def main(argv=None):
                          "the midpoint, middle_out = x=m | x≠m on the "
                          "bitset-domain value nearest the midpoint "
                          "(default: the preset's, min)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="distributed EPS: the pool in N shards on --device, "
+                         "a bound sync per superstep, work stealing")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--file", default=None)
     ap.add_argument("--profile", action="store_true",
@@ -91,7 +104,7 @@ def main(argv=None):
         eps_target=args.eps_target, timeout_s=args.timeout,
         backend=args.backend, device=args.device,
         supersteps_per_launch=args.supersteps_per_launch,
-        lane_tile=args.lane_tile, **value)
+        lane_tile=args.lane_tile, mesh_shards=args.mesh, **value)
 
     launches0 = fixpoint_cuda.launches
     search0 = search_cuda.launches
@@ -106,10 +119,19 @@ def main(argv=None):
                                  cfg.search_options())
             t_eps = time.time() - t_eps
         _profile_report(prof, t_eps, "eps")
-    res = None
+    res, trace = None, None
+    sess = solver.Solver(cfg)
+    if args.mesh is not None:
+        # driven directly so the solve's DistTrace can be printed
+        from repro_torch.core import dist_solve
+        trace = dist_solve.DistTrace()
+        events = dist_solve.solve_iter_dist(sess, cm, cfg, subs=subs,
+                                            trace=trace)
+    else:
+        events = sess.solve_iter(cm, subs=subs)
     with (_profiler(args.device) if args.profile
           else contextlib.nullcontext()) as prof:
-        for ev in solver.Solver(cfg).solve_iter(cm, subs=subs):
+        for ev in events:
             if ev.final:
                 res = ev.result
             elif ev.best_objective is not None and ev.incumbent is not None:
@@ -133,6 +155,10 @@ def main(argv=None):
           f"search_launches={search_cuda.launches - search0} "
           f"wall={wall:.2f}s complete={res.complete} "
           f"ground_check={check}")
+    if trace is not None:
+        print(f"  distributed: shards={args.mesh} chunks={trace.n_chunks} "
+              f"bound_syncs={trace.n_bound_syncs} steals={trace.n_steals} "
+              f"remeshes={len(trace.remesh_events)}")
 
 
 def _profiler(device):

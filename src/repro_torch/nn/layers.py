@@ -14,7 +14,8 @@ the same values at half the memory.  Norm scales and biases stay f32:
 they enter the arithmetic in f32.
 
 The reference's ``constrain`` (a sharding constraint, a no-op on one
-device) has no counterpart: sharding is ROADMAP queue 1 item 7.
+device) has no counterpart: the training and serving shardings are
+ROADMAP queue 1 item 9.
 """
 
 from __future__ import annotations

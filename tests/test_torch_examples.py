@@ -55,7 +55,8 @@ def test_model_zoo_on_cpu(args):
 
 @pytest.mark.parametrize("script", ["torch_quickstart.py",
                                     "torch_rcpsp_solve.py",
-                                    "torch_model_zoo.py"])
+                                    "torch_model_zoo.py",
+                                    "torch_planner_demo.py"])
 def test_examples_without_gpu_fail(script):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the default device is usable")
