@@ -194,9 +194,13 @@ exit code and no result line:
    against ``flash_attention_plain`` on the card, bf16 inputs drawn with
    numpy from SEED, at the serving prefill shape ``[4, 2048, 32, 128]``
    with 8 KV heads (causal), a ragged S of 1000 (the pad path),
-   bidirectional S = 512, MQA (1 KV head) and head_dim 64, each at the
-   blocks (128, 128) and (64, 128): every output within ``rtol 2⁻⁷,
-   atol 1e-3`` of the plain version's;
+   bidirectional S = 512, MQA (1 KV head) and head_dim 64, and phase
+   37's prefill shapes (``[2, 1024]`` with 48 heads over 8 at head_dim
+   128 (dbrx) and 36 over 36 at 64 (minicpm), ``[2, 256]`` with 16 over
+   16 at 64 (seamless's decoder), ``[2, 1024]`` bidirectional with 16
+   over 16 at 64 (seamless's encoder)), each at the blocks (128, 128) and
+   (64, 128): every output within ``rtol 2⁻⁷, atol 1e-3`` of the plain
+   version's;
 27. the LM main path: qwen3-4b at full width and depth (36 layers),
    random weights from a ``torch.Generator`` on the card seeded with 0,
    through ``repro_torch.train.serve_step.generate``: 4 requests of 2048
@@ -302,7 +306,33 @@ exit code and no result line:
    of the same pool; a device loss (mesh 4, chunk 8, shard 1 lost after
    chunk 1): one remesh from 4 to 3 shards that requeues work, OPTIMAL
    82, a monotone bound; and ``launch/solve.py --mesh 4`` on J60 as a
-   subprocess.
+   subprocess;
+37. the other architectures' serving path, one after another, each
+   freed before the next: minicpm-2b (40 layers), pixtral-12b (40
+   layers, 1024 patch embeddings before the text), mamba2-1.3b (48
+   layers, prompts of 1000: the last 256-chunk padded),
+   recurrentgemma-2b (26 layers: 8 stacked periods and 2 recurrent
+   tails; prompts of 2100, past the 2048 window, so the ring wraps in
+   prefill and decode) and seamless-m4t-large-v2 (24 + 24 layers, 1024
+   frames) whole, dbrx-132b and deepseek-v2-236b at full width with
+   their depth cut to 4 layers (deepseek's dense layer and 3 MoE
+   layers; whole, they are 263 and 471 GB in bf16); random weights from
+   a ``torch.Generator`` on the card seeded with 0, prompts (and stub
+   inputs) from ``np.random.default_rng(SEED)``, 2 requests of 1024
+   prompt tokens unless stated, 8 tokens each, through
+   ``repro_torch.train.serve_step.generate``, twice (cold, then warm),
+   with the launch counters set to 0 just before each and read just
+   after: flash_attention exactly
+   once per layer whose prefill attention is unwindowed and of one
+   head_dim, causal or bidirectional (40, 40, 0, 0, 24 + 24, 4, 0), no
+   solver kernel; the layers, params, GB on the card, the cut, prefill
+   ms, decode ms per token, tokens/s and peak memory beside the card
+   line, and the MoE pair's ``moe_dropped``; the MoE pair's first
+   expert product on the prefill's dispatched tokens (a bf16 GEMM with
+   an f32 result) against the widened f32 product, within one bf16 ulp
+   of max |ref|; tokens in the vocabulary; then decode against
+   teacher forcing (the MoE pair at B = 1, S = 8, where no expert can
+   pass capacity): finite logits within ``0.08 · max|logit|``.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -402,8 +432,28 @@ FLASH_CASES = (("prefill", 4, 2048, 32, 8, 128, True),
                ("ragged S=1000", 4, 1000, 32, 8, 128, True),
                ("bidirectional S=512", 4, 512, 32, 8, 128, False),
                ("MQA", 4, 2048, 32, 1, 128, True),
-               ("head_dim 64", 4, 2048, 32, 8, 64, True))
+               ("head_dim 64", 4, 2048, 32, 8, 64, True),
+               # phase 37's prefill shapes: dbrx, minicpm, seamless
+               ("dbrx 48 over 8", 2, 1024, 48, 8, 128, True),
+               ("minicpm 36 over 36", 2, 1024, 36, 36, 64, True),
+               ("seamless decoder S=256", 2, 256, 16, 16, 64, True),
+               ("seamless encoder", 2, 1024, 16, 16, 64, False))
 FLASH_BLOCKS = ((128, 128), (64, 128))
+# phase 37: the other architectures, one after another: (arch, decoder
+# layers kept at full width, or None for all of them; requests, prompt
+# tokens, tokens generated, flash launches per prefill: the layers whose
+# prefill attention is unwindowed and of one head_dim, causal or the
+# encoder's bidirectional one)
+OTHER_ARCHS = (("minicpm-2b", None, 2, 1024, 8, 40),
+               ("pixtral-12b", None, 2, 1024, 8, 40),
+               ("mamba2-1.3b", None, 2, 1000, 8, 0),
+               ("recurrentgemma-2b", None, 2, 2100, 8, 0),
+               ("seamless-m4t-large-v2", None, 2, 256, 8, 48),
+               ("dbrx-132b", 4, 2, 1024, 8, 4),
+               ("deepseek-v2-236b", 4, 2, 1024, 8, 0))
+# (B, S) of the MoE pair's decode check: T = 8 tokens <= C = 8 slots per
+# expert, so no expert can pass capacity and drops cannot split the sides
+MOE_CHECK = (1, 8)
 # phases 30-32: batched solving.  Slots 1-3 of phase 30's J60 batch
 # permute seed 0's durations with np.random.default_rng(s) (one shape
 # signature); after 5 plain supersteps slot SLOT_IDLE is frozen idle and
@@ -3178,6 +3228,180 @@ def phase_distributed(card, j30, j60, j120, j60_cuda):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 37: the other architectures' serving path
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def moe_log(dropped, products):
+    """Records each MoE layer's ``moe_dropped`` (a 0-d tensor, read after
+    the run; serving itself ignores the aux dict) and the operands of the
+    first expert product (the prefill's gate product of the first MoE
+    layer) while the blocks run."""
+    from repro_torch.nn import moe as MOE
+    from repro_torch.nn import transformer as T
+    run, product = T.run_moe, MOE._expert_f32
+
+    def logged(p, x, cfg):
+        out, aux = run(p, x, cfg)
+        dropped.append(aux["moe_dropped"])
+        return out, aux
+
+    def kept(xe, w):
+        if not products:
+            products.append((xe, w))
+        return product(xe, w)
+    T.run_moe, MOE._expert_f32 = logged, kept
+    try:
+        yield
+    finally:
+        T.run_moe, MOE._expert_f32 = run, product
+
+
+def expert_check(cfg, xe, w, card):
+    """The card's expert product (a bf16 GEMM with an f32 result) against
+    the product of the bf16 values widened to f32 (`einsum_f32`, the
+    reference's ``preferred_element_type=f32``), on a real prefill's
+    dispatched tokens: max |err| under one bf16 ulp (2^-8) of max |ref|."""
+    import torch
+    from repro_torch.nn.layers import einsum_f32
+    from repro_torch.nn.moe import _expert_f32
+    got = _expert_f32(xe, w)
+    ref = einsum_f32("ecd,edf->ecf", xe, w)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    bound = ref.abs().max().item() * 2.0 ** -8
+    print(f"[37] {cfg.name}: expert product {list(xe.shape)} @ "
+          f"{list(w.shape)} in f32 against the widened product: max |err| "
+          f"{err:.3e}, bound {bound:.3e} (one bf16 ulp of max |ref|; {card})")
+    if not err < bound:
+        fail(f"{cfg.name}: expert product differs from the f32 product: "
+             f"{err:.3e} >= {bound:.3e}")
+
+
+def decode_check(params, cfg, batch, card):
+    """Prefill on S-1 tokens and decode token S-1 against a prefill on all
+    S (the stub inputs kept): max |err| against DECODE_TOL · max|logit|."""
+    import torch
+    from repro_torch.launch.serve import serve_smax
+    from repro_torch.nn import model as MD
+    S = batch["tokens"].shape[1]
+    smax = serve_smax(cfg, S, 0)
+    head = dict(batch, tokens=batch["tokens"][:, :-1])
+    full, _ = MD.forward_prefill(params, cfg, batch, smax)
+    _, caches = MD.forward_prefill(params, cfg, head, smax)
+    dec, _ = MD.forward_decode(params, cfg, batch["tokens"][:, -1:], caches)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
+        fail(f"{cfg.name}: non-finite logits")
+    err = (dec - full).abs().max().item()
+    scale = max(full.abs().max().item(), 1.0)
+    print(f"[37] {cfg.name}: decode of token {S - 1} at B={full.shape[0]}, "
+          f"S={S} against teacher forcing: max |err| {err:.4f}, max |logit| "
+          f"{scale:.4f} ({err / scale:.4f} of it; bound {DECODE_TOL}; "
+          f"{card})")
+    if err >= DECODE_TOL * scale:
+        fail(f"{cfg.name}: decode differs from teacher forcing: {err:.4f} "
+             f">= {DECODE_TOL} x {scale:.4f}")
+
+
+def phase_other_archs(card):
+    """Every other architecture served at full width through `generate`,
+    one after another (each freed before the next), twice (cold, then
+    warm), then decode against teacher forcing.  Returns the
+    flash_attention launches of the warm runs."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.fixpoint_kernel import (fixpoint_cuda,
+                                                     search_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve_smax, stub_batch
+    from repro_torch.nn import model as MD
+    from repro_torch.nn.layers import init_params
+    from repro_torch.train.serve_step import generate
+    total = 0
+    for arch, keep, B, S, gen, want in OTHER_ARCHS:
+        full = configs.get(arch)
+        cfg = full if keep is None else dataclasses.replace(full,
+                                                            n_layers=keep)
+        cut = ("nothing cut" if keep is None else
+               f"depth cut from {full.n_layers} to {keep} layers at full "
+               f"width (the whole model, {full.n_params():,} params, is "
+               f"{full.n_params() * 2 / 1e9:.0f} GB in bf16)")
+        layers = (f"{cfg.encdec.enc_layers} + {cfg.encdec.dec_layers}"
+                  if cfg.encdec else str(cfg.n_layers))
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params = init_params(MD.param_specs(cfg), torch.Generator(
+            device="cuda").manual_seed(LM_WEIGHT_SEED), "cuda")
+        torch.cuda.synchronize()
+        nbytes = sum(p.numel() * p.element_size() for p in params.values())
+        print(f"[37] {cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_params():,} params ({cfg.n_active_params():,} active "
+              f"per token), {nbytes / 1e9:.3f} GB on the card, drawn in "
+              f"{time.perf_counter() - t:.2f} s (peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB); {cut} "
+              f"({card})")
+        batch = stub_batch(cfg, np.random.default_rng(SEED), B, S, "cuda")
+        smax = serve_smax(cfg, S, gen)
+        extra = (f" + {cfg.frontend_tokens} patches"
+                 if cfg.frontend == "vit_stub" else
+                 f", {cfg.frontend_tokens} frames" if cfg.encdec else "")
+        runs = []
+        for run in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            dropped, products, stats = [], [], {}
+            flash_attention.launches = 0
+            fixpoint_cuda.launches = search_cuda.launches = 0
+            t0 = time.perf_counter()
+            with moe_log(dropped, products):
+                out = generate(params, cfg, batch, steps=gen, smax=smax,
+                               stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = flash_attention.launches
+            if fixpoint_cuda.launches or search_cuda.launches:
+                fail(f"{cfg.name}: generate launched a solver kernel")
+            if launches != want:
+                fail(f"{cfg.name}: flash_attention launched {launches} "
+                     f"times in generate, not {want}")
+            if out.shape != (B, gen) or not ((out >= 0)
+                                             & (out < cfg.vocab)).all():
+                fail(f"{cfg.name}: tokens {tuple(out.shape)} outside the "
+                     "vocabulary")
+            runs.append(out)
+            print(f"[37] {cfg.name} {run}: {B} requests x {S} prompt tokens"
+                  f"{extra}, {gen} generated: wall {wall:.3f} s, prefill "
+                  f"{stats['prefill_s'] * 1e3:.3f} ms, decode "
+                  f"{stats['decode_s'] / (gen - 1) * 1e3:.3f} ms/token, "
+                  f"{B * gen / wall:.1f} tokens/s, flash_attention launches "
+                  f"{launches}, max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+                  f"({card})")
+        total += launches
+        print(f"[37] {cfg.name}: cold and warm tokens equal: "
+              f"{torch.equal(*runs)}; request 0: {runs[1][0].tolist()}")
+        if cfg.moe is not None:
+            n_moe = cfg.n_layers - cfg.moe.first_dense
+            share = [float(d) for d in dropped]
+            print(f"[37] {cfg.name}: moe_dropped in the prefill's {n_moe} "
+                  f"MoE layers {[round(d, 4) for d in share[:n_moe]]} (mean "
+                  f"{sum(share[:n_moe]) / n_moe:.4f}), at most "
+                  f"{max(share[n_moe:]):.4f} in a decode step")
+            expert_check(cfg, *products[0], card)
+            del products
+            cb, cs = MOE_CHECK
+            batch = {"tokens": batch["tokens"][:cb, :cs]}
+        decode_check(params, cfg, batch, card)
+        del params, batch, out, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def mode_entry(base, mode, launches, err, times):
     """A {"kernels": [...]} entry of one kernel mode: `base`'s name,
     route, source and bank list, this mode's launches, max |err| and
@@ -3279,6 +3503,8 @@ def main():
     timed(35, phase_examples)
     dist_launches = timed(36, phase_distributed, card, rcpsp["J30"],
                           rcpsp["J60"], sparse["J120"], cuda_res)
+    other_flash = timed(37, phase_other_archs, card)
+    flash["launches"] += other_flash
     kernels[0]["launches"] += dist_launches[0]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
                                     sp_err, ct_err)
@@ -3325,6 +3551,9 @@ def main():
     print(f"kernels: phase 36's mesh solves (J60 mesh 1, 2, 4 and J120 mesh "
           f"4) added {dist_launches[0]} 256-thread and {dist_launches[1]} "
           "few-lane fixpoint_cuda launches to phase 3's")
+    print(f"kernels: phase 37's warm generate runs (minicpm, pixtral, "
+          f"seamless's encoder and decoder, dbrx) added {other_flash} flash_attention "
+          f"launches to phase 27's {flash_launches}")
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,11 +2,8 @@
 
 One `ArchConfig` per architecture, with exact numbers from the public
 sources cited in each config file, plus a ``SMOKE`` reduction of the
-same family for CPU tests.  The sub-configs of the other families (MoE,
-MLA, SSM, RG-LRU, encoder-decoder) are kept so that the fields of
-`ArchConfig` mean what they mean in the reference; the port runs only
-the dense GQA family (``nn/model.py``).  The reference's `ShapeConfig`
-table belongs to its dry-run, which the port does not have.
+same family for CPU tests.  The reference's `ShapeConfig` table belongs
+to its dry-run, which the port does not have.
 """
 
 from __future__ import annotations
@@ -92,7 +89,25 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def attn_free(self) -> bool:
+        return self.ssm is not None
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can decode with O(1)/bounded per-token state at 500k context."""
+        return self.ssm is not None or self.rglru is not None
+
     def n_params(self) -> int:
         """Exact parameter count from the spec tables."""
         from repro_torch.nn.model import param_specs
         return sum(int(np.prod(s.shape)) for s in param_specs(self).values())
+
+    def n_active_params(self) -> int:
+        """Active-per-token params (MoE: routed top-k + shared only)."""
+        from repro_torch.nn.model import active_param_fraction, param_specs
+        total = 0
+        for path, s in param_specs(self).items():
+            n = int(np.prod(s.shape))
+            total += int(n * active_param_fraction(self, path))
+        return total

@@ -5,10 +5,19 @@ by default.
       --batch 4 --prompt-len 2048 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-Random weights from ``--seed`` (nothing is downloaded) and random prompt
-tokens.  The prefill's attention runs on the flash-attention kernel
-(``kernels/csrc/flash_attention.cu``), one launch per layer; decode
-steps attend to the KV cache through the plain blocked attention.
+Every architecture of ``configs.ARCH_IDS`` serves (``--arch``): dense GQA,
+MoE (dbrx, deepseek-v2 with MLA), the ViT stub (pixtral), SSM (mamba2),
+RG-LRU with windowed attention (recurrentgemma) and the encoder-decoder
+(seamless).  Random weights from ``--seed`` (nothing is downloaded),
+random prompt tokens, and, as the reference's CLI, random stub inputs:
+``patch_embeds`` (bf16) for the ViT stub, ``frames`` for the
+encoder-decoder, ``frontend_tokens`` of them per request.  A prefill
+attention without a window (causal, or the encoder's bidirectional one)
+runs on the flash-attention kernel
+(``kernels/csrc/flash_attention.cu``), one launch per such layer; decode
+steps attend to the caches through the plain blocked attention.  The
+whole dbrx-132b and deepseek-v2-236b (263 GB and 471 GB in bf16) do not
+fit one 80 GB card.
 ``--device cpu`` runs the plain PyTorch path on the CPU (the kernel's
 wrapper takes its plain version there); without a GPU and without it the
 command fails instead of moving to the CPU.  Prints the card's name, the
@@ -56,10 +65,9 @@ def main(argv=None):
     params = init_params(MD.param_specs(cfg),
                          torch.Generator(device=dev).manual_seed(args.seed),
                          dev)
-    rng = np.random.default_rng(args.seed)
-    tokens = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
-    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
-    smax = args.prompt_len + args.gen + 8
+    batch = stub_batch(cfg, np.random.default_rng(args.seed), args.batch,
+                       args.prompt_len, dev)
+    smax = serve_smax(cfg, args.prompt_len, args.gen)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
 
@@ -79,6 +87,35 @@ def main(argv=None):
     print("sample:", out[0].tolist())
     if args.profile:
         _profile(params, cfg, batch, smax, args.gen, dev)
+
+
+def stub_batch(cfg, rng, B: int, S: int, dev):
+    """Random prompt tokens [B, S] and, as the reference's CLI, the stub
+    inputs, drawn in that order from the numpy generator `rng`:
+    ``patch_embeds`` (bf16) for the ViT stub, ``frames`` (f32) for the
+    encoder-decoder, ``frontend_tokens`` of them per request."""
+    import numpy as np
+    import torch
+
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, S))).to(dev)}
+    stub = (B, cfg.frontend_tokens, cfg.d_model)
+    if cfg.frontend == "vit_stub":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            stub, dtype=np.float32)).to(dev, torch.bfloat16)
+    if cfg.encdec is not None:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            stub, dtype=np.float32)).to(dev)
+    return batch
+
+
+def serve_smax(cfg, S: int, gen: int) -> int:
+    """Decode cache slots for an S-token prompt and `gen` generated
+    tokens: the ViT stub's ``frontend_tokens`` patches stand in front of
+    the text in the cache too (the reference's CLI leaves them out, and
+    its cache write then lands past the end)."""
+    prefix = cfg.frontend_tokens if cfg.frontend == "vit_stub" else 0
+    return prefix + S + gen + 8
 
 
 def _profile(params, cfg, batch, smax, gen, dev):

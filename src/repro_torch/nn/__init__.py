@@ -1,2 +1,3 @@
-"""The LM substrate of the port (dense GQA family): parameter specs and
-layers, attention, transformer blocks and the whole model."""
+"""The LM substrate of the port (every family of the reference's ten
+architectures, serving): parameter specs and layers, attention, MoE,
+SSM, RG-LRU, transformer blocks and the whole model."""

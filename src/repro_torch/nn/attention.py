@@ -1,18 +1,20 @@
-"""Attention (the port of ``repro/nn/attention.py``, dense GQA): blocked
+"""Attention (the port of ``repro/nn/attention.py``): blocked
 online-softmax attention with GQA/MQA and causal/bidirectional/window
-masks, the GQA block with its KV-cache decode, and the routing of the
-prefill to the flash kernel.
+masks, the GQA block with its KV-cache decode (a ring buffer of the
+window's size when ``window > 0``), MLA (multi-head latent attention,
+deepseek-v2) with its absorbed decode, and the routing of the prefill to
+the flash kernel.
 
 `blocked_attention` is plain PyTorch, the reference's chunked online
 softmax with its Python loops in place of ``lax.scan``; every decode
 step goes through it.  The prefill (`gqa_attention` without a cache)
 goes to `kernels.flash_attention.flash_attention` wherever that kernel's
-contract holds — causal, no window, query and key positions both
-``arange(S)``, dk == dv — which computes the same function as the
-reference's `blocked_attention` there.
-
-Not ported yet (ROADMAP queue 1 item 9): the ring-buffer KV cache of
-``window > 0`` and MLA (``cfg.mla``); both raise.
+contract holds — causal or bidirectional, no window, query and key
+positions both ``arange(S)``, dk == dv — which computes the same function
+as the reference's `blocked_attention` there (the encoder of the
+encoder-decoder is such a bidirectional prefill).  A windowed or MLA
+prefill (q 192 wide, v 128 at deepseek-v2) stays on `blocked_attention`,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -23,10 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.nn.layers import F32, apply_rope, cast_bf16, dense, rms_norm
+from repro_torch.nn.layers import (F32, apply_rope, cast_bf16, dense,
+                                   einsum_bf16, rms_norm)
 
 NEG_INF = -1e30
-PENDING = "not ported yet (ROADMAP queue 1 item 9)"
 
 
 def _mask(q_pos, kv_pos, kv_valid, *, causal: bool, window: int,
@@ -134,38 +136,120 @@ def gqa_attention(p, prefix, x, cfg, positions, *, window: int = 0,
     cache=None: full-sequence attention (prefill).  With `return_kv`,
     also returns the rope'd (k, v) so the caller can prime a decode
     cache.  cache!=None: decode step(s); the keys are written at
-    ``cache.length`` in place (``index_copy_``, where the reference's
-    ``dynamic_update_slice`` makes a new array), so the caller's cache
-    tensors hold the new entries afterwards.
+    ``cache.length`` (ring-buffered at ``length % Smax`` iff window > 0;
+    decode is S == 1 there) in place (``index_copy_``, where the
+    reference's ``dynamic_update_slice`` makes a new array), so the
+    caller's cache tensors hold the new entries afterwards.
     """
-    if cfg.mla is not None:
-        raise NotImplementedError(f"MLA attention: {PENDING}")
-    if window > 0:
-        raise NotImplementedError(f"the windowed ring-buffer cache: {PENDING}")
     B, S, _ = x.shape
     q, k, v = gqa_project_qkv(p, prefix, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, seq_axis=1)
     k = apply_rope(k, positions, cfg.rope_theta, seq_axis=1)
 
     if cache is None:
-        if causal and q.shape[-1] == v.shape[-1] and _aligned(positions, S):
-            out = flash_attention(q, k, v, causal=True)
+        if (window == 0 and q.shape[-1] == v.shape[-1]
+                and _aligned(positions, S)):
+            out = flash_attention(q, k, v, causal=causal)
         else:
             out = blocked_attention(q, k, v, positions, positions,
-                                    causal=causal, q_chunk=q_chunk,
-                                    kv_chunk=kv_chunk)
+                                    causal=causal, window=window,
+                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
         aux = (k, v) if return_kv else None
     else:
         Smax = cache.k.shape[1]
-        slots = cache.length.long() + torch.arange(S, device=x.device)
+        slot = cache.length % Smax if window > 0 else cache.length
+        slots = slot.long() + torch.arange(S, device=x.device)
         ck = cache.k.index_copy_(1, slots, k)
         cv = cache.v.index_copy_(1, slots, v)
-        kv_pos = torch.arange(Smax, device=x.device)
+        phys = torch.arange(Smax, device=x.device)
+        if window > 0:
+            # ring buffer: absolute position of physical slot s
+            base = cache.length - slot
+            kv_pos = torch.where(phys <= slot, base + phys, base - Smax + phys)
+        else:
+            kv_pos = phys
         q_pos = cache.length + torch.arange(S, dtype=torch.int32,
                                             device=x.device)
         out = blocked_attention(q, ck, cv, q_pos, kv_pos, causal=True,
-                                kv_len=cache.length + S,
+                                window=window, kv_len=cache.length + S,
                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
         aux = KVCache(ck, cv, cache.length + S)
     out = dense(out.reshape(B, S, -1), p[f"{prefix}/wo"])
     return out, aux
+
+
+# --------------------------------------------------------------------------
+# MLA — multi-head latent attention (deepseek-v2), absorbed decode
+# --------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # [B, Smax, kv_lora]   compressed KV
+    k_rope: torch.Tensor     # [B, Smax, rope_dim]  shared rope key
+    length: torch.Tensor
+
+
+def mla_attention(p, prefix, x, cfg, positions, *,
+                  cache: Optional[MLACache] = None, return_kv: bool = False,
+                  q_chunk=1024, kv_chunk=1024):
+    """Prefill: expand the compressed KV and run `blocked_attention` (with
+    `return_kv`, also return (c_kv, k_rope) to prime a decode cache).
+    Decode: the absorbed form — queries projected into the latent space,
+    the cache ``kv_lora + rope_dim`` wide per position, written in place
+    at ``cache.length``."""
+    mla = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd, kvl = mla.nope_dim, mla.rope_dim, mla.v_dim, mla.kv_lora
+
+    # --- queries (with LoRA) ---
+    cq = rms_norm(dense(x, p[f"{prefix}/w_dq"]), p[f"{prefix}/q_norm"],
+                  cfg.norm_eps)
+    q = dense(cq, p[f"{prefix}/w_uq"]).reshape(B, S, H, nd + rd)
+    q_nope = q[..., :nd]
+    q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta, seq_axis=1)
+
+    # --- compressed KV ---
+    ckv = rms_norm(dense(x, p[f"{prefix}/w_dkv"]), p[f"{prefix}/kv_norm"],
+                   cfg.norm_eps)                               # [B,S,kvl]
+    krope = apply_rope(dense(x, p[f"{prefix}/w_kr"]), positions,
+                       cfg.rope_theta, seq_axis=1)             # [B,S,rd]
+
+    w_uk = p[f"{prefix}/w_uk"].reshape(kvl, H, nd)
+    w_uv = p[f"{prefix}/w_uv"].reshape(kvl, H, vd)
+
+    if cache is None:
+        # prefill: expand the K latent into per-head keys; rope part shared
+        k_nope = einsum_bf16("bsc,chd->bshd", ckv, w_uk)
+        k_full = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, rd)],
+                           dim=-1)
+        v_full = einsum_bf16("bsc,chd->bshd", ckv, w_uv)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = blocked_attention(q_full, k_full, v_full, positions, positions,
+                                causal=True, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk)
+        new_cache = (ckv, krope) if return_kv else None
+    else:
+        # absorbed decode: q' = q_nope @ W_uk -> latent-space scores
+        Smax = cache.c_kv.shape[1]
+        slots = cache.length.long() + torch.arange(S, device=x.device)
+        cc = cache.c_kv.index_copy_(1, slots, ckv)
+        cr = cache.k_rope.index_copy_(1, slots, krope)
+        q_lat = einsum_bf16("bshd,chd->bshc", q_nope, w_uk)   # [B,S,H,kvl]
+        # (c_kv ++ k_rope) as a single-KV-head key of dim kvl + rd
+        k_cat = torch.cat([cc, cr], dim=-1)[:, :, None, :]
+        q_cat = torch.cat([q_lat, q_rope], dim=-1)
+        # scale correction: blocked_attention scales by 1/sqrt(kvl+rd);
+        # MLA wants 1/sqrt(nd+rd).  The reference's bf16 q times this
+        # numpy float64 is f32
+        fix = float(np.float32(np.sqrt(kvl + rd) / np.sqrt(nd + rd)))
+        ctx = blocked_attention(
+            q_cat.to(F32) * fix, k_cat, cc[:, :, None, :],       # latent v
+            cache.length + torch.arange(S, dtype=torch.int32,
+                                        device=x.device),
+            torch.arange(Smax, device=x.device), causal=True,
+            kv_len=cache.length + S, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        out = einsum_bf16("bshc,chd->bshd", ctx, w_uv)
+        new_cache = MLACache(cc, cr, cache.length + S)
+
+    out = dense(out.reshape(B, S, H * vd), p[f"{prefix}/wo"])
+    return out, new_cache

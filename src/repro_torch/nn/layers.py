@@ -10,8 +10,9 @@ accumulate in f32, norms and rope compute in f32, activations are bf16.
 The reference stores every param in f32 and casts the matrices to bf16 at
 each use (`dense`, `embed_lookup`, `unembed`); the port stores the
 matrices in bf16 once (`init_params`, `params_from_numpy`), which computes
-the same values at half the memory.  Norm scales and biases stay f32:
-they enter the arithmetic in f32.
+the same values at half the memory.  Every leaf the reference reads in
+f32 stays f32 (`storage_dtype`): norm scales, biases, the MoE router, the
+SSM and RG-LRU gate and decay parameters and their conv weights.
 
 The reference's ``constrain`` (a sharding constraint, a no-op on one
 device) has no counterpart: the training and serving shardings are
@@ -44,11 +45,22 @@ class ParamSpec:
 Specs = Dict[str, ParamSpec]
 
 
+# leaves the reference reads in f32 besides norm scales and biases: the
+# MoE router (`moe_ffn`'s f32 logits), the SSM's dt_bias/A_log (f32 softplus
+# and exp) and D (cast to bf16 at use: f32 storage gives the same value),
+# both blocks' conv_w (bf16 activations times an f32 weight promote to
+# f32), the RG-LRU's block-diagonal gates, their biases and a_param
+F32_LEAVES = frozenset(("router", "dt_bias", "A_log", "D", "conv_w", "w_a",
+                        "w_x", "b_a", "b_x", "a_param"))
+
+
 def storage_dtype(path: str) -> torch.dtype:
-    """A matrix (embedding, projection, FFN, unembedding) is held in bf16;
-    a norm scale (``*norm*``) or a bias (``*_b``) in f32."""
+    """A matrix (embedding, projection, FFN, expert, unembedding) is held
+    in bf16; a norm scale (``*norm*``), a bias (``*_b``) or one of
+    `F32_LEAVES` in f32."""
     leaf = path.rsplit("/", 1)[-1]
-    return F32 if "norm" in leaf or leaf.endswith("_b") else BF16
+    return F32 if ("norm" in leaf or leaf.endswith("_b")
+                   or leaf in F32_LEAVES) else BF16
 
 
 def init_params(specs: Specs, generator: torch.Generator, device=None):
@@ -80,9 +92,10 @@ def init_params(specs: Specs, generator: torch.Generator, device=None):
 def params_from_numpy(params: Dict[str, np.ndarray], device) -> dict:
     """The reference's flat param dict (numpy arrays, e.g.
     ``{k: np.asarray(v) for k, v in jax_params.items()}``) as the port's,
-    under the same names: matrices rounded to bf16 (what the reference's
-    `dense`/`embed_lookup`/`unembed` do at each use), norm scales and
-    biases kept f32."""
+    under the same names, each at its `storage_dtype`: matrices rounded to
+    bf16 (what the reference's `dense`/`embed_lookup`/`unembed` and the
+    expert products do at each use), every leaf the reference reads in f32
+    kept f32."""
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
             .to(storage_dtype(k)) for k, v in params.items()}
 
@@ -100,6 +113,21 @@ def matmul_f32(x, w):
     reference's ``preferred_element_type=f32``): the operands' products in
     f32 (exact for bf16 values), with TF32 off (`set_matmul_precision`)."""
     return torch.matmul(cast_bf16(x).to(F32), cast_bf16(w).to(F32))
+
+
+def einsum_f32(eq: str, a, b):
+    """``einsum`` of bf16 operands accumulated and returned in f32 (the
+    reference's ``preferred_element_type=f32``): the bf16 values widened
+    to f32, whose products are exact."""
+    return torch.einsum(eq, cast_bf16(a).to(F32), cast_bf16(b).to(F32))
+
+
+def einsum_bf16(eq: str, a, b):
+    """`einsum_f32` rounded once to bf16; on the card one bf16 batched
+    GEMM (f32 accumulation, one rounding), as `dense`."""
+    if a.device.type == "cuda":
+        return torch.einsum(eq, cast_bf16(a), cast_bf16(b))
+    return cast_bf16(einsum_f32(eq, a, b))
 
 
 def dense(x, w, bias=None):

@@ -312,24 +312,21 @@ def test_serve_cli_never_moves_to_the_cpu(monkeypatch):
         serve.main(["--smoke"])
 
 
-# ---- what the port does not run yet raises ------------------------------------
+# ---- what the port does not run raises ----------------------------------------
 
 def test_unported_paths_raise():
-    for arch in ("dbrx-132b", "deepseek-v2-236b", "mamba2-1.3b"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            configs.get(arch)
-    for arch in ("pixtral-12b", "recurrentgemma-2b"):
-        jcfg = jconfigs.get_smoke(arch)
-        cfg = ArchConfig(**{f: getattr(jcfg, f) for f in
-                            ArchConfig.__dataclass_fields__})
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            M.param_specs(cfg)
+    """Every architecture id of the reference resolves to its config (the
+    MoE, MLA, SSM, RG-LRU, encoder-decoder and ViT-stub ones too); an
+    unknown id raises `KeyError`, and a head_dim the flash kernel does not
+    take raises rather than falling back."""
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    for arch in jconfigs.ARCH_IDS:
+        assert configs.get(arch).name == jconfigs.get(arch).name
+        assert configs.get_smoke(arch).name == jconfigs.get_smoke(arch).name
+    for get in (configs.get, configs.get_smoke):
+        with pytest.raises(KeyError):
+            get("gpt-2")
     cfg = configs.get_smoke("qwen3-4b")
-    p = L.init_params(M.param_specs(cfg), torch.Generator().manual_seed(0),
-                      "cpu")
-    x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
-        A.gqa_attention(M._layers(p, "blocks", cfg.n_layers)[0], "attn", x, cfg, torch.arange(4), window=2)
     # head_dim 24: the flash kernel takes 16, 32, 64 or 128
     odd = ArchConfig(**{**cfg.__dict__, "head_dim": 24})
     p = L.init_params(M.param_specs(odd), torch.Generator().manual_seed(0),
