@@ -332,7 +332,33 @@ exit code and no result line:
    an f32 result) against the widened f32 product, within one bf16 ulp
    of max |ref|; tokens in the vocabulary; then decode against
    teacher forcing (the MoE pair at B = 1, S = 8, where no expert can
-   pass capacity): finite logits within ``0.08 · max|logit|``.
+   pass capacity): finite logits within ``0.08 · max|logit|``; and
+   recurrentgemma once more on a short prompt (B = 2, S = 16 under a
+   ring of its whole 2048-token window), whose decode attends on the
+   ring's first lap, against teacher forcing at the same bound, and
+   again with the unwritten slots let into the softmax (the fault the
+   ring's mask repairs), which must land outside the bound;
+38. training (``train/``, ``nn/model.forward_train``), which runs none
+   of the three kernels, as the reference's training runs no Pallas
+   kernel: (a) every architecture's smoke config, one step
+   (``loss_and_grads``, then ``apply_updates``, the body of
+   ``train_step``) on the card from the same f32 params (drawn on the
+   CPU from a seeded ``torch.Generator``) as the same step on the CPU:
+   the loss within 1e-2 relative of the CPU's, every gradient leaf
+   finite, every leaf nonzero whose CPU gradient is, and each such
+   leaf's ‖card − cpu‖/‖cpu‖ under 0.1; (b) llama3-8b's
+   smoke config trained 60 steps on the pipeline (as
+   ``tests/test_train.py::test_loss_decreases_on_learnable_task``): the
+   mean of the last 5 losses at least 1.0 under that of the first 5;
+   (c) under ``TrainSupervisor`` on the card, a run cut at step 10 and
+   resumed to 14 equals the uninterrupted run bit for bit (params and
+   moments); (d) minicpm-2b whole (40 layers, d_model 2304, 2.72 B
+   params, f32 params, gradients and moments) through
+   ``launch/train.py``: 4 steps of 4 x 512 tokens, WSD, random weights
+   from seed 0, no checkpoint: per step ms, tokens/s, peak
+   ``max_memory_allocated``, loss, lr and grad_norm beside the card
+   line; finite losses and a finite, positive grad_norm; (e) the
+   kernels' launch counters are the same before and after the phase.
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -454,6 +480,23 @@ OTHER_ARCHS = (("minicpm-2b", None, 2, 1024, 8, 40),
 # (B, S) of the MoE pair's decode check: T = 8 tokens <= C = 8 slots per
 # expert, so no expert can pass capacity and drops cannot split the sides
 MOE_CHECK = (1, 8)
+# (B, S) of recurrentgemma's short-prompt decode check, under a ring of
+# the whole window (2048 slots): its decode runs on the first lap with
+# all but S slots unwritten
+SHORT_RING = (2, 16)
+# phase 38: (a) the smoke step's batch and tolerance against the CPU, (b)
+# the learnable task, (c) kill and resume, (d) minicpm-2b whole through
+# launch/train.py
+TRAIN_SMOKE = (4, 32)                  # global batch, sequence
+TRAIN_LOSS_RTOL = 1e-2
+# worst on-path gradient leaf ‖card − cpu‖/‖cpu‖: bf16 compute in another
+# order gives 0.0005-0.0169, dbrx 0.0466 (router near-ties); a wrong
+# scale, transpose or lost term gives O(1)
+TRAIN_GRAD_RTOL = 0.1
+LEARN = dict(steps=60, seq=32, batch=8, lr=3e-3, warmup=5, drop=1.0)
+RESUME = (10, 14, 5)                   # cut, end, checkpoint every
+TRAIN_FULL = ["--arch", "minicpm-2b", "--steps", "4", "--seq", "512",
+              "--global-batch", "4", "--seed", "0", "--log-every", "1"]
 # phases 30-32: batched solving.  Slots 1-3 of phase 30's J60 batch
 # permute seed 0's durations with np.random.default_rng(s) (one shape
 # signature); after 5 plain supersteps slot SLOT_IDLE is frozen idle and
@@ -3279,14 +3322,29 @@ def expert_check(cfg, xe, w, card):
              f"{err:.3e} >= {bound:.3e}")
 
 
-def decode_check(params, cfg, batch, card):
+def decode_check(params, cfg, batch, card, smax=None):
     """Prefill on S-1 tokens and decode token S-1 against a prefill on all
-    S (the stub inputs kept): max |err| against DECODE_TOL · max|logit|."""
+    S (the stub inputs kept), the caches of ``smax`` slots: max |err|
+    against DECODE_TOL · max|logit|."""
+    S = batch["tokens"].shape[1]
+    err, scale = decode_gap(params, cfg, batch, smax)
+    print(f"[37] {cfg.name}: decode of token {S - 1} at "
+          f"B={batch['tokens'].shape[0]}, S={S} against teacher forcing: "
+          f"max |err| {err:.4f}, max |logit| {scale:.4f} ({err / scale:.4f} "
+          f"of it; bound {DECODE_TOL}; {card})")
+    if err >= DECODE_TOL * scale:
+        fail(f"{cfg.name}: decode differs from teacher forcing: {err:.4f} "
+             f">= {DECODE_TOL} x {scale:.4f}")
+
+
+def decode_gap(params, cfg, batch, smax=None):
+    """(max |decode − teacher forcing|, max(max|logit|, 1)) of the last
+    token, the caches of ``smax`` slots (`serve_smax` by default)."""
     import torch
     from repro_torch.launch.serve import serve_smax
     from repro_torch.nn import model as MD
     S = batch["tokens"].shape[1]
-    smax = serve_smax(cfg, S, 0)
+    smax = serve_smax(cfg, S, 0) if smax is None else smax
     head = dict(batch, tokens=batch["tokens"][:, :-1])
     full, _ = MD.forward_prefill(params, cfg, batch, smax)
     _, caches = MD.forward_prefill(params, cfg, head, smax)
@@ -3294,15 +3352,48 @@ def decode_check(params, cfg, batch, card):
     torch.cuda.synchronize()
     if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
         fail(f"{cfg.name}: non-finite logits")
-    err = (dec - full).abs().max().item()
-    scale = max(full.abs().max().item(), 1.0)
-    print(f"[37] {cfg.name}: decode of token {S - 1} at B={full.shape[0]}, "
-          f"S={S} against teacher forcing: max |err| {err:.4f}, max |logit| "
-          f"{scale:.4f} ({err / scale:.4f} of it; bound {DECODE_TOL}; "
-          f"{card})")
-    if err >= DECODE_TOL * scale:
-        fail(f"{cfg.name}: decode differs from teacher forcing: {err:.4f} "
-             f">= {DECODE_TOL} x {scale:.4f}")
+    return ((dec - full).abs().max().item(),
+            max(full.abs().max().item(), 1.0))
+
+
+@contextlib.contextmanager
+def unmasked_ring():
+    """The decode mask without its first-lap repair: ring slots never
+    written (negative position) take softmax weight, as in the
+    reference."""
+    from repro_torch.nn import attention as A
+    mask = A._mask
+
+    def faulty(q_pos, kv_pos, kv_valid, *, causal, window, kv_len=None):
+        if kv_len is not None:
+            kv_pos = kv_pos.clamp_min(0)
+        return mask(q_pos, kv_pos, kv_valid, causal=causal, window=window,
+                    kv_len=kv_len)
+    A._mask = faulty
+    try:
+        yield
+    finally:
+        A._mask = mask
+
+
+def short_ring_check(params, cfg, tokens, card):
+    """recurrentgemma's decode on the ring's first lap (S tokens under a
+    ring of its whole window) against teacher forcing, then with the
+    unwritten slots let in, which must fail the same bound: the check
+    tells the repaired ring from the faulty one."""
+    W = cfg.rglru.window
+    print(f"[37] {cfg.name}: short prompt, {tokens.shape[1]} tokens under a "
+          f"ring of {W} slots (its first lap)")
+    decode_check(params, cfg, {"tokens": tokens}, card, smax=W)
+    with unmasked_ring():
+        err, scale = decode_gap(params, cfg, {"tokens": tokens}, W)
+    print(f"[37] {cfg.name}: the same decode with the {W - tokens.shape[1]}"
+          f" unwritten slots in the softmax: max |err| {err:.4f} "
+          f"({err / scale:.4f} of max |logit|; must reach {DECODE_TOL})")
+    if err < DECODE_TOL * scale:
+        fail(f"{cfg.name}: the short-prompt check cannot tell the repaired "
+             f"ring from the faulty one: {err:.4f} < {DECODE_TOL} x "
+             f"{scale:.4f}")
 
 
 def phase_other_archs(card):
@@ -3396,10 +3487,221 @@ def phase_other_archs(card):
             cb, cs = MOE_CHECK
             batch = {"tokens": batch["tokens"][:cb, :cs]}
         decode_check(params, cfg, batch, card)
+        if cfg.rglru is not None:
+            sb, ss = SHORT_RING
+            short_ring_check(params, cfg, batch["tokens"][:sb, :ss], card)
         del params, batch, out, runs
         gc.collect()
         torch.cuda.empty_cache()
     return total
+
+
+def grad_norm_rel(got, ref):
+    """‖got − ref‖ / ‖ref‖ of two f32 tensors (on any devices)."""
+    ref = ref.double().cpu()
+    return ((got.double().cpu() - ref).norm() / ref.norm().clamp_min(1e-30)
+            ).item()
+
+
+def train_smoke_step(cfg, params, batch, device):
+    """One training step of the smoke config on `device` from copies of
+    `params`: ``loss_and_grads`` and ``apply_updates`` (the body of
+    ``train_step``).  Returns (loss, grads, updated params)."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.nn.layers import set_matmul_precision
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import loss_and_grads
+    set_matmul_precision()
+    p = {k: v.to(device, copy=True) for k, v in params.items()}
+    ocfg = O.OptConfig()
+    (_, metrics), grads = loss_and_grads(p, cfg, to_device(batch, device),
+                                         ocfg, remat=True, chunks=(8, 8))
+    p, _, _ = O.apply_updates(p, grads, O.init_opt_state(p), ocfg)
+    return float(metrics["loss"]), grads, p
+
+
+def phase_train_smoke(card):
+    """(a): every architecture's smoke step, card against CPU."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.nn import model as MD
+    from repro_torch.nn.layers import init_params
+    B, S = TRAIN_SMOKE
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_smoke(arch)
+        params = init_params(MD.param_specs(cfg),
+                             torch.Generator().manual_seed(LM_WEIGHT_SEED),
+                             "cpu", dtype=torch.float32)
+        batch = SyntheticLM(cfg, S, B, seed=SEED).batch(0)
+        cpu_loss, cpu_grads, _ = train_smoke_step(cfg, params, batch, "cpu")
+        t = time.perf_counter()
+        loss, grads, new = train_smoke_step(cfg, params, batch, "cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        on_path = [k for k, g in cpu_grads.items() if g.abs().max() > 0]
+        bad = [k for k, g in grads.items() if not torch.isfinite(g).all()]
+        dead = [k for k in on_path if not grads[k].abs().max() > 0]
+        moved = sum(not torch.equal(new[k].cpu(), params[k]) for k in params)
+        rel = abs(loss - cpu_loss) / abs(cpu_loss)
+        worst = max(grad_norm_rel(grads[k], cpu_grads[k]) for k in on_path)
+        print(f"[38] {cfg.name}: loss card {loss:.6f}, cpu {cpu_loss:.6f} "
+              f"({rel:.2e} relative, bound {TRAIN_LOSS_RTOL}); "
+              f"{len(grads)} gradient leaves, {len(on_path)} nonzero on the "
+              f"CPU, {len(on_path) - len(dead)} of them nonzero on the card,"
+              f" {len(bad)} not finite; worst leaf ‖card − cpu‖/‖cpu‖ "
+              f"{worst:.4f} (bound {TRAIN_GRAD_RTOL}); {moved} params moved; step {ms:.1f} ms (cold; "
+              f"{card})")
+        if (not rel <= TRAIN_LOSS_RTOL or bad or dead or not on_path
+                or not worst <= TRAIN_GRAD_RTOL):
+            fail(f"{cfg.name}: training step on the card: loss {loss} "
+                 f"against {cpu_loss} on the CPU, non-finite {bad}, zero "
+                 f"{dead}, worst leaf {worst:.4f} (bound {TRAIN_GRAD_RTOL})")
+        del params, grads, cpu_grads, new
+
+
+def learnable_run(cfg, steps):
+    """`steps` steps of the learnable task on the card; the losses."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.nn import model as MD
+    from repro_torch.nn.layers import init_params
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import train_step
+    data = SyntheticLM(cfg, LEARN["seq"], LEARN["batch"], seed=SEED)
+    params = init_params(MD.param_specs(cfg),
+                         torch.Generator().manual_seed(SEED), "cpu",
+                         dtype=torch.float32)
+    params = {k: v.to("cuda") for k, v in params.items()}
+    opt = O.init_opt_state(params)
+    ocfg = O.OptConfig(peak_lr=LEARN["lr"], warmup_steps=LEARN["warmup"],
+                       total_steps=steps, schedule="cosine")
+    losses = []
+    for s in range(steps):
+        params, opt, m = train_step(params, opt,
+                                    to_device(data.batch(s), "cuda"), cfg,
+                                    ocfg, remat=False, chunks=(8, 8))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def phase_learn_and_resume(card):
+    """(b) the learnable task, (c) kill and resume under the supervisor."""
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.ft.fault_tolerance import TrainSupervisor
+    from repro_torch.nn import model as MD
+    from repro_torch.nn.layers import init_params
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import train_step
+    cfg = configs.get_smoke("llama3-8b")
+    t = time.perf_counter()
+    losses = learnable_run(cfg, LEARN["steps"])
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"[38] {cfg.name}: {LEARN['steps']} steps of the learnable task "
+          f"({LEARN['batch']} x {LEARN['seq']} tokens) in "
+          f"{time.perf_counter() - t:.2f} s: mean loss of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f} (drop {first - last:.4f},"
+          f" at least {LEARN['drop']}); losses "
+          f"{[round(x, 3) for x in losses[::10]]} ({card})")
+    if not all(math.isfinite(x) for x in losses) or \
+            not last <= first - LEARN["drop"]:
+        fail(f"{cfg.name}: the learnable task's loss fell {first - last:.4f}"
+             f", not {LEARN['drop']}")
+
+    cut, end, every = RESUME
+    data = SyntheticLM(cfg, 16, 4, seed=SEED)
+    ocfg = O.OptConfig(peak_lr=3e-3, warmup_steps=2, total_steps=end)
+
+    def fresh():
+        p = init_params(MD.param_specs(cfg),
+                        torch.Generator().manual_seed(SEED), "cpu",
+                        dtype=torch.float32)
+        p = {k: v.to("cuda") for k, v in p.items()}
+        return p, O.init_opt_state(p)
+
+    def step_fn(params, opt, step):
+        return train_step(params, opt, to_device(data.batch(step), "cuda"),
+                          cfg, ocfg, chunks=(8, 8))
+
+    p_ref, o_ref = fresh()
+    for s in range(end):
+        p_ref, o_ref, _ = step_fn(p_ref, o_ref, s)
+    with tempfile.TemporaryDirectory() as tmp:
+        TrainSupervisor(Checkpointer(tmp), ckpt_every=every).run(
+            *fresh(), step_fn, n_steps=cut)
+        resumed_at = Checkpointer(tmp).latest_step()
+        p_res, o_res, log = TrainSupervisor(
+            Checkpointer(tmp), ckpt_every=every).run(*fresh(), step_fn,
+                                                     n_steps=end)
+    differ = [f"{part}:{k}" for k in p_ref for part, a, b in (
+        ("params", p_ref[k], p_res[k]), ("mu", o_ref["mu"][k],
+                                         o_res["mu"][k]),
+        ("nu", o_ref["nu"][k], o_res["nu"][k])) if not torch.equal(a, b)]
+    print(f"[38] {cfg.name}: run cut at step {cut} (checkpoint {resumed_at})"
+          f", resumed to {end} under TrainSupervisor ({len(log)} steps run):"
+          f" {3 * len(p_ref) - len(differ)} of {3 * len(p_ref)} params and "
+          f"moments equal to the uninterrupted run bit for bit; step "
+          f"{int(o_res['step'])}")
+    if differ or resumed_at != cut or len(log) != end - cut:
+        fail(f"resumed training differs from the uninterrupted run: "
+             f"{differ[:8]}")
+
+
+def phase_train_full(card):
+    """(d) minicpm-2b whole through launch/train.py."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train
+    cfg = configs.get("minicpm-2b")
+    nbytes = cfg.n_params() * 4
+    print(f"[38] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, vocab {cfg.vocab}, {cfg.n_params():,} "
+          f"params: f32 params, gradients, mu and nu {4 * nbytes / 1e9:.1f} "
+          f"GB; launch/train.py {' '.join(TRAIN_FULL)}")
+    t = time.perf_counter()
+    records = train.main(TRAIN_FULL)
+    wall = time.perf_counter() - t
+    for r in records:
+        print(f"[38] {cfg.name} step {r['step']} "
+              f"({'cold' if r['step'] == 0 else 'warm'}): {r['ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.1f} tokens/s, peak max_memory_allocated "
+              f"{r['peak_gb']:.3f} GB, loss {r['loss']:.4f}, lr "
+              f"{r['lr']:.3e}, grad_norm {r['grad_norm']:.4f} ({card})")
+    warm = [r["ms"] for r in records[1:]]
+    print(f"[38] {cfg.name}: warm steps {min(warm):.1f}-{max(warm):.1f} ms, "
+          f"{max(r['tokens_per_s'] for r in records[1:]):.1f} tokens/s at "
+          f"best; peak {max(r['peak_gb'] for r in records):.3f} GB; "
+          f"{wall:.1f} s with the draw ({card})")
+    if len(records) != 4 or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            and r["grad_norm"] > 0 for r in records):
+        fail(f"{cfg.name}: training gave non-finite losses or grad norms")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_training(card):
+    """Phase 38: (a)-(d), with the kernels' launch counters read around
+    it (e)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def counts():
+        return dict(launch_counts(), flash=flash_attention.launches)
+
+    before = counts()
+    phase_train_smoke(card)
+    phase_learn_and_resume(card)
+    phase_train_full(card)
+    after = counts()
+    print(f"[38] kernel launch counters before and after the phase: "
+          f"{before} and {after}")
+    if after != before:
+        fail(f"training launched a kernel: {before} -> {after}")
 
 
 def mode_entry(base, mode, launches, err, times):
@@ -3504,6 +3806,7 @@ def main():
     dist_launches = timed(36, phase_distributed, card, rcpsp["J30"],
                           rcpsp["J60"], sparse["J120"], cuda_res)
     other_flash = timed(37, phase_other_archs, card)
+    timed(38, phase_training, card)
     flash["launches"] += other_flash
     kernels[0]["launches"] += dist_launches[0]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
@@ -3554,6 +3857,9 @@ def main():
     print(f"kernels: phase 37's warm generate runs (minicpm, pixtral, "
           f"seamless's encoder and decoder, dbrx) added {other_flash} flash_attention "
           f"launches to phase 27's {flash_launches}")
+    print("kernels: phase 38 (training) launched none of the three kernels,"
+          " as the reference's training runs no Pallas kernel: training "
+          "attends through blocked_attention")
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

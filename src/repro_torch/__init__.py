@@ -7,6 +7,9 @@ Mirrors the layout of ``src/repro``.  The solver: ``core/model.py`` →
 LM serving (dense GQA): ``configs/`` → ``nn/layers.py``,
 ``nn/attention.py`` (prefill attention in ``kernels/flash_attention.py``)
 → ``nn/transformer.py`` → ``nn/model.py`` → ``train/serve_step.py`` →
-``launch/serve.py``.  Imports torch and numpy only — never ``jax`` and
-nothing of ``repro``.
+``launch/serve.py``.  LM training: ``data/pipeline.py`` →
+``nn/model.py`` `forward_train` → ``train/train_step.py`` and
+``train/optimizer.py`` → ``ckpt/checkpoint.py``,
+``ft/fault_tolerance.py`` `TrainSupervisor` → ``launch/train.py``.
+Imports torch and numpy only — never ``jax`` and nothing of ``repro``.
 """

@@ -2,8 +2,9 @@
 
 One `ArchConfig` per architecture, with exact numbers from the public
 sources cited in each config file, plus a ``SMOKE`` reduction of the
-same family for CPU tests.  The reference's `ShapeConfig` table belongs
-to its dry-run, which the port does not have.
+same family for CPU tests.  `ShapeConfig` and the reference's four
+shapes name a (sequence, batch, kind) cell; `data.pipeline.input_shapes`
+reads them.
 """
 
 from __future__ import annotations
@@ -111,3 +112,19 @@ class ArchConfig:
             n = int(np.prod(s.shape))
             total += int(n * active_param_fraction(self, path))
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)

@@ -1,4 +1,4 @@
-"""Fault tolerance of the port: the solver half of
-``repro/ft/fault_tolerance.py`` (`fault_tolerance`).  `TrainSupervisor`,
-which drives a train step and a checkpointer, waits for the port's
-training path."""
+"""Fault tolerance of the port (``fault_tolerance.py``, the port of
+``repro/ft/fault_tolerance.py``): failure detection, the solver's
+elastic re-mesh and lane rebalance, and `TrainSupervisor`, which drives a
+train step and a checkpointer."""

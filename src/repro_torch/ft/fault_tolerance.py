@@ -13,8 +13,10 @@ of ``repro/ft/fault_tolerance.py``.
   (`distributed/sharding.shard_tree`, the counterpart of the reference's
   ``device_put`` with recomputed shardings).
 * `scaled_batch` and `rebalance_lanes` are host arithmetic.
-
-`TrainSupervisor` waits for the port's training path.
+* `TrainSupervisor` drives (restore → step* → checkpoint)* for training:
+  the data pipeline is step-addressable and the step deterministic, so a
+  run killed at any step and resumed from its last checkpoint equals the
+  uninterrupted run bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.distributed.sharding import shard_tree, tree_map
 
@@ -89,6 +92,59 @@ def scaled_batch(global_batch: int, n_data_shards: int) -> int:
     if global_batch % n_data_shards == 0:
         return global_batch // n_data_shards
     return max(1, global_batch // n_data_shards)
+
+
+# --------------------------------------------------------------------------
+# training supervisor: crash-safe step loop
+# --------------------------------------------------------------------------
+
+def restore_like(like, restored):
+    """The numpy tree `restored` as tensors at the dtype and on the device
+    of each leaf of `like`, the tree they replace (dicts by key)."""
+    if isinstance(like, dict):
+        return {k: restore_like(v, restored[k]) for k, v in like.items()}
+    return torch.as_tensor(np.asarray(restored)).to(like.device, like.dtype)
+
+
+@dataclasses.dataclass
+class TrainSupervisor:
+    """Drives (restore → step* → checkpoint)* with failure handling.
+
+    The step function ``step_fn(params, opt_state, step) -> (params,
+    opt_state, metrics)`` must be deterministic in (params, opt, step):
+    the data pipeline being step-addressable makes resumed runs
+    bit-exact.
+    """
+    checkpointer: "object"
+    ckpt_every: int = 50
+    heartbeat: Optional[Heartbeat] = None
+    injector: Optional[FailureInjector] = None
+
+    def run(self, params, opt_state, step_fn, n_steps: int,
+            start_step: int = 0, on_failure: Optional[Callable] = None):
+        step = start_step
+        restored = self.checkpointer.restore()
+        if restored is not None:
+            step, p_np, o_np = restored
+            params = restore_like(params, p_np)
+            opt_state = restore_like(opt_state, o_np)
+        metrics_log = []
+        while step < n_steps:
+            if self.injector is not None and self.heartbeat is not None:
+                self.injector.advance(step, self.heartbeat)
+                if not self.heartbeat.all_alive():
+                    dead = self.heartbeat.dead_hosts()
+                    if on_failure is not None:
+                        return on_failure(dead, step, metrics_log)
+                    raise RuntimeError(f"hosts lost at step {step}: {dead}")
+            params, opt_state, metrics = step_fn(params, opt_state, step)
+            step += 1
+            metrics_log.append({k: float(v) for k, v in metrics.items()})
+            if step % self.ckpt_every == 0 or step == n_steps:
+                self.checkpointer.save(step, params, opt_state,
+                                       background=True)
+        self.checkpointer.wait()
+        return params, opt_state, metrics_log
 
 
 # --------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 `flash_attention` replaces the Pallas TPU kernel ``flash_attention``
 (``src/repro/kernels/flash_attention.py``): causal or bidirectional GQA
-self-attention over aligned positions (train/prefill; decode goes
-through ``nn/attention.py`` `blocked_attention`).  Source
+self-attention over aligned positions, forward only (the prefill;
+training and decode go through ``nn/attention.py``
+`blocked_attention`).  Source
 ``csrc/flash_attention.cu``: one CTA per (head, batch, q-block), K/V
 tiles fed by TMA into a ring of shared-memory stages, both products on
 the tensor cores (``wgmma``), the softmax online in f32 registers, and p
@@ -116,7 +117,16 @@ def _lib():
 def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
                     bk: int = 128):
     """q [B,S,H,hd], k/v [B,S,KV,hd] bf16 (H % KV == 0) → [B,S,H,hd] bf16,
-    equal to `flash_attention_plain` within the rounding of f32 sums."""
+    equal to `flash_attention_plain` within the rounding of f32 sums.
+
+    Forward only, as the reference's kernel: under grad mode an input
+    that requires grad raises (on the card the output would carry no
+    gradient; training attends through `nn.attention.blocked_attention`).
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: q, k or v requires grad under "
+            "grad mode (train through nn.attention.blocked_attention)")
     _check(q, k, v, bq, bk, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)

@@ -15,6 +15,18 @@ as the reference's `blocked_attention` there (the encoder of the
 encoder-decoder is such a bidirectional prefill).  A windowed or MLA
 prefill (q 192 wide, v 128 at deepseek-v2) stays on `blocked_attention`,
 as in the reference.
+
+Training takes `blocked_attention` for every cache-less call, as the
+reference does (its Pallas flash kernel has no backward, and no module
+of its ``nn`` calls it): a call under grad mode whose q requires grad
+never reaches the flash kernel, which has no backward either and raises
+rather than return an output without a gradient.  Autograd
+differentiates `blocked_attention` as written.
+
+One departure from the reference: the windowed decode on the ring's
+first lap (fewer tokens than ring slots) gives the slots never written
+no softmax weight (`_mask` drops keys of negative position); the
+reference attends to their zero keys there (ROADMAP "Reference notes").
 """
 
 from __future__ import annotations
@@ -40,7 +52,8 @@ def _mask(q_pos, kv_pos, kv_valid, *, causal: bool, window: int,
     if window > 0:
         m = m & (q_pos[:, None] - kv_pos[None, :] < window)
     if kv_len is not None:                       # decode: valid prefix only
-        m = m & (kv_pos[None, :] < kv_len)
+        # a ring slot not yet written has a negative position
+        m = m & (kv_pos[None, :] >= 0) & (kv_pos[None, :] < kv_len)
     return m
 
 
@@ -133,9 +146,10 @@ def gqa_attention(p, prefix, x, cfg, positions, *, window: int = 0,
                   return_kv: bool = False, q_chunk=1024, kv_chunk=1024):
     """Full GQA block.
 
-    cache=None: full-sequence attention (prefill).  With `return_kv`,
-    also returns the rope'd (k, v) so the caller can prime a decode
-    cache.  cache!=None: decode step(s); the keys are written at
+    cache=None: full-sequence attention (training and prefill; a
+    training call, q requiring grad, takes `blocked_attention`).  With
+    `return_kv`, also returns the rope'd (k, v) so the caller can prime
+    a decode cache.  cache!=None: decode step(s); the keys are written at
     ``cache.length`` (ring-buffered at ``length % Smax`` iff window > 0;
     decode is S == 1 there) in place (``index_copy_``, where the
     reference's ``dynamic_update_slice`` makes a new array), so the
@@ -147,7 +161,8 @@ def gqa_attention(p, prefix, x, cfg, positions, *, window: int = 0,
     k = apply_rope(k, positions, cfg.rope_theta, seq_axis=1)
 
     if cache is None:
-        if (window == 0 and q.shape[-1] == v.shape[-1]
+        training = torch.is_grad_enabled() and q.requires_grad
+        if (not training and window == 0 and q.shape[-1] == v.shape[-1]
                 and _aligned(positions, S)):
             out = flash_attention(q, k, v, causal=causal)
         else:

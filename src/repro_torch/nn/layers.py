@@ -8,15 +8,17 @@ drive initialization and the parameter count.
 Compute dtype policy, as the reference's: matmuls take bf16 operands and
 accumulate in f32, norms and rope compute in f32, activations are bf16.
 The reference stores every param in f32 and casts the matrices to bf16 at
-each use (`dense`, `embed_lookup`, `unembed`); the port stores the
-matrices in bf16 once (`init_params`, `params_from_numpy`), which computes
-the same values at half the memory.  Every leaf the reference reads in
-f32 stays f32 (`storage_dtype`): norm scales, biases, the MoE router, the
-SSM and RG-LRU gate and decay parameters and their conv weights.
+each use (`dense`, `embed_lookup`, `unembed`).  For serving, the port
+stores the matrices in bf16 once (`init_params`, `params_from_numpy`),
+which computes the same values at half the memory; every leaf the
+reference reads in f32 stays f32 (`storage_dtype`): norm scales, biases,
+the MoE router, the SSM and RG-LRU gate and decay parameters and their
+conv weights.  Training stores every leaf in f32, as the reference
+(``dtype=torch.float32``): AdamW's update is mostly below a bf16 ulp of
+the weight, and the primitives cast at use either way.
 
 The reference's ``constrain`` (a sharding constraint, a no-op on one
-device) has no counterpart: the training and serving shardings are
-ROADMAP queue 1 item 9.
+device) has no counterpart: the sharding rules are ROADMAP item 9.3.
 """
 
 from __future__ import annotations
@@ -63,17 +65,19 @@ def storage_dtype(path: str) -> torch.dtype:
                    or leaf in F32_LEAVES) else BF16
 
 
-def init_params(specs: Specs, generator: torch.Generator, device=None):
+def init_params(specs: Specs, generator: torch.Generator, device=None,
+                dtype: Optional[torch.dtype] = None):
     """Random params drawn on `device` from `generator` (which must live on
     that device), with the reference's per-spec std: ``scale·0.02`` for
     embeddings, ``scale/√fan_in`` otherwise (fan_in = the second-to-last
-    axis).  Draws in f32, then stores each param at `storage_dtype`.  The
-    stream differs from ``jax.random``'s: to compare with the reference,
-    carry its params over with `params_from_numpy`."""
+    axis).  Draws in f32, then stores each param at `dtype` (training:
+    f32), by default at its `storage_dtype` (serving).  The stream
+    differs from ``jax.random``'s: to compare with the reference, carry
+    its params over with `params_from_numpy`."""
     device = torch.device(device) if device is not None else generator.device
     out = {}
     for path, spec in sorted(specs.items()):
-        dt = storage_dtype(path)
+        dt = dtype or storage_dtype(path)
         if spec.init == "zeros":
             out[path] = torch.zeros(spec.shape, dtype=dt, device=device)
         elif spec.init == "ones":
@@ -89,15 +93,17 @@ def init_params(specs: Specs, generator: torch.Generator, device=None):
     return out
 
 
-def params_from_numpy(params: Dict[str, np.ndarray], device) -> dict:
+def params_from_numpy(params: Dict[str, np.ndarray], device,
+                      dtype: Optional[torch.dtype] = None) -> dict:
     """The reference's flat param dict (numpy arrays, e.g.
     ``{k: np.asarray(v) for k, v in jax_params.items()}``) as the port's,
-    under the same names, each at its `storage_dtype`: matrices rounded to
+    under the same names, each at `dtype` (training: f32, the reference's
+    own storage), by default at its `storage_dtype`: matrices rounded to
     bf16 (what the reference's `dense`/`embed_lookup`/`unembed` and the
     expert products do at each use), every leaf the reference reads in f32
     kept f32."""
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
-            .to(storage_dtype(k)) for k, v in params.items()}
+            .to(dtype or storage_dtype(k)) for k, v in params.items()}
 
 
 # --------------------------------------------------------------------------

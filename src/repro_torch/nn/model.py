@@ -1,5 +1,5 @@
 """Whole-model assembly (the port of ``repro/nn/model.py``): param specs,
-prefill and decode forwards, caches.
+the training forward, prefill and decode forwards, caches.
 
 Families (configs/base.py): dense | moe | vlm | hybrid | audio | ssm.
 Layer stacks are grouped into homogeneous *groups*; a group of more than
@@ -17,14 +17,21 @@ Modality frontends are stubs, as in the reference: the caller provides
 precomputed patch (``patch_embeds``) or frame (``frames``) embeddings,
 and a learned projection (``frontend/proj``) maps them into the model.
 
-Training (``forward_train``) is not ported yet (ROADMAP queue 1 item 9).
+Training (`forward_train`) writes no cache and nothing in place, so
+autograd sees the whole forward.  With ``remat``, each layer of a
+stacked group runs under ``torch.utils.checkpoint`` (non-reentrant), the
+counterpart of the reference's ``scanctl.checkpoint`` of its scan body:
+only the layer's input is kept, and the backward recomputes the rest.
+A stacked leaf reaches its layers through one ``unbind``, so its
+gradient is one stack of the layers' gradients.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import transformer as T
@@ -297,10 +304,11 @@ def _run_block(kind: str, p, x, cfg, positions, cache, chunks,
 
 
 def _stacked(params, prefix: str):
-    """Each layer's params of a stacked group: its slices."""
+    """Each layer's params of a stacked group: its slices (views, one
+    ``unbind`` per leaf)."""
     group = T.sub(params, prefix)
-    n = next(iter(group.values())).shape[0]
-    return [{k: v[i] for k, v in group.items()} for i in range(n)]
+    return [dict(zip(group, layer))
+            for layer in zip(*(v.unbind(0) for v in group.values()))]
 
 
 def _layers(params, prefix: str, count: int):
@@ -333,6 +341,48 @@ def _logits(params, cfg, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x, params.get("unembed/w", params["embed/tok"]))
     return logits[:, 0]
+
+
+def _merge_aux(acc: Dict, aux: Dict):
+    for k, v in aux.items():
+        acc[k] = acc.get(k, 0.0) + v
+    return acc
+
+
+def _remat(on: bool, fn, *args):
+    """``fn(*args)``, under a non-reentrant checkpoint when `on`."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _train_block(kind, lp, x, cfg, positions, chunks):
+    x, _, aux = _run_block(kind, lp, x, cfg, positions, None, chunks)
+    return x, aux
+
+
+def forward_train(params, cfg: ArchConfig, batch, *, remat: bool = True,
+                  chunks=(1024, 1024)):
+    """Teacher-forced logits [B, S, V] f32 (the ViT stub's patch prefix
+    sliced off) and the aux losses, each summed over the layers (MoE:
+    ``moe_balance``, ``moe_dropped``).  With `remat`, each layer of a
+    stacked group is recomputed in the backward (a size-1 group is not,
+    as in the reference)."""
+    if cfg.encdec is not None:
+        return _forward_encdec_train(params, cfg, batch, remat=remat,
+                                     chunks=chunks)
+    x, positions, n_prefix = _embed_inputs(params, cfg, batch)
+    aux: Dict = {}
+    for kind, count, prefix in decoder_groups(cfg):
+        for lp in _layers(params, prefix, count):
+            x, a = _remat(remat and count > 1, _train_block, kind, lp, x,
+                          cfg, positions, chunks)
+            _merge_aux(aux, a)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(x, params.get("unembed/w", params["embed/tok"]))
+    if n_prefix:
+        logits = logits[:, n_prefix:]
+    return logits, aux
 
 
 def _pad_prefix(arr, smax: int, seq_axis: int = 1):
@@ -443,18 +493,46 @@ def forward_decode(params, cfg: ArchConfig, tokens, caches,
 # encoder-decoder (seamless)
 # --------------------------------------------------------------------------
 
+def _enc_layer(lp, x, cfg, pos, chunks):
+    """One encoder layer: bidirectional self-attention, then the FFN."""
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    o, _ = gqa_attention(lp, "attn", h, cfg, pos, causal=False,
+                         q_chunk=chunks[0], kv_chunk=chunks[1])
+    return T.run_ffn(lp, x + o, cfg)
+
+
+def _encode(params, cfg, frames, chunks, remat: bool = False):
+    """The encoder over the frames: [B, S_enc, d] after its final norm."""
+    enc = dense(frames.to(BF16), params["frontend/proj"])
+    pos_e = _arange(enc.shape[1], enc.device)
+    for lp in _stacked(params, "enc_blocks"):
+        enc = _remat(remat, _enc_layer, lp, enc, cfg, pos_e, chunks)
+    return rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _dec_train_layer(lp, x, enc, cfg, pos, chunks):
+    x, _ = T.run_attn(lp, x, cfg, pos, chunks=chunks)
+    x = T.run_cross_attn(lp, x, T.cross_kv(lp, enc, cfg), cfg, chunks)
+    return T.run_ffn(lp, x, cfg)
+
+
+def _forward_encdec_train(params, cfg, batch, *, remat, chunks):
+    """Seamless, teacher-forced: the encoder, then the decoder with
+    cross-attention to it; logits [B, S, V] f32, no aux."""
+    enc = _encode(params, cfg, batch["frames"], chunks, remat)
+    x = embed_lookup(params["embed/tok"], batch["tokens"])
+    pos_d = _arange(x.shape[1], x.device)
+    for lp in _stacked(params, "dec_blocks"):
+        x = _remat(remat, _dec_train_layer, lp, x, enc, cfg, pos_d, chunks)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x, params.get("unembed/w", params["embed/tok"])), {}
+
+
 def encode_and_prime(params, cfg, batch, smax, chunks=(1024, 1024)):
     """Seamless: run the (bidirectional) encoder, prime the cross-KV
     caches, and an empty self-attention cache."""
     frames = batch["frames"]
-    enc = dense(frames.to(BF16), params["frontend/proj"])
-    pos_e = _arange(enc.shape[1], enc.device)
-    for lp in _stacked(params, "enc_blocks"):
-        h = rms_norm(enc, lp["norm1"], cfg.norm_eps)
-        o, _ = gqa_attention(lp, "attn", h, cfg, pos_e, causal=False,
-                             q_chunk=chunks[0], kv_chunk=chunks[1])
-        enc = T.run_ffn(lp, enc + o, cfg)
-    enc = rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
+    enc = _encode(params, cfg, frames, chunks)
     ck, cv = zip(*(T.cross_kv(lp, enc, cfg)
                    for lp in _stacked(params, "dec_blocks")))
     return {"self": _kv_cache(cfg, frames.shape[0], smax,

@@ -12,11 +12,13 @@ matters.  The router runs in f32.
 
 The expert products are plain PyTorch (the reference computes them
 outside any Pallas kernel).  The gate and up products reach
-``silu(g)·u`` in f32, as the reference's ``preferred_element_type=f32``:
-on the card each is one bf16 batched GEMM with an f32 result (f32
-accumulation, no rounding in between), on the CPU the product of the
-bf16 values widened to f32.  The down product is rounded once to bf16
-(`einsum_bf16`).
+``silu(g)·u`` in f32, as the reference's ``preferred_element_type=f32``,
+through `ExpertProductF32` on every device: on the card one bf16 batched
+GEMM with an f32 result (f32 accumulation, no rounding in between), on
+the CPU the product of the bf16 values widened to f32.  Autograd has no
+derivative for that GEMM (``torch.bmm(..., out_dtype=f32)``, torch
+2.11), so the function's backward is the reference VJP's two products.
+The down product is rounded once to bf16 (`einsum_bf16`).
 """
 
 from __future__ import annotations
@@ -64,13 +66,35 @@ def dispatch_indices(idx, n_experts: int, capacity: int):
     return slot_token[:-1], keep.reshape(T, k), rank.reshape(T, k)
 
 
+class ExpertProductF32(torch.autograd.Function):
+    """bf16 xe [E, C, d] @ bf16 w [E, d, f] → [E, C, f] in f32: on the
+    card one batched GEMM with an f32 result.  The backward is the
+    reference VJP's (``preferred_element_type=f32``): the f32 cotangent
+    times the other operand widened to f32, each product rounded to
+    bf16, its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, xe, w):
+        ctx.save_for_backward(xe, w)
+        if xe.device.type == "cuda":
+            return torch.bmm(xe, w, out_dtype=F32)
+        return torch.bmm(xe.to(F32), w.to(F32))
+
+    @staticmethod
+    def backward(ctx, g):
+        xe, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.bmm(g, w.to(F32).transpose(1, 2)).to(xe.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.bmm(xe.to(F32).transpose(1, 2), g).to(w.dtype)
+        return gx, gw
+
+
 def _expert_f32(xe, w):
-    """xe [E, C, d] @ w [E, d, f] → [E, C, f] f32 from bf16 operands: on
-    the card one batched GEMM with an f32 result, on the CPU
-    `einsum_f32`."""
-    if xe.device.type == "cuda":
-        return torch.bmm(cast_bf16(xe), cast_bf16(w), out_dtype=F32)
-    return einsum_f32("ecd,edf->ecf", xe, w)
+    """xe [E, C, d] @ w [E, d, f] → [E, C, f] f32 from bf16 operands
+    (`ExpertProductF32`)."""
+    return ExpertProductF32.apply(cast_bf16(xe), cast_bf16(w))
 
 
 def moe_ffn(p, prefix, x, cfg):

@@ -1,2 +1,4 @@
-"""Serving steps of the port (``serve_step.py``); training is not ported
-yet (ROADMAP queue 1 item 9)."""
+"""Training and serving steps of the port: `optimizer` (AdamW, the
+cosine / WSD / const schedules), `train_step` (cross-entropy, the loss,
+one optimizer step with microbatch accumulation) and `serve_step`
+(prefill, decode, generate)."""

@@ -53,10 +53,29 @@ def test_model_zoo_on_cpu(args):
     assert "ground-check OK" in r.stdout
 
 
+def test_train_lm_on_cpu(tmp_path):
+    """The 25m preset for 2 steps (short sequences), then a second run
+    that finds the finished checkpoint."""
+    args = ("examples/torch_train_lm.py", "--preset", "25m", "--steps", "2",
+            "--seq", "32", "--global-batch", "2", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path))
+    r = _run(*args)
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.strip().splitlines()
+    assert lines[0].startswith("model llama-25m: ") and "M params" in lines[0]
+    assert lines[1].startswith("step    0  loss") and "tok/s" in lines[1]
+    assert lines[-1].startswith("done in") and "(uniform = 9.704)" in lines[-1]
+    assert sorted(os.listdir(tmp_path)) == ["LATEST", "step_2"]
+    again = _run(*args)
+    assert again.returncode == 0, again.stderr[-2000:]
+    assert "nothing to do" in again.stdout
+
+
 @pytest.mark.parametrize("script", ["torch_quickstart.py",
                                     "torch_rcpsp_solve.py",
                                     "torch_model_zoo.py",
-                                    "torch_planner_demo.py"])
+                                    "torch_planner_demo.py",
+                                    "torch_train_lm.py"])
 def test_examples_without_gpu_fail(script):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the default device is usable")

@@ -184,7 +184,7 @@ def test_port_and_chip_smoke_import_no_jax():
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr[-2000:]
     assert "BAD []" in r.stdout, r.stdout
-    assert "EXAMPLES 4 " in r.stdout, r.stdout
+    assert "EXAMPLES 5 " in r.stdout, r.stdout
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
