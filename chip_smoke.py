@@ -358,7 +358,29 @@ exit code and no result line:
    from seed 0, no checkpoint: per step ms, tokens/s, peak
    ``max_memory_allocated``, loss, lr and grad_norm beside the card
    line; finite losses and a finite, positive grad_norm; (e) the
-   kernels' launch counters are the same before and after the phase.
+   kernels' launch counters are the same before and after the phase;
+39. the last modules of the port: (a) J60 through the deprecated
+   ``core/engine.solve`` (``cuda_resident``): status, objective and every
+   counter equal to ``Solver.solve`` with the ``SolveConfig`` it builds
+   and to phase 6's, one ``DeprecationWarning``, its launches added to
+   the kernels line; (b) ``launch/train.py --devices 4``: four gloo ranks
+   on the one card (NCCL refuses two ranks on one GPU), after ``dense``
+   under grad (its weight gradient an f32-result GEMM rounded once)
+   against autograd's bf16 GEMM, minicpm-2b at
+   full width cut to 4 layers, 3 steps of 4 x 512 tokens (a sequence per
+   rank), against ``--devices 1`` of the same cut config: every step's
+   loss and the first step's grad_norm within 1e-3 relative, the later
+   grad_norms and the params after the steps within 1e-2 (Adam's first
+   steps turn near-zero gradient entries apart when the sums run in
+   another order), ms per step, every rank's peak ``max_memory_allocated`` and
+   the backend beside the card line, and no kernel launched in a rank;
+   (c) ``int8_psum_mean`` over four gloo ranks on CUDA tensors: its error
+   against ``psum_mean`` above 0 and at most max|x|/127; (d) the dry-run
+   on ``meta`` (``launch/dryrun.run_cell``): qwen3-4b train_4k,
+   prefill_32k and decode_32k on 16x16, mamba2-1.3b long_500k on
+   2x16x16 (OK records with per-device bytes and FLOPs), llama3-8b
+   long_500k (SKIP), and ``launch/solve.py --dryrun --multi-pod``; (e)
+   the kernels' launch counters are the same before (b) and after (d).
 
 The last lines are the card line, a ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.  Without a usable GPU, or without the
@@ -497,6 +519,37 @@ LEARN = dict(steps=60, seq=32, batch=8, lr=3e-3, warmup=5, drop=1.0)
 RESUME = (10, 14, 5)                   # cut, end, checkpoint every
 TRAIN_FULL = ["--arch", "minicpm-2b", "--steps", "4", "--seq", "512",
               "--global-batch", "4", "--seed", "0", "--log-every", "1"]
+# phase 39: (b) launch/train.py --devices 4 on the one card: minicpm-2b at
+# full width cut to TRAIN_DIST_LAYERS layers (four ranks each gathering
+# the 40 layers' 10.9 GB of f32 params would not fit 80 GB), one sequence
+# per rank, against --devices 1 of the same cut config.  Every step's
+# loss, and the first step's grad_norm (both sides from the same
+# params), within TRAIN_DIST_RTOL relative: both round each weight
+# gradient's f32 sum once to bf16 (nn/layers.py unrounded_weight_grads),
+# but the ranks' tensor-core GEMMs sum 512 rows where one device's sum
+# 2048, in another order.  The later steps' grad_norm and the params
+# after the steps within TRAIN_DIST_DRIFT: Adam's first steps move every
+# entry by about lr·sign(g), so an entry whose gradient sums near zero
+# can turn the other way: on an NVIDIA H100 80GB HBM3 (700 W) the drift
+# reached 1.8e-3 (grad_norm, step 2) and 3.4e-3 (params), where the
+# CPU's f32 products keep it within 1e-7 (tests/test_torch_dist_train.py).
+# A lost or doubled rank's share would move them by a quarter.
+TRAIN_DIST_LAYERS = 4
+TRAIN_DIST = ["--arch", "minicpm-2b", "--steps", "3", "--seq", "512",
+              "--global-batch", "4", "--seed", "0", "--log-every", "1"]
+TRAIN_DIST_RANKS = 4
+TRAIN_DIST_RTOL = 1e-3
+TRAIN_DIST_DRIFT = 1e-2
+# (c) int8_psum_mean over four ranks on CUDA tensors: each rank's [rows,
+# cols] slice of a seeded N(0, 0.01) array
+INT8_SHAPE = (1024, 1024)
+# (d) the dry-run cells (arch, shape, multi_pod) and the status each must
+# give; and the solver's dry-run on the 2x16x16 mesh
+DRYRUN_CELLS = (("qwen3-4b", "train_4k", False, "OK"),
+                ("qwen3-4b", "prefill_32k", False, "OK"),
+                ("qwen3-4b", "decode_32k", False, "OK"),
+                ("mamba2-1.3b", "long_500k", True, "OK"),
+                ("llama3-8b", "long_500k", False, "SKIP"))
 # phases 30-32: batched solving.  Slots 1-3 of phase 30's J60 batch
 # permute seed 0's durations with np.random.default_rng(s) (one shape
 # signature); after 5 plain supersteps slot SLOT_IDLE is frozen idle and
@@ -3704,6 +3757,263 @@ def phase_training(card):
         fail(f"training launched a kernel: {before} -> {after}")
 
 
+def phase_engine(card, j60, resident_res):
+    """(a): the deprecated `engine.solve` on J60 through cuda_resident,
+    against `Solver.solve` with the SolveConfig it builds (and phase 6's
+    counters).  Returns the engine run's launch counters."""
+    import warnings
+    from repro_torch.core import engine
+    from repro_torch.core import search as S
+    from repro_torch.core.models import ground_check
+    from repro_torch.solver import Solver, SolveConfig
+    opts = S.SearchOptions(backend="cuda_resident", var_strategy=S.MIN_LB,
+                           max_depth=1024)
+    zero_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t = time.perf_counter()
+        res = engine.solve(j60.cm, n_lanes=MAIN_LANES, eps_target=MAIN_EPS,
+                           opts=opts)
+        wall = time.perf_counter() - t
+    launches = launch_counts()
+    warned = sum(issubclass(w.category, DeprecationWarning) for w in caught)
+    cfg = SolveConfig(n_lanes=MAIN_LANES, eps_target=MAIN_EPS,
+                      backend="cuda_resident", var_strategy=S.MIN_LB,
+                      max_depth=1024, device=j60.cm.device.type)
+    ref = Solver(cfg).solve(j60.cm)
+    print(f"[39] engine.solve J60 (cuda_resident, {MAIN_LANES} lanes, "
+          f"eps_target {MAIN_EPS}): {res.status} objective={res.objective} "
+          f"nodes={res.n_nodes} supersteps={res.n_supersteps} in "
+          f"{wall:.2f} s; launches {launches}; DeprecationWarning x{warned};"
+          f" ground check {ground_check(j60.mod, j60.inst, j60.handles, res)}"
+          f" ({card})")
+    same_counters(39, "J60 engine.solve vs Solver.solve vs phase 6",
+                  {"engine": res, "Solver": ref, "phase 6": resident_res})
+    if warned != 1 or launches["search"] == 0 or res.objective != \
+            J60_OPTIMUM:
+        fail(f"engine.solve: {warned} warnings, launches {launches}, "
+             f"objective {res.objective}")
+    return launches
+
+
+def dense_grad_check(card):
+    """(b), first: `dense` under grad on the card (`layers._DenseBF16`:
+    its weight gradient an f32-result GEMM rounded once) against autograd
+    of the bf16 GEMM it replaces, at minicpm-2b's FFN shape: the output
+    and the input gradient equal, the weight gradient within one bf16 ulp
+    of max|ref| (the two GEMMs' f32 sums may round apart)."""
+    import torch
+    from repro_torch.nn.layers import cast_bf16, dense
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((4, 512, 2304), generator=g, device="cuda")
+    w = torch.randn((2304, 5760), generator=g, device="cuda") / 48
+    cot = torch.randn((4, 512, 5760), generator=g, device="cuda").to(
+        torch.bfloat16)
+    grads = []
+    for fn in (dense, lambda a, b: torch.matmul(cast_bf16(a),
+                                                cast_bf16(b))):
+        a, b = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(a, b)
+        y.backward(cot)
+        grads.append((y.detach(), a.grad, b.grad))
+    (y, gx, gw), (ry, rgx, rgw) = grads
+    err = (gw - rgw).abs().max().item()
+    ulp = rgw.abs().max().item() * 2.0 ** -8
+    print(f"[39] dense under grad on the card, [2048, 2304] @ [2304, 5760]:"
+          f" output equal {torch.equal(y, ry)}, input gradient equal "
+          f"{torch.equal(gx, rgx)}, weight gradient max |err| {err:.3e} "
+          f"(one bf16 ulp of max|ref| {ulp:.3e}) ({card})")
+    if not (torch.equal(y, ry) and torch.equal(gx, rgx) and err <= ulp):
+        fail("dense's weight-gradient GEMM departs from autograd's")
+
+
+def phase_dist_train(card, meanwhile=None):
+    """(b): launch/train.py --devices 4 (four gloo ranks on the one card)
+    against --devices 1 of the same cut config; `meanwhile` is called
+    between the two runs (the ranks run in processes of their own)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train
+    cfg = dataclasses.replace(configs.get("minicpm-2b"),
+                              n_layers=TRAIN_DIST_LAYERS)
+    print(f"[39] {cfg.name} cut to {cfg.n_layers} layers at full width "
+          f"(d_model {cfg.d_model}, vocab {cfg.vocab}): {cfg.n_params():,} "
+          f"params; launch/train.py {' '.join(TRAIN_DIST)} --devices "
+          f"{TRAIN_DIST_RANKS} against --devices 1")
+    runs = {}
+    for n in (1, TRAIN_DIST_RANKS):
+        if n > 1 and meanwhile is not None:
+            meanwhile()
+        t = time.perf_counter()
+        records, params = train.run(TRAIN_DIST + ["--devices", str(n)],
+                                    keep_params=True, cfg=cfg)
+        wall = time.perf_counter() - t
+        runs[n] = records, params
+        for r in records:
+            peaks = r.get("peak_gb_ranks", [r["peak_gb"]])
+            print(f"[39] --devices {n} step {r['step']}: {r['ms']:.1f} ms, "
+                  f"{r['tokens_per_s']:.1f} tokens/s, loss {r['loss']:.6f},"
+                  f" grad_norm {r['grad_norm']:.6f}, peak "
+                  f"max_memory_allocated per rank "
+                  f"{[round(x, 3) for x in peaks]} GB, backend "
+                  f"{r.get('backend', 'none (one device)')} ({card})")
+        print(f"[39] --devices {n}: {wall:.1f} s with the draw and the "
+              f"params' return")
+        gc.collect()
+        torch.cuda.empty_cache()
+    (one, p1), (four, p4) = runs[1], runs[TRAIN_DIST_RANKS]
+    if len(four) != len(one):
+        fail(f"{len(four)} steps on {TRAIN_DIST_RANKS} ranks, {len(one)} on "
+             "one device")
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(four, one)]
+           for k in ("loss", "grad_norm")}
+    num = sum(float((p4[k].double() - p1[k].double()).norm() ** 2)
+              for k in p1)
+    den = sum(float(p1[k].double().norm() ** 2) for k in p1)
+    prel = (num / den) ** 0.5
+    print(f"[39] {TRAIN_DIST_RANKS} ranks against one, per step: loss "
+          f"{', '.join(f'{x:.2e}' for x in rel['loss'])} relative, "
+          f"grad_norm {', '.join(f'{x:.2e}' for x in rel['grad_norm'])}; "
+          f"params after {len(one)} steps ‖{TRAIN_DIST_RANKS}-rank − "
+          f"1-rank‖/‖1-rank‖ {prel:.2e}; rank launch counters "
+          f"{four[-1]['launches_ranks']} ({card})")
+    if not (max(rel["loss"] + rel["grad_norm"][:1]) <= TRAIN_DIST_RTOL
+            and max(rel["grad_norm"] + [prel]) <= TRAIN_DIST_DRIFT):
+        fail(f"{TRAIN_DIST_RANKS}-rank training differs from one device: "
+             f"loss {rel['loss']}, grad_norm {rel['grad_norm']} (bound "
+             f"{TRAIN_DIST_RTOL}, {TRAIN_DIST_DRIFT} after the first step),"
+             f" params {prel:.2e} (bound {TRAIN_DIST_DRIFT})")
+    if any(any(v for v in r.values()) for r in four[-1]["launches_ranks"]):
+        fail(f"a training rank launched a kernel: "
+             f"{four[-1]['launches_ranks']}")
+    return four
+
+
+def int8_rank(rank, world, tmp, x):
+    """(c), one rank: `int8_psum_mean` and `psum_mean` of its slice of `x`
+    on cuda:0 over a gloo group; rank 0 saves both and the time."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as C
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "rdv"), rank=rank, world_size=world)
+    try:
+        mine = torch.from_numpy(x[rank]).cuda()
+        C.int8_psum_mean(mine)                   # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = C.int8_psum_mean(mine)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        exact = C.psum_mean(mine)
+        if rank == 0:
+            np.save(os.path.join(tmp, "int8.npy"), got.cpu().numpy())
+            np.save(os.path.join(tmp, "exact.npy"), exact.cpu().numpy())
+            with open(os.path.join(tmp, "int8.json"), "w") as f:
+                json.dump({"ms": ms, "device": str(got.device),
+                           "dtype": str(got.dtype)}, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_int8(card):
+    """(c): int8_psum_mean over four gloo ranks on CUDA tensors."""
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    x = (np.random.default_rng(SEED).standard_normal(
+        (TRAIN_DIST_RANKS,) + INT8_SHAPE) * 0.01).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(int8_rank, args=(TRAIN_DIST_RANKS, tmp, x),
+                 nprocs=TRAIN_DIST_RANKS, join=True)
+        got = np.load(os.path.join(tmp, "int8.npy"))
+        exact = np.load(os.path.join(tmp, "exact.npy"))
+        with open(os.path.join(tmp, "int8.json")) as f:
+            meta = json.load(f)
+    step = float(np.abs(x).max()) / 127
+    err = float(np.abs(got - exact).max())
+    ref_err = float(np.abs(exact - x.mean(0)).max())
+    print(f"[39] int8_psum_mean over {TRAIN_DIST_RANKS} gloo ranks on "
+          f"{meta['device']} ({meta['dtype']}, {INT8_SHAPE} per rank): max "
+          f"|err| {err:.3e} against psum_mean (bound max|x|/127 = "
+          f"{step:.3e}; psum_mean against numpy {ref_err:.1e}); "
+          f"{meta['ms']:.2f} ms ({card})")
+    if not 0 < err <= step or ref_err > 1e-6:
+        fail(f"int8_psum_mean: error {err} outside (0, {step}]")
+
+
+def dryrun_records():
+    """(d): the dry-run cells through `run_cell` on meta."""
+    from repro_torch.launch import dryrun
+    return [(cell, dryrun.run_cell(*cell[:3])) for cell in DRYRUN_CELLS]
+
+
+def phase_last_modules(card, j60, resident_res):
+    """Phase 39: (a) the engine shim on the card, (b) launch/train.py
+    --devices 4 on the one card, (c) int8_psum_mean on CUDA tensors over
+    four ranks, (d) the dry-run (traced on a thread of this process while
+    the ranks of (b) and (c) run in their own), (e) no kernel launched by
+    (b)-(d).  Returns (a)'s launch counters."""
+    import threading
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import solve as solve_cli
+
+    engine_launches = phase_engine(card, j60, resident_res)
+
+    def counts():
+        return dict(launch_counts(), flash=flash_attention.launches)
+
+    before = counts()
+    out = {}
+
+    def trace():
+        t = time.perf_counter()
+        try:
+            out["records"] = dryrun_records()
+        except BaseException as e:              # noqa: BLE001
+            out["error"] = e
+        out["s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=trace)
+    dense_grad_check(card)
+    phase_dist_train(card, meanwhile=thread.start)
+    phase_int8(card)
+    thread.join()
+    if "error" in out:
+        raise out["error"]
+    for (arch, shape, mp, want), rec in out["records"]:
+        tag = f"{arch} x {shape} x {'2x16x16' if mp else '16x16'}"
+        if rec["status"] != want:
+            fail(f"dry-run {tag}: {rec['status']}, expected {want}")
+        if want == "SKIP":
+            print(f"[39] dry-run SKIP {tag}: {rec['reason']}")
+            continue
+        pd = rec["per_device"]
+        print(f"[39] dry-run OK {tag} on {rec['n_devices']} meta devices: "
+              f"trace {rec['trace_s']} s, per device argument_bytes "
+              f"{pd['argument_bytes']:,}, output_bytes "
+              f"{pd['output_bytes']:,}, flops {pd['flops']:.4g}")
+        if not (pd["argument_bytes"] > 0 and pd["flops"] > 0):
+            fail(f"dry-run {tag}: empty record {rec}")
+    print(f"[39] dry-run cells: {out['s']:.1f} s on a thread beside the "
+          "ranks of (b) and (c)")
+    print("[39] launch/solve.py --dryrun --multi-pod:")
+    total = solve_cli.main(["--dryrun", "--multi-pod"])
+    if not total > 0:
+        fail("launch/solve.py --dryrun --multi-pod gave no bytes")
+    after = counts()
+    print(f"[39] kernel launch counters before (b) and after (d): {before} "
+          f"and {after}")
+    if after != before:
+        fail(f"(b)-(d) launched a kernel: {before} -> {after}")
+    return engine_launches
+
+
 def mode_entry(base, mode, launches, err, times):
     """A {"kernels": [...]} entry of one kernel mode: `base`'s name,
     route, source and bank list, this mode's launches, max |err| and
@@ -3807,8 +4117,11 @@ def main():
                           rcpsp["J60"], sparse["J120"], cuda_res)
     other_flash = timed(37, phase_other_archs, card)
     timed(38, phase_training, card)
+    engine = timed(39, phase_last_modules, card, rcpsp["J60"], resident_res)
     flash["launches"] += other_flash
-    kernels[0]["launches"] += dist_launches[0]
+    kernels[0]["launches"] += dist_launches[0] + engine["fixpoint"] \
+        - engine["few_lane"]
+    kernels[1]["launches"] += engine["search"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ad_err,
                                     sp_err, ct_err)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
@@ -3821,7 +4134,8 @@ def main():
     fix64_launches = i64_launches[("J120x1e7", "cuda")]
     kernels += [
         mode_entry(kernels[0], "int32, few-lane: EPS, 1024 threads",
-                   few + dist_launches[1], few_err, few_times),
+                   few + dist_launches[1] + engine["few_lane"], few_err,
+                   few_times),
         mode_entry(kernels[0], "int64, 256 threads",
                    fix64_launches[0] - fix64_launches[2], i64_err, fix64),
         mode_entry(kernels[1], "int64, one queue",
@@ -3860,6 +4174,10 @@ def main():
     print("kernels: phase 38 (training) launched none of the three kernels,"
           " as the reference's training runs no Pallas kernel: training "
           "attends through blocked_attention")
+    print(f"kernels: phase 39's engine.solve (J60, cuda_resident) added "
+          f"{engine['search']} search_cuda and {engine['few_lane']} "
+          f"few-lane fixpoint_cuda launches; its training ranks and dry-run "
+          f"launched none")
     print(f"chip_smoke: all phases passed in {time.time() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

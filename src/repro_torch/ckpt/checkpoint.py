@@ -11,7 +11,9 @@ restores in the other.
 `save` copies every leaf to host numpy synchronously (a bf16 leaf is
 widened to f32, which numpy can hold; the restore casts it back), so
 training may write its tensors in place at once; with
-``background=True`` the files are written on a worker thread.  `restore`
+``background=True`` the files are written on a worker thread.  Every
+save first waits for a pending background write (the reference's
+foreground save does not, and two writes then race on ``LATEST``).  `restore`
 returns numpy trees; `ft.fault_tolerance.TrainSupervisor` puts each leaf
 back at the dtype and device of the leaf it replaces.
 """
@@ -75,8 +77,10 @@ class Checkpointer:
         host = {k: _host(v) for k, v in flat.items()}
         meta = {"step": int(step), "time": time.time(),
                 "extra": extra or {}}
+        # one write at a time: a save waits for a pending background one
+        # (two writes race on LATEST, and the older could publish last)
+        self.wait()
         if background:
-            self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, meta), daemon=True)
             self._thread.start()

@@ -5,7 +5,9 @@ from repro_torch.configs import (dbrx_132b, deepseek_v2_236b, llama3_8b,
                                  mamba2_1_3b, minicpm_2b, pixtral_12b,
                                  qwen2_5_3b, qwen3_4b, recurrentgemma_2b,
                                  seamless_m4t_large_v2)
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (ALL_SHAPES, ArchConfig,  # noqa: F401
+                                      ShapeConfig, applicable_shapes,
+                                      skip_reason)
 
 _MODULES = {
     "deepseek-v2-236b": deepseek_v2_236b,
@@ -29,3 +31,10 @@ def get(arch_id: str) -> ArchConfig:
 
 def get_smoke(arch_id: str) -> ArchConfig:
     return _MODULES[arch_id].SMOKE
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in ALL_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

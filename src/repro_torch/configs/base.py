@@ -4,7 +4,8 @@ One `ArchConfig` per architecture, with exact numbers from the public
 sources cited in each config file, plus a ``SMOKE`` reduction of the
 same family for CPU tests.  `ShapeConfig` and the reference's four
 shapes name a (sequence, batch, kind) cell; `data.pipeline.input_shapes`
-reads them.
+reads them, and `skip_reason` holds the reference's skip rule (the
+dry-run's ``SKIP`` cells).
 """
 
 from __future__ import annotations
@@ -128,3 +129,19 @@ DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
 LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
 
 ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def applicable_shapes(cfg: ArchConfig) -> Tuple[ShapeConfig, ...]:
+    """The reference's skip rules: long_500k only for sub-quadratic
+    archs; decode applies to every arch (all have decoders)."""
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.sub_quadratic:
+        shapes.append(LONG_500K)
+    return tuple(shapes)
+
+
+def skip_reason(cfg: ArchConfig, shape: ShapeConfig) -> Optional[str]:
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return ("full-attention arch: 500k dense KV/attention is what this "
+                "shape excludes (DESIGN.md §5)")
+    return None

@@ -15,7 +15,9 @@ else raises, on the CPU as on the card.
 
 On a CPU tensor the wrapper runs `flash_attention_plain`; on a CUDA
 tensor it launches the kernel or raises (failed build, refused launch).
-It never falls back.  ``flash_attention.launches`` counts kernel
+It never falls back.  On a ``meta`` tensor (the dry-run,
+`launch/dryrun.py`) nothing runs: it returns the plain version's
+shape-only output, whose traced products are the plain version's.  ``flash_attention.launches`` counts kernel
 launches and nothing else.
 """
 
@@ -128,7 +130,7 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
             "flash_attention has no backward: q, k or v requires grad under "
             "grad mode (train through nn.attention.blocked_attention)")
     _check(q, k, v, bq, bk, causal)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")

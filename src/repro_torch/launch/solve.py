@@ -33,11 +33,33 @@ line at the end:
 
   PYTHONPATH=src python -m repro_torch.launch.solve --n 60 --lanes 1024 \
       --eps-target 4096 --mesh 4
+
+``--subs N`` is the reference's pool size flag: the fallback of
+``--eps-target`` (default 128, as the reference's).  ``--fast`` is the
+reference's deprecated spelling of ``--preset fast`` (it warns
+``DeprecationWarning``).
+
+``--dryrun [--multi-pod]`` lays the solver out on the production mesh
+(`launch/mesh.py`, 16×16 or 2×16×16 ``meta`` devices), as the
+reference's solver dry-run: 8 lanes and a pool of 16 subproblems per
+device, the lane state and the pool sharded over every mesh axis
+(`sharding.dist_solve_specs`), the bound, flags and cursor replicated,
+and one `solver_bound_sync` (three reductions: min of the bounds, AND of
+the done flags, OR of the has-solution flags) per superstep.  It prints
+the per-device argument bytes from the shard shapes of the lane state
+and pool, built on the CPU at the model's shapes; nothing is solved.
+The compile time, temp bytes and HLO all-reduce count of the
+reference's line have no counterpart without XLA, and it says so.
+
+  PYTHONPATH=src python -m repro_torch.launch.solve --dryrun --multi-pod
 """
 
 import argparse
 import contextlib
 import time
+import warnings
+
+import torch
 
 # CLI name -> SolveConfig preset name
 _PRESETS = {"prove": "prove", "first": "first_solution", "fast": "fast"}
@@ -51,11 +73,15 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resources", type=int, default=4)
     ap.add_argument("--lanes", type=int, default=32)
+    ap.add_argument("--subs", type=int, default=128,
+                    help="EPS pool size when --eps-target is not given")
     ap.add_argument("--eps-target", type=int, default=None,
                     help="EPS pool size: decompose the root into ~this many "
-                         "subproblems (default 4 × lanes)")
+                         "subproblems (default --subs)")
     ap.add_argument("--timeout", type=float, default=120)
     ap.add_argument("--preset", choices=sorted(_PRESETS), default="prove")
+    ap.add_argument("--fast", action="store_true",
+                    help="DEPRECATED: use --preset fast")
     ap.add_argument("--backend", default="cuda", choices=available_backends())
     ap.add_argument("--supersteps-per-launch", type=int, default=None,
                     help="supersteps per resident kernel launch "
@@ -74,6 +100,11 @@ def main(argv=None):
                     help="distributed EPS: the pool in N shards on --device, "
                          "a bound sync per superstep, work stealing")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--dryrun", action="store_true",
+                    help="lay the solver out on the production mesh; "
+                         "solve nothing")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="--dryrun on the 2x16x16 mesh")
     ap.add_argument("--file", default=None)
     ap.add_argument("--profile", action="store_true",
                     help="trace the solve; print device time by kernel")
@@ -83,6 +114,11 @@ def main(argv=None):
                  f"{args.backend}: the fixpoint kernel has no lane tile "
                  "(a CTA runs one lane), and the reference's pallas lane "
                  "tile changes no result")
+
+    if args.fast:
+        warnings.warn("--fast is deprecated; use --preset fast",
+                      DeprecationWarning)
+        args.preset = "fast"
 
     from repro_torch import solver
     from repro_torch.core.models import rcpsp
@@ -96,12 +132,16 @@ def main(argv=None):
         inst = rcpsp.generate(args.n, n_resources=args.resources,
                               seed=args.seed)
     m, handles = rcpsp.build_model(inst)
+    if args.dryrun:
+        # shapes only: the tables are built on the CPU, nothing is solved
+        return _dryrun(m.compile(device="cpu"), args)
     cm = m.compile(device=args.device)
     value = ({} if args.branch_value is None
              else dict(val_strategy=args.branch_value))
     cfg = solver.SolveConfig.preset(
         _PRESETS[args.preset], n_lanes=args.lanes,
-        eps_target=args.eps_target, timeout_s=args.timeout,
+        eps_target=(args.eps_target if args.eps_target is not None
+                    else args.subs), timeout_s=args.timeout,
         backend=args.backend, device=args.device,
         supersteps_per_launch=args.supersteps_per_launch,
         lane_tile=args.lane_tile, mesh_shards=args.mesh, **value)
@@ -159,6 +199,55 @@ def main(argv=None):
         print(f"  distributed: shards={args.mesh} chunks={trace.n_chunks} "
               f"bound_syncs={trace.n_bound_syncs} steals={trace.n_steals} "
               f"remeshes={len(trace.remesh_events)}")
+
+
+def _dryrun(cm, args):
+    """The solver on the production mesh, shapes only: per-device bytes
+    of a distributed chunk's arguments (8 lanes and 16 subproblems per
+    device, the lane state and the pool sharded over every mesh axis;
+    the bound, the done flag and the superstep count replicated, one
+    pool cursor per device).  Returns the bytes."""
+    import numpy as np
+
+    from repro_torch import solver
+    from repro_torch.core.api import _init_carry
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t0 = time.time()
+    mesh = make_production_mesh(multi_pod=args.multi_pod)
+    axes = tuple(mesh.axis_names)
+    n_dev = int(np.prod(list(mesh.shape.values())))
+    lanes, pool = 8, 16                          # per device
+    opts = solver.SolveConfig.preset(_PRESETS[args.preset], device="cpu"
+                                     ).search_options()
+    carry = _init_carry(cm, lanes * n_dev, opts, heads=(n_dev,))
+    pool_spec, (state_spec, _, _, _, heads_spec) = SH.dist_solve_specs(
+        carry.st, pool * n_dev, mesh, {"lanes": axes, "pool": axes})
+
+    def per_device(shape, dtype, spec):
+        n = int(np.prod(SH.shard_shape(tuple(shape), spec, mesh)))
+        return n * torch_bytes(dtype)
+
+    state = sum(per_device(x.shape, x.dtype, sp)
+                for x, sp in zip(carry.st, state_spec) if x is not None)
+    pools = 2 * per_device((pool * n_dev, cm.n_vars), cm.tdtype, pool_spec)
+    rest = (torch_bytes(cm.tdtype) + 1 + 4       # bound, done flag, count
+            + per_device((n_dev,), torch.int32, heads_spec))
+    total = state + pools + rest
+    mesh_tag = "2x16x16" if args.multi_pod else "16x16"
+    print(f"SOLVER dry-run OK on {mesh_tag} ({n_dev} devices): "
+          f"trace={time.time() - t0:.1f}s args={total / 1e6:.3f}MB/dev "
+          f"(lane state {state / 1e6:.3f}MB of {lanes} lanes, pool lb/ub "
+          f"{pools / 1e6:.3f}MB of {pool} subproblems, bound, flags and "
+          f"cursor {rest} B); per superstep 1 solver_bound_sync of 3 "
+          f"reductions (min bound, AND done, OR has-solution); left out "
+          f"(no XLA): compile time, temp bytes, HLO all-reduce ops")
+    return total
+
+
+def torch_bytes(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def _profiler(device):

@@ -135,7 +135,11 @@ class KVCache(NamedTuple):
 
 
 def _aligned(positions, S: int) -> bool:
-    """Whether the positions are ``arange(S)`` (one read to the host)."""
+    """Whether the positions are ``arange(S)`` (one read to the host).
+    A ``meta`` tensor (the dry-run) holds no values: its positions are
+    the forwards' own ``arange`` and only the shape is checked."""
+    if positions.is_meta:
+        return positions.shape == (S,)
     return positions.shape == (S,) and bool(torch.equal(
         positions, torch.arange(S, dtype=positions.dtype,
                                 device=positions.device)))

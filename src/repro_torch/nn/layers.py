@@ -17,12 +17,29 @@ conv weights.  Training stores every leaf in f32, as the reference
 (``dtype=torch.float32``): AdamW's update is mostly below a bf16 ulp of
 the weight, and the primitives cast at use either way.
 
-The reference's ``constrain`` (a sharding constraint, a no-op on one
-device) has no counterpart: the sharding rules are ROADMAP item 9.3.
+Data-parallel training (`train/train_step.sharded_train_step`) sums the
+ranks' weight gradients before the one bf16 rounding that a product's
+weight gradient gets on one device: inside `unrounded_weight_grads`,
+every weight that a product reads as bf16 (`dense`, `unembed`,
+`einsum_bf16`, the MoE expert products) enters it widened to f32
+(`weight_f32`; `dense`'s bf16 GEMM on the card keeps its forward and
+computes the weight gradient with an f32 result, as it does on one
+device: `_DenseBF16`), and its
+f32 gradient goes, unrounded, into a stash by param leaf instead of to
+autograd; the caller sums the stash over the ranks and rounds it to
+bf16 once, as one device does.  On the card `einsum_bf16`'s products
+there are f32 GEMMs of the bf16 values (the same products, summed in
+another order) in place of bf16 GEMMs.
+
+The reference's ``constrain`` (a sharding constraint inside the SPMD
+forward, a no-op on one device) has no counterpart: the port runs no
+SPMD program.  Its data-parallel training shards the params by the rule
+tables outside the forward (`train/train_step.sharded_train_step`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -114,11 +131,101 @@ def cast_bf16(x):
     return x.to(BF16)
 
 
+# the weight-gradient stash of `unrounded_weight_grads` (None: off)
+_STASH = None
+
+
+@contextlib.contextmanager
+def unrounded_weight_grads(stash: Dict):
+    """Inside, the backward of every product's weight adds the weight's
+    f32 gradient, unrounded, into ``stash[id(leaf)] = [leaf, sum]`` (the
+    param leaf the weight is, or is a view of), and gives the weight no
+    gradient through autograd."""
+    global _STASH
+    prev, _STASH = _STASH, stash
+    try:
+        yield
+    finally:
+        _STASH = prev
+
+
+def current_stash() -> Optional[Dict]:
+    """The stash of the enclosing `unrounded_weight_grads` (None: off)."""
+    return _STASH
+
+
+def stash_add(stash: Dict, w, g):
+    """Add the f32 gradient `g` of weight `w` (a param leaf, or a view of
+    one: a stacked layer's slice) to ``stash[id(leaf)]``, at `w`'s
+    place in the (contiguous) leaf."""
+    leaf = w._base if w._base is not None else w
+    entry = stash.setdefault(id(leaf), [leaf, None])
+    if entry[1] is None:
+        entry[1] = torch.zeros(leaf.shape, dtype=F32, device=leaf.device)
+    entry[1].as_strided(w.shape, w.stride(),
+                        w.storage_offset() - leaf.storage_offset()).add_(g)
+
+
+class _UnroundedWeight(torch.autograd.Function):
+    """``w`` rounded to bf16 and widened to f32 (the value of
+    ``cast_bf16(w).to(F32)``); the backward adds the f32 gradient to the
+    stash."""
+
+    @staticmethod
+    def forward(ctx, w, stash):
+        ctx.w, ctx.stash = w, stash
+        return w.detach().to(BF16).to(F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        stash_add(ctx.stash, ctx.w, g)
+        return None, None
+
+
+class _DenseBF16(torch.autograd.Function):
+    """`dense`'s bf16 GEMM on the card, ``x @ bf16(w)`` (bf16 x), with
+    autograd's input gradient (a bf16 GEMM).  The weight gradient is a
+    GEMM with an f32 result (``bmm(..., out_dtype=f32)``, the f32
+    accumulator) rounded once to bf16, or, given a stash, added to it
+    unrounded: so one device and the ranks of `unrounded_weight_grads`
+    round the same f32 sums."""
+
+    @staticmethod
+    def forward(ctx, x, w, stash):
+        wb = w.detach().to(BF16)
+        ctx.save_for_backward(x, wb)
+        ctx.w, ctx.stash = w, stash
+        return torch.matmul(x, wb)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wb = ctx.saved_tensors
+        gx = torch.matmul(g, wb.t()) if ctx.needs_input_grad[0] else None
+        gw = None
+        if ctx.needs_input_grad[1] or ctx.stash is not None:
+            x2, g2 = x.reshape(-1, x.shape[-1]), g.reshape(-1, g.shape[-1])
+            gw = torch.bmm(x2.t()[None], g2[None], out_dtype=F32)[0]
+            if ctx.stash is not None:
+                stash_add(ctx.stash, ctx.w, gw)
+                gw = None
+            else:
+                gw = gw.to(BF16).to(ctx.w.dtype)
+        return gx, gw, None
+
+
+def weight_f32(w):
+    """A weight as its bf16 value in f32; inside `unrounded_weight_grads`
+    (and when `w` requires grad) its gradient goes to the stash."""
+    if _STASH is not None and w.requires_grad:
+        return _UnroundedWeight.apply(w, _STASH)
+    return cast_bf16(w).to(F32)
+
+
 def matmul_f32(x, w):
     """``x @ w`` of bf16 operands, accumulated and returned in f32 (the
     reference's ``preferred_element_type=f32``): the operands' products in
     f32 (exact for bf16 values), with TF32 off (`set_matmul_precision`)."""
-    return torch.matmul(cast_bf16(x).to(F32), cast_bf16(w).to(F32))
+    return torch.matmul(cast_bf16(x).to(F32), weight_f32(w))
 
 
 def einsum_f32(eq: str, a, b):
@@ -130,10 +237,11 @@ def einsum_f32(eq: str, a, b):
 
 def einsum_bf16(eq: str, a, b):
     """`einsum_f32` rounded once to bf16; on the card one bf16 batched
-    GEMM (f32 accumulation, one rounding), as `dense`."""
-    if a.device.type == "cuda":
+    GEMM (f32 accumulation, one rounding), as `dense`.  `b` is the
+    weight (`weight_f32`)."""
+    if a.device.type == "cuda" and _STASH is None:
         return torch.einsum(eq, cast_bf16(a), cast_bf16(b))
-    return cast_bf16(einsum_f32(eq, a, b))
+    return cast_bf16(torch.einsum(eq, cast_bf16(a).to(F32), weight_f32(b)))
 
 
 def dense(x, w, bias=None):
@@ -141,8 +249,11 @@ def dense(x, w, bias=None):
     f32, one rounding to bf16.  On the card without a bias the product is
     one bf16 GEMM (cuBLAS accumulates in f32 and rounds once, with
     reduced-precision reductions off: `set_matmul_precision`); the CPU has
-    no such GEMM for every shape, so it takes the f32 product."""
+    no such GEMM for every shape, so it takes the f32 product.  In
+    training (`w` requiring grad) the card's product is `_DenseBF16`."""
     if bias is None and x.device.type == "cuda":
+        if w.requires_grad:
+            return _DenseBF16.apply(cast_bf16(x), w, _STASH)
         return torch.matmul(cast_bf16(x), cast_bf16(w))
     y = matmul_f32(x, w)
     if bias is not None:
@@ -177,7 +288,7 @@ def embed_lookup(table, tokens):
 
 def unembed(x, table):
     """Logits in f32: x [..., d] against table [V, d]."""
-    return matmul_f32(x, cast_bf16(table).t())
+    return torch.matmul(cast_bf16(x).to(F32), weight_f32(table).t())
 
 
 # --------------------------------------------------------------------------

@@ -6,7 +6,8 @@ Layer stacks are grouped into homogeneous *groups*; a group of more than
 one layer keeps its params stacked ``[L, ...]`` under one prefix, as the
 reference's, and a size-1 group is unstacked (e.g. deepseek's leading
 dense layer).  A Python loop over a group's layers takes the place of the
-reference's ``scan_layers`` (so ``nn/scanctl.py`` has no counterpart).
+reference's ``scan_layers`` (`nn/scanctl.py` ports only the remat
+policy).
 Caches mirror the group structure with a leading layer axis; a hybrid
 period's cache is a dict of its sub-layers' caches.  Decode writes every
 cache in place: the KV and latent caches at the new position
@@ -19,9 +20,11 @@ and a learned projection (``frontend/proj``) maps them into the model.
 
 Training (`forward_train`) writes no cache and nothing in place, so
 autograd sees the whole forward.  With ``remat``, each layer of a
-stacked group runs under ``torch.utils.checkpoint`` (non-reentrant), the
-counterpart of the reference's ``scanctl.checkpoint`` of its scan body:
-only the layer's input is kept, and the backward recomputes the rest.
+stacked group runs under `scanctl.checkpoint` (``torch.utils.checkpoint``,
+non-reentrant), the counterpart of the reference's ``scanctl.checkpoint``
+of its scan body: by default only the layer's input is kept and the
+backward recomputes the rest; under ``scanctl.remat_policy("dots")`` the
+products without batch dims are kept too.
 A stacked leaf reaches its layers through one ``unbind``, so its
 gradient is one stack of the layers' gradients.
 """
@@ -31,7 +34,6 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import transformer as T
@@ -39,6 +41,7 @@ from repro_torch.nn.attention import KVCache, MLACache, gqa_attention
 from repro_torch.nn.layers import (BF16, F32, ParamSpec, Specs, dense,
                                    embed_lookup, rms_norm, unembed)
 from repro_torch.nn.rglru import RGLRUCache
+from repro_torch.nn.scanctl import checkpoint
 from repro_torch.nn.ssm import SSMCache
 
 # --------------------------------------------------------------------------
@@ -350,9 +353,10 @@ def _merge_aux(acc: Dict, aux: Dict):
 
 
 def _remat(on: bool, fn, *args):
-    """``fn(*args)``, under a non-reentrant checkpoint when `on`."""
+    """``fn(*args)``, under `scanctl.checkpoint` (the ambient remat
+    policy) when `on`."""
     if on:
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args)
     return fn(*args)
 
 

@@ -14,6 +14,11 @@ reads nothing back to the host.
 writes the params and moments in place and returns the same dicts: a
 functional update would hold two copies of params, ``mu`` and ``nu`` at
 once (65 GB at minicpm-2b's 2.72 B params in f32).
+
+On a training rank (`train_step.sharded_train_step`) the dicts hold the
+rank's shards and the clip reads the *global* gradient norm: the squared
+sums of the sharded leaves all-reduced over the group, the replicated
+leaves' (equal on every rank) counted once.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 F32 = torch.float32
 
@@ -78,11 +84,23 @@ def init_opt_state(params: Dict) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _global_norm(tree: Dict) -> torch.Tensor:
+def _global_norm(tree: Dict, group=None, sharded=frozenset()
+                 ) -> torch.Tensor:
     """√(Σ x²) over every leaf, in f32, leaves in sorted path order (the
-    reference's ``tree_leaves`` order)."""
-    return torch.sqrt(sum(torch.sum(torch.square(tree[k].to(F32)))
-                          for k in sorted(tree)))
+    reference's ``tree_leaves`` order).  Given a process `group`, the
+    leaves named in `sharded` are this rank's pieces: their squared sums
+    are all-reduced over the group; every other leaf is whole on every
+    rank and counted once."""
+    sq = [(k, torch.sum(torch.square(tree[k].to(F32)))) for k in sorted(tree)]
+    if group is None:
+        return torch.sqrt(sum(v for _, v in sq))
+    dev = sq[0][1].device
+    part = sum((v for k, v in sq if k in sharded),
+               torch.zeros((), dtype=F32, device=dev)).reshape(1)
+    dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+    whole = sum((v for k, v in sq if k not in sharded),
+                torch.zeros((), dtype=F32, device=dev))
+    return torch.sqrt(part[0] + whole)
 
 
 def _decay_mask(path: str) -> bool:
@@ -94,15 +112,17 @@ def _decay_mask(path: str) -> bool:
 
 
 @torch.no_grad()
-def apply_updates(params: Dict, grads: Dict, state: Dict, cfg: OptConfig
+def apply_updates(params: Dict, grads: Dict, state: Dict, cfg: OptConfig,
+                  group=None, sharded=frozenset()
                   ) -> Tuple[Dict, Dict, Dict]:
     """One AdamW step, written into `params` and `state` in place.
     Returns (params', state', metrics) — the same dicts, as the
-    reference's return value."""
+    reference's return value.  On a rank of `group`, the leaves named in
+    `sharded` are its shards (`_global_norm`)."""
     step = state["step"] + 1
     lr = learning_rate(step, cfg)
 
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, group, sharded)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                          max=1.0)
              if cfg.clip_norm > 0 else None)

@@ -243,8 +243,13 @@ def test_train_cli_runs_and_resumes_on_cpu(tmp_path, capsys):
 
 
 def test_train_cli_refuses_several_devices():
-    with pytest.raises(NotImplementedError, match="9.3"):
-        train.main(["--smoke", "--device", "cpu", "--devices", "2"])
+    """``--devices N`` trains over N ranks (tests/test_torch_dist_train.py)
+    and refuses what runs on one device only: a checkpoint directory and
+    the profiler."""
+    for extra in (["--ckpt-dir", "ck"], ["--profile"]):
+        with pytest.raises(SystemExit, match="one device"):
+            train.main(["--smoke", "--device", "cpu", "--devices", "2"]
+                       + extra)
 
 
 def test_train_cli_defaults_minicpm_to_wsd(monkeypatch):
