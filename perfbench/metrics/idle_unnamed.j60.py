@@ -1,0 +1,5 @@
+"""idle_unnamed.j60 (%, device trace and the program's spans), in
+j60-deadline: the share of the card's idle time that no phase of the program
+and no build or compile of the harness covers: `spans.idle_unnamed`."""
+
+from spans import idle_unnamed as read  # noqa: F401

@@ -19,7 +19,10 @@ reference's ``while_loop`` stops:
   (the carry holds ``[n_tiles]`` cursors).
 
 Timeouts and ``max_supersteps`` are checked once per quantum.  PyTorch
-runs eagerly, so there is no compiled-runner cache.
+runs eagerly, so there is no compiled-runner cache.  A solve's phases on
+the host clock (`core/trace.py`: EPS's host work, launches and copies
+back, each quantum's host work and read, the bookkeeping between quanta)
+come back on ``SolveResult.trace``.
 
 Meshes: ``SolveConfig(mesh_shards=N)`` delegates to the distributed EPS
 engine (`core/dist_solve.py`); ``SolveConfig(mesh=..., lane_axes=...)``
@@ -52,6 +55,7 @@ import torch
 
 from repro_torch.core import eps
 from repro_torch.core import search as S
+from repro_torch.core import trace as TR
 from repro_torch.core.backend import available_backends, get_backend
 from repro_torch.core.compile import CompiledModel
 from repro_torch.core.device import resolve_device
@@ -88,6 +92,9 @@ class SolveResult:
     improvements: Tuple[Improvement, ...] = ()
     # host seconds spent in eps.decompose (part of wall_s)
     eps_s: float = 0.0
+    # the solve's phases on the host clock (core/trace.py), and their
+    # spans while a profiler records; None where no phases were kept
+    trace: Optional[TR.SolveTrace] = None
 
     @property
     def nodes_per_sec(self) -> float:
@@ -345,16 +352,19 @@ def _run_chunk(opts: S.SearchOptions, stop_on_first: bool, chunk: int,
     """
     st, gbest, gdone, it, pool_head = carry
     if opts.backend == "cuda_resident":
+        TR.mark("search.host")
         st, gbest, it_t, pool_head, stopped = get_backend(
             opts.backend, lane_tile=lane_tile).superstep_launch(
                 cm, subs_lb, subs_ub, st, gbest, it, pool_head, opts=opts,
                 supersteps=supersteps)
+        TR.mark("search.read")
         it, stop = torch.stack((it_t.to(torch.int32),
                                 stopped.to(torch.int32))).tolist()
         return Carry(st, gbest, bool(stop), it, pool_head)
     for _ in range(chunk):
         if gdone:
             break
+        TR.mark("search.host")
         st, pool_head = S.lanes_step(cm, subs_lb, subs_ub, opts, st, gbest,
                                      pool_head)
         gbest = torch.minimum(gbest, S.lanes_best(st))
@@ -362,6 +372,7 @@ def _run_chunk(opts: S.SearchOptions, stop_on_first: bool, chunk: int,
         if stop_on_first:
             done = done | st.has_sol.any()
         it += 1
+        TR.mark("search.read")
         gdone = bool(done)                 # the one sync per superstep
     return Carry(st, gbest, gdone, it, pool_head)
 
@@ -412,6 +423,7 @@ def _run_mesh_chunk(opts: S.SearchOptions, stop_on_first: bool, chunk: int,
     for _ in range(chunk):
         if gdone:
             break
+        TR.mark("search.host")
         best, done, any_sol = [], [], []
         for d, (cm, (lb, ub)) in enumerate(zip(cms, pools)):
             g = gbest if gbest.device == cm.device else gbest.to(cm.device)
@@ -423,6 +435,7 @@ def _run_mesh_chunk(opts: S.SearchOptions, stop_on_first: bool, chunk: int,
         best, done, any_sol = solver_bound_sync(best, done, any_sol)
         gbest = torch.minimum(gbest, best)
         it += 1
+        TR.mark("search.read")
         gdone = bool(done | any_sol if stop_on_first else done)
     return MeshCarry(sts, gbest, gdone, it, heads)
 
@@ -455,7 +468,8 @@ def derive_result(cm: CompiledModel, best_obj, has_sol, best_sol,
                   n_sols: int, n_sweeps: int, n_supersteps: int,
                   wall_s: float,
                   improvements: Tuple[Improvement, ...] = (),
-                  eps_s: float = 0.0) -> SolveResult:
+                  eps_s: float = 0.0,
+                  trace: Optional[TR.SolveTrace] = None) -> SolveResult:
     """Derive (status, objective, solution) from terminal lane state.
 
     ``done`` means *search exhausted* (every lane drained the pool), not
@@ -486,7 +500,8 @@ def derive_result(cm: CompiledModel, best_obj, has_sol, best_sol,
                        n_sols=int(n_sols), n_sweeps=int(n_sweeps),
                        n_supersteps=int(n_supersteps), wall_s=wall_s,
                        complete=complete,
-                       improvements=tuple(improvements), eps_s=eps_s)
+                       improvements=tuple(improvements), eps_s=eps_s,
+                       trace=trace)
 
 
 class Solver:
@@ -502,8 +517,6 @@ class Solver:
     def __init__(self, config: Optional[SolveConfig] = None, **overrides):
         base = config if config is not None else SolveConfig.preset("prove")
         self.config = base.replace(**overrides) if overrides else base
-        # the port runs eagerly: no runner cache, so only solves are counted
-        self.stats: Dict[str, Any] = {"solves": 0}
 
     def _config_for(self, config: Optional[SolveConfig],
                     overrides: dict) -> SolveConfig:
@@ -518,6 +531,7 @@ class Solver:
                                              opts)
         else:
             subs_lb, subs_ub = (np.asarray(a) for a in subs)
+        TR.mark("pool")
         size = subs_lb.shape[0]
         if cfg.pad_pool:
             size = _bucket(size)
@@ -556,11 +570,13 @@ class Solver:
             from repro_torch.core import dist_solve
             yield from dist_solve.solve_iter_dist(self, cm, cfg, subs=subs)
             return
-        self.stats["solves"] += 1
         opts = cfg.search_options()
         t0 = time.time()
-        subs_lb, subs_ub = self._pool_for(cm, cfg, subs, opts)
+        tr = TR.SolveTrace("eps.host" if subs is None else "pool")
+        with TR.active(tr):
+            subs_lb, subs_ub = self._pool_for(cm, cfg, subs, opts)
         eps_s = time.time() - t0
+        tr.switch("init")
         mesh = cfg.mesh
         if mesh is not None:
             rules = cfg.lane_rules()
@@ -576,16 +592,17 @@ class Solver:
         improvements: List[Improvement] = []
         best_seen = torch.iinfo(cm.tdtype).max // 4
         while True:
-            if mesh is not None:
-                carry = _run_mesh_chunk(opts, cfg.stop_on_first, cfg.chunk,
-                                        cms, pools, carry)
-                st = _gather_state(carry.st)
-            else:
-                carry = _run_chunk(opts, cfg.stop_on_first, cfg.chunk, cm,
-                                   subs_lb, subs_ub, carry,
-                                   supersteps=cfg.resolved_supersteps(),
-                                   lane_tile=cfg.lane_tile or 0)
-                st = carry.st
+            with TR.active(tr):
+                if mesh is not None:
+                    carry = _run_mesh_chunk(opts, cfg.stop_on_first,
+                                            cfg.chunk, cms, pools, carry)
+                else:
+                    carry = _run_chunk(opts, cfg.stop_on_first, cfg.chunk,
+                                       cm, subs_lb, subs_ub, carry,
+                                       supersteps=cfg.resolved_supersteps(),
+                                       lane_tile=cfg.lane_tile or 0)
+            tr.switch("solve.loop")
+            st = _gather_state(carry.st) if mesh is not None else carry.st
             wall = time.time() - t0
             superstep = carry.it
             n_nodes = int(st.n_nodes.sum())
@@ -608,18 +625,23 @@ class Solver:
                     and superstep >= cfg.max_supersteps):
                 stop = True
             if not stop:
-                yield Progress(superstep=superstep, best_objective=obj,
-                               has_solution=has, incumbent=incumbent,
-                               n_nodes=n_nodes, n_sols=n_sols, wall_s=wall,
-                               t_host=t0 + wall)
+                ev = Progress(superstep=superstep, best_objective=obj,
+                              has_solution=has, incumbent=incumbent,
+                              n_nodes=n_nodes, n_sols=n_sols, wall_s=wall,
+                              t_host=t0 + wall)
+                tr.pause()                 # a consumer's time is no phase
+                yield ev
+                tr.switch("search.host")
                 continue
+            tr.switch("solve.result")
             totals = S.lane_totals(st)
             exhausted = bool(st.done.all())
             res = derive_result(
                 cm, st.best_obj.cpu(), st.has_sol.cpu(), st.best_sol.cpu(),
                 st.incomplete.cpu(), exhausted, totals["n_nodes"],
                 totals["n_fails"], totals["n_sols"], totals["n_sweeps"],
-                superstep, time.time() - t0, tuple(improvements), eps_s)
+                superstep, time.time() - t0, tuple(improvements), eps_s, tr)
+            tr.pause()
             yield Progress(superstep=superstep, best_objective=res.objective,
                            has_solution=has, incumbent=res.solution,
                            n_nodes=res.n_nodes, n_sols=res.n_sols,
@@ -657,7 +679,6 @@ class Solver:
                              "combined with a mesh config")
         opts = cfg.search_options()
         t0 = time.time()
-        self.stats["solves"] += 1
         cms = [cm.to(cfg.device) for cm in cms]
         sig = shape_signature(cms[0])
         for k, cm in enumerate(cms[1:], 1):

@@ -30,7 +30,7 @@ The mesh is in-process: one host loop drives every shard, and all D
 shards sit on the config's device (the torch counterpart of the
 reference's fake host devices; mesh 1, 2 and 4 run on one card as on the
 CPU).  The port runs eagerly, so there
-is no runner cache; the session counts its solves.
+is no runner cache.
 
 **Completeness**: steals move only undispatched entries, so at every
 chunk boundary the shards' undispatched id sets are pairwise disjoint and,
@@ -254,10 +254,9 @@ def solve_iter_dist(session, cm: CompiledModel, cfg: SolveConfig, *,
                     ) -> Iterator[Progress]:
     """Anytime distributed solve over ``cfg.mesh_shards`` shards (all on
     ``cfg.device``) for the `Solver`
-    ``session`` (which counts it); yields the `Progress` stream of the
+    ``session``; yields the `Progress` stream of the
     single-device engine (one event per host chunk), the final event
     carrying the `SolveResult`."""
-    session.stats["solves"] += 1
     trace = trace if trace is not None else DistTrace()
     opts = cfg.search_options()
     t0 = time.time()

@@ -23,16 +23,23 @@ import torch
 
 from repro_torch.core import lattice as LT
 from repro_torch.core import search as S
+from repro_torch.core import trace
 from repro_torch.core.backend import get_backend
 from repro_torch.core.compile import CompiledModel
 
 
 def _propagate(backend, cm, lbs: np.ndarray, ubs: np.ndarray):
-    """Fixpoints of host stores ``[n, V]`` on the model's device."""
+    """Fixpoints of host stores ``[n, V]`` on the model's device (the
+    phases ``eps.stage``, ``eps.launch`` and ``eps.wait`` of the active
+    trace)."""
     dev = cm.device
+    trace.mark("eps.stage")
     nlb, nub, _, _ = backend.fixpoint_batch(
         cm, torch.from_numpy(lbs).to(dev), torch.from_numpy(ubs).to(dev))
-    return nlb.cpu().numpy(), nub.cpu().numpy()
+    trace.mark("eps.wait")
+    out = nlb.cpu().numpy(), nub.cpu().numpy()
+    trace.mark("eps.host")
+    return out
 
 
 def decompose(cm: CompiledModel, target: int,
@@ -40,7 +47,11 @@ def decompose(cm: CompiledModel, target: int,
     """Split the root into ~`target` consistent subproblems.
 
     Returns host arrays (subs_lb, subs_ub) of shape ``[S, V]``, S ≥ 1.
+    Under an active trace (`trace.active`) its host work is the phase
+    ``eps.host``, each split's staging, launch and copy back
+    ``eps.stage``, ``eps.launch`` and ``eps.wait``.
     """
+    trace.mark("eps.host")
     opts = opts or S.SearchOptions()
     backend = get_backend(opts.backend)
     lb0 = cm.lb0.cpu().numpy()[None]

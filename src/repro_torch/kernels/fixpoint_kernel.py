@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.core import fixpoint as F
 from repro_torch.core import search as S
+from repro_torch.core import trace
 
 # shared memory one H100 block may use (232,448 bytes = 227 KB)
 SMEM_LIMIT_BYTES = 227 * 1024
@@ -333,6 +334,7 @@ def fixpoint_cuda(cm, lb, ub, dom=None, *, max_sweeps=None):
     instance `instance_threads` picks for L lanes.
     """
     if lb.device.type == "cpu":
+        trace.launch("fixpoint_batch")
         return F.fixpoint_batch(cm, lb, ub, dom, max_iters=max_sweeps)
     if lb.device.type != "cuda":
         raise ValueError(f"fixpoint_cuda: unsupported device {lb.device}")
@@ -372,8 +374,11 @@ def launch_fixpoint(lib, cm, lb, ub, dom, max_sweeps, threads):
     cap = UNCAPPED if max_sweeps is None else int(max_sweeps)
     if cap < 0:
         raise ValueError(f"fixpoint_cuda: max_sweeps must be >= 0, got {cap}")
+    tables = _c_tables(cm)
+    trace.launch("fixpoint_few_kernel" if threads == FEW_THREADS
+                 else "fixpoint_kernel")
     err = lib.fixpoint_launch(
-        *_c_tables(cm), lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
+        *tables, lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
         ub_out.data_ptr(), sweeps.data_ptr(), conv.data_ptr(),
         None if dom is None else dom.data_ptr(),
         None if dom is None else dom_out.data_ptr(), L, cap, threads,
@@ -600,6 +605,7 @@ def search_cuda(cm, subs_lb, subs_ub, st: S.LaneState, gbest, it,
               stop_on_first=stop_on_first)
     dev = st.lb.device
     if dev.type == "cpu":
+        trace.launch("search_plain")
         return search_plain(cm, subs_lb, subs_ub, st, gbest, it,
                             pool_head, **kw)
     if dev.type != "cuda":
@@ -848,6 +854,7 @@ def _launch(lib, tiled, cms, subs_lb, subs_ub, st, gbest, its, heads,
         return (ctypes.c_void_p * len(ts))(
             *(None if t is None else t.data_ptr() for t in ts))
 
+    trace.launch("search_kernel")
     err = lib.search_launch(
         tables, ctab[0][1], ptrs([out[f] for f in _STATE_FIELDS]), ptrs(io),
         (ctypes.c_int * len(ints))(*ints),

@@ -22,7 +22,8 @@ command fails instead of moving to the CPU.  ``--file`` reads a PSPLIB
 ``.sm`` or Patterson ``.rcp`` instance instead of generating one.
 ``--profile`` traces the EPS decomposition and the search apart with
 ``torch.profiler`` and prints, for each, the device time by kernel and
-the device's busy share of its wall time.
+the device's busy share of its wall time, then its phases on the host
+clock (`core/trace.py`): seconds, count and mean per phase.
 
 ``--mesh N`` runs distributed EPS (`core/dist_solve.py`): the pool in N
 shards, every shard on ``--device`` (one card, or the CPU), each mesh
@@ -153,12 +154,17 @@ def main(argv=None):
     if args.profile:
         # EPS traced apart from the search, so each gets its own breakdown
         from repro_torch.core import eps
+        from repro_torch.core.trace import SolveTrace, active
         with _profiler(args.device) as prof:
             t_eps = time.time()
-            subs = eps.decompose(cm, cfg.resolved_eps_target(),
-                                 cfg.search_options())
+            eps_trace = SolveTrace("eps.host")
+            with active(eps_trace):
+                subs = eps.decompose(cm, cfg.resolved_eps_target(),
+                                     cfg.search_options())
+            eps_trace.pause()
             t_eps = time.time() - t_eps
         _profile_report(prof, t_eps, "eps")
+        _phase_report(eps_trace, t_eps, "eps")
     res, trace = None, None
     sess = solver.Solver(cfg)
     if args.mesh is not None:
@@ -179,6 +185,8 @@ def main(argv=None):
                       f"incumbent={ev.best_objective} nodes={ev.n_nodes}")
     if prof is not None:
         _profile_report(prof, res.wall_s, "search")
+        if res.trace is not None:
+            _phase_report(res.trace, res.wall_s, "search")
     starts = ([int(res.solution[v.idx]) for v in handles["s"]]
               if res.solution is not None else None)
     check = None
@@ -274,6 +282,15 @@ def _profile_report(prof, wall_s, phase, top=8):
     for us, n, key in rows[:top]:
         print(f"profile {phase}:   {us / 1e3:9.2f} ms {n:7d}x "
               f"{us / n:9.2f} us  {key[:70]}")
+
+
+def _phase_report(tr, wall_s, phase):
+    """A traced part's phases on the host clock (`core/trace.py`):
+    seconds, count and mean per phase, and their sum against the wall."""
+    print(f"profile {phase}: phases {tr.seconds():.3f} s of {wall_s:.3f} s "
+          f"wall")
+    for line in tr.table():
+        print(f"profile {phase}:   {line}")
 
 
 if __name__ == "__main__":

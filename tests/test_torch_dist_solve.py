@@ -223,7 +223,10 @@ def test_mesh_one_equals_plain_solve(name):
     sess = Solver(cfg.replace(mesh_shards=1))
     res = sess.solve(cm)                    # the session delegates
     _same(res, {k: getattr(plain, k) for k in COUNTERS})
-    assert sess.stats["solves"] == 1
+    # it delegated: the distributed engine keeps no phases, where the
+    # plain solve read the done flag once a superstep
+    assert res.trace is None
+    assert plain.trace.count("search.read") == plain.n_supersteps
     assert np.array_equal(res.solution, plain.solution)
 
 
