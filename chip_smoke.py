@@ -36,12 +36,13 @@ exit code and no result line:
    the main path's shape ``[1024, 62]``, on phase 2's J60 random stores,
    beside the least time the card could take for that work; then the
    kernel as EPS issues it (``time_eps_launches``: J60 decomposed to
-   4096 subproblems under ``torch.profiler``, one ``[2, 62]`` launch per
-   split; on an H100 they take the few-lane instance), its device time
-   per launch beside its bound, and the plain version per ``[2, 62]``
-   launch; then those launches replayed through the ``clocks`` library
-   on both instances (1024 and 256 threads per CTA): SM clocks per
-   lane-sweep by phase of the sweep (``clock_breakdown``);
+   4096 subproblems under ``torch.profiler``, one launch per batch of
+   splits, both children of up to half the SMs' subproblems; on an H100
+   they take the few-lane instance), its device time per launch beside
+   its bound, and the plain version per launch; then those launches
+   replayed through the ``clocks`` library on both instances (1024 and
+   256 threads per CTA): SM clocks per lane-sweep by phase of the sweep
+   (``clock_breakdown``);
 5. resident kernel against plain version: ``search_cuda`` against
    ``search_plain`` on the card, on J30 (256 lanes) and J60 (1024 lanes)
    class models with phase 2's EPS pools, from fresh lanes, from the
@@ -1417,12 +1418,12 @@ def time_eps_launches(card, peak_int32, cm, tag, what, strategy=None):
     """`fixpoint_cuda` as `core/eps.py` issues it on the main path:
     `eps.decompose` to MAIN_EPS subproblems (`main_config`'s options, with
     the instance's strategy pair), traced with ``torch.profiler``, gives the
-    device time of its launches (the root's ``[1, V]``, then one ``[2,
-    V]`` pair per split); the bound per launch as `time_fixpoint`'s
-    (tables, stores in and out and counters; the sweeps its lanes need,
-    counted from one batched run of the recorded stores, as lanes are
-    independent).  Returns an `EpsRun`: the recorded ``[n, V]`` stores of
-    each launch with the kernel's results, and the pool."""
+    device time of its launches (the root's ``[1, V]``, then one per
+    batch of splits, two stores a split); the bound per launch as
+    `time_fixpoint`'s (tables, stores in and out and counters; the sweeps
+    its lanes need, counted from one batched run of the recorded stores,
+    as lanes are independent).  Returns an `EpsRun`: the recorded ``[n,
+    V]`` stores of each launch with the kernel's results, and the pool."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1461,7 +1462,8 @@ def time_eps_launches(card, peak_int32, cm, tag, what, strategy=None):
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"[{tag}] fixpoint as EPS issues it ({what}, eps_target "
           f"{MAIN_EPS}): {launches} launches (1 of [1, {cm.n_vars}], "
-          f"{launches - 1} of [2, {cm.n_vars}]), {int(sweeps.sum())} "
+          f"{launches - 1} of up to [{max(c[0].shape[0] for c in calls)}, "
+          f"{cm.n_vars}]), {int(sweeps.sum())} "
           f"lane-sweeps; kernel {ms:.4f} ms per launch on the device "
           f"(profiler, {count} runs traced), bound {bound_ms:.5f} ms per "
           f"launch (kernel {ms / bound_ms:.0f}x the bound), launches x "
@@ -1734,8 +1736,8 @@ def time_resident_solve(card, peak_int32, tag, c, cfg, res, phase=12):
 
 
 def plain_eps_ms(cm, calls, n=32):
-    """`fixpoint_batch` per ``[2, V]`` launch of EPS (CUDA events), over
-    the first `n` recorded splits."""
+    """`fixpoint_batch` per launch of EPS (CUDA events), over the first
+    `n` recorded batches of splits."""
     import torch
     from repro_torch.core import fixpoint as F
     stores = [(torch.from_numpy(c[0]).cuda(), torch.from_numpy(c[1]).cuda())
@@ -1755,8 +1757,8 @@ def phase_times(card, peak_int32, cases, launches, max_err):
         card, peak_int32, c.cm, c.lbs, c.ubs, "4", "J60 random stores")
     run = eps_launches_and_clocks(card, peak_int32, c.cm, "4", "J60")
     few_plain = plain_eps_ms(c.cm, run.calls)
-    print(f"[4] plain fixpoint_batch per [2, {c.cm.n_vars}] EPS launch: "
-          f"{few_plain:.3f} ms")
+    print(f"[4] plain fixpoint_batch per EPS launch (J60, "
+          f"{c.cm.n_vars} variables): {few_plain:.3f} ms")
     print(f"kernels: fixpoint_cuda launches={launches}")
     entry = dict(name="fixpoint_cuda", route="cuda", source=FIXPOINT_SOURCE,
                  replaces=FIXPOINT_REPLACES, launches=launches,

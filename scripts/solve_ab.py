@@ -10,7 +10,7 @@ Each root runs in a process of its own, which imports that root's
 For J60, J120, J120 × 10⁷ (every duration scaled: an int64 model) and
 N-queens 32 it traces `eps.decompose` to 4096 subproblems with
 ``torch.profiler`` and prints the device ms of one `fixpoint_cuda`
-launch (the root's ``[1, V]`` and every split's ``[2, V]``), its bound
+launch (the root's ``[1, V]`` and every batch of splits), its bound
 and the traced EPS wall (``chip_smoke.time_eps_launches`` of the
 repository this script is in); then it solves J60 and J120 through
 ``cuda_resident`` (1024 lanes, K = 16, preset ``prove``) and prints the

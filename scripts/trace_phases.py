@@ -9,7 +9,8 @@ machine's card:
 Each run is ``perfbench/run.py``'s (`harness.run_cell`), traced unless
 ``--trace 0``, and prints one JSON line: the per-layer metrics (the
 end-to-end ones untraced) and ``correct``, each phase's count and
-seconds summed over the window's solves, the least share of a solve's
+seconds and each count of work (``eps.splits``, ``eps.spec``) summed
+over the window's solves, the least share of a solve's
 ``wall_s`` that its phases cover, each solve's ``eps_s``; traced, also
 the clock of ``perfbench/spans.py`` (its segments, the launches matched,
 the launches that bounded nothing, the share of the others in segments
@@ -66,7 +67,7 @@ def one_run(spec, seed, seconds, trace, log):
     if not kept:
         return line
     run = kept[0]
-    phases, cover = {}, []
+    phases, tallies, cover = {}, {}, []
     for sv in run.solves:
         tr = spans.trace_of(sv)
         if tr is None:
@@ -74,8 +75,11 @@ def one_run(spec, seed, seconds, trace, log):
         for k, (n, s) in tr.phases.items():
             c, t = phases.get(k, (0, 0.0))
             phases[k] = (c + n, t + s)
+        for k, n in getattr(tr, "tallies", {}).items():
+            tallies[k] = tallies.get(k, 0) + n
         cover.append(tr.seconds() / sv.result.wall_s)
-    line.update(phases=phases, least_cover=min(cover) if cover else None,
+    line.update(phases=phases, tallies=tallies,
+                least_cover=min(cover) if cover else None,
                 eps_s=[sv.result.eps_s for sv in run.solves
                        if sv.result is not None])
     if not trace:

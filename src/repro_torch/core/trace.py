@@ -6,14 +6,14 @@ solve from its start to its result, less the time a consumer spends
 between the solve's events:
 
 =============  ==========================================================
-``eps.host``   `eps.decompose`'s host work: the frontier, the children's
-               stores, the pool
-``eps.stage``  a split's staging: its host stores to the device and the
+``eps.host``   `eps.decompose`'s host work: the frontier, the replay of
+               its splits, each batch's children's stores, the pool
+``eps.stage``  a batch's staging: its host stores to the device and the
                kernel wrapper's checks and arguments
-``eps.launch`` the two-store launch's enqueue (from just before the
+``eps.launch`` the batch's launch's enqueue (from just before the
                kernel's launch call; on the CPU the plain version's run)
                up to `fixpoint_batch`'s return
-``eps.wait``   the copy of the split's fixpoints back (``.cpu()``)
+``eps.wait``   the copy of the batch's fixpoints back (``.cpu()``)
 ``pool``       the pool's padding and its copy to the device
 ``init``       the lanes' initialisation
 ``search.host`` per quantum, the host work before the enqueue: under
@@ -33,7 +33,10 @@ between the solve's events:
 
 Every phase keeps a count and a total (`SolveTrace.phases`), always:
 a switch is one clock read and a dictionary update, about a
-microsecond.  While a ``torch.profiler`` records, or inside
+microsecond.  Beside them the trace keeps counts of work
+(`SolveTrace.tallies`, always): ``eps.splits``, the splits
+`eps.decompose`'s rule took, and ``eps.spec``, the splits its batches
+propagated.  While a ``torch.profiler`` records, or inside
 `recording()`, the trace also keeps each span as ``(name, t0_ns,
 t1_ns)`` (`SolveTrace.spans`) and each kernel launch as ``(kernel,
 t_ns)`` (`SolveTrace.launches`: the kernel the wrapper enqueued, as the
@@ -43,7 +46,7 @@ device's trace.
 
 Calls that `solve_iter` makes (`eps.decompose`, `_run_chunk` and the
 kernel wrappers under it) reach the current solve's trace through a
-context variable (`active`, `mark`, `launch`), set only around those
+context variable (`active`, `mark`, `launch`, `tally`), set only around those
 calls, so that their signatures stay as they are.  A kernel wrapper
 calls `launch` just before its enqueue; that opens the launch phase
 only from the phase that `LAUNCH_PHASE` names, and leaves any other
@@ -89,17 +92,19 @@ class SolveTrace:
     """The phases of one solve: a count and nanoseconds per phase, and
     while the timeline is on (`timeline_on`, read once at construction)
     the spans ``(name, t0_ns, t1_ns)`` and the kernel launches
-    ``(kernel, t_ns)`` in order.  Opens `first` at construction;
+    ``(kernel, t_ns)`` in order; and counts of work by name
+    (`tallies`).  Opens `first` at construction;
     `switch` closes the open phase and opens another, `pause` closes it
     and opens none."""
 
-    __slots__ = ("_acc", "spans", "launches", "_name", "_t")
+    __slots__ = ("_acc", "spans", "launches", "tallies", "_name", "_t")
 
     def __init__(self, first: Optional[str] = None):
         self._acc: Dict[str, List[int]] = {}
         on = timeline_on()
         self.spans: Optional[List[Tuple[str, int, int]]] = [] if on else None
         self.launches: Optional[List[Tuple[str, int]]] = [] if on else None
+        self.tallies: Dict[str, int] = {}
         self._name = first
         self._t = _clock()
 
@@ -122,6 +127,10 @@ class SolveTrace:
     def pause(self) -> None:
         """Close the open phase; the next `switch` opens one again."""
         self.switch(None)
+
+    def tally(self, name: str, n: int) -> None:
+        """Add `n` to the count `name` (`tallies`)."""
+        self.tallies[name] = self.tallies.get(name, 0) + n
 
     def launch(self, kernel: str) -> None:
         """`kernel` is about to be enqueued: open the launch phase of
@@ -148,9 +157,10 @@ class SolveTrace:
 
     def table(self) -> List[str]:
         """One line per phase: seconds, count and mean, in the order
-        the solve first entered them."""
+        the solve first entered them; then one per tally."""
         return [f"{k:<14} {ns / 1e9:10.4f} s {n:8d}x {ns / n / 1e3:10.1f} us"
-                for k, (n, ns) in self._acc.items()]
+                for k, (n, ns) in self._acc.items()] + \
+            [f"{k:<14} {n:12d}" for k, n in self.tallies.items()]
 
 
 @contextlib.contextmanager
@@ -178,3 +188,10 @@ def launch(kernel: str) -> None:
     tr = _current.get()
     if tr is not None:
         tr.launch(kernel)
+
+
+def tally(name: str, n: int) -> None:
+    """Add `n` to the active trace's count `name`, if there is one."""
+    tr = _current.get()
+    if tr is not None:
+        tr.tally(name, n)

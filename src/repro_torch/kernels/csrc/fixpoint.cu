@@ -18,7 +18,7 @@
 // the many-lane instance, 256 threads, for launches over more lanes than
 // the card has SMs (the `cuda` backend's supersteps over 1024 lanes),
 // built for throughput; and the few-lane instance, 1024 threads and one
-// CTA per SM, for EPS's root and its 2-lane splits, built for one lane's
+// CTA per SM, for EPS's root and its batches of splits, built for one lane's
 // latency: 32 warps hide shared-memory latency, and every phase maps its
 // work to more threads (fixpoint_lane.cuh has the mapping).
 //

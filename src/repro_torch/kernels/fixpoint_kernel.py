@@ -70,7 +70,8 @@ def instance_threads(n_lanes: int, n_sms: int) -> int:
     `n_lanes` lanes takes on a card of `n_sms` SMs: the few-lane
     instance (FEW_THREADS, one CTA per SM) while every lane has an SM of
     its own, the many-lane one (THREADS) beyond.  EPS's root ``[1, V]``
-    and split ``[2, V]`` launches take the first, the ``cuda`` backend's
+    and its batches of splits (two stores a split, up to one store per
+    SM: `eps.batch_size`) take the first, the ``cuda`` backend's
     supersteps over 1024 lanes the second."""
     return FEW_THREADS if n_lanes <= n_sms else THREADS
 
